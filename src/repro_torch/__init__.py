@@ -1,0 +1,10 @@
+"""Lightweight Parallel Foundations on PyTorch and CUDA.
+
+The port of the JAX package ``repro`` to one NVIDIA H100: the LPF core
+over ``p`` virtual processes stacked in one device process
+(:mod:`repro_torch.core`), the immortal BSP FFT
+(:mod:`repro_torch.algorithms`), and the hand-written CUDA kernels that
+replace the JAX package's Pallas kernels (:mod:`repro_torch.kernels`,
+sources in ``csrc/``).  It imports ``torch`` and numpy, never ``jax`` and
+nothing of ``repro``.
+"""

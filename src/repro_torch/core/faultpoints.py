@@ -1,0 +1,45 @@
+"""Fault-injection seams — a stdlib-only shim.
+
+Production code marks its failure seams by calling into this module; an
+injector arms itself by installing into :data:`_INJECTOR`.  Every seam
+entry point is a single ``is None`` check, so with no injector armed the
+executed path is the same as a build without fault injection.
+
+Seams used by this port so far: ``capacity``
+(:meth:`repro_torch.core.context.LPFContext._stage` — injected capacity
+exhaustion, a mitigable ``LPFCapacityError``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+__all__ = ["InjectedFault", "fire"]
+
+
+class InjectedFault(RuntimeError):
+    """An infrastructure failure injected by an armed fault plan.
+
+    Deliberately NOT an :class:`repro_torch.core.errors.LPFError`: it
+    stands in for the exception an external layer (the CUDA runtime, the
+    OS) would raise.  :func:`repro_torch.core.errors.classify` files it
+    as ``"transient"``."""
+
+
+#: the armed injector (an object with ``fire(seam, **info)``), or
+#: ``None`` — the zero-fault fast path
+_INJECTOR = None
+
+
+def fire(seam: str, **info) -> None:
+    """Raise the armed plan's exception for ``seam``, if any is due."""
+    if _INJECTOR is not None:
+        _INJECTOR.fire(seam, **info)
+
+
+def _install(injector) -> Optional[object]:
+    """Arm/disarm (``injector=None``) the process-wide injector; returns
+    the previously armed one."""
+    global _INJECTOR
+    prev, _INJECTOR = _INJECTOR, injector
+    return prev
