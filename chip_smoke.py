@@ -28,6 +28,36 @@ failure is caught.  Phases:
    estimators: g from the two ends of the sweep, l from the smallest);
 7. a ``{"kernels": [...]}`` line, the card line again, and the final
    ``{"ok": true, "device": ...}`` line.
+
+The llama3.2-1b serving path (random weights from ``SEED``, compute in
+bf16) adds, between phases 6 and 7:
+
+(a) the build of phase 2 covers ``flash_attention_fwd`` too (both sources
+    compile in parallel, each with its ``-Xptxas -v`` report);
+(b) ``flash_attention_fwd`` against its plain version on the card at the
+    JAX kernel tests' seven shapes and the prefill's main shape
+    [4, 32, 2048, 64] bf16, causal, Hkv 8: o within 2e-5 (f32) / 2e-2
+    (bf16), and in bf16 also each row's error within 2^-6 of the row's
+    largest |o_plain| (two bf16 ulps); lse within 1e-4; in bf16 the kernel
+    against
+    a plain version that rounds P to bf16 as the kernel does, beside the
+    f32-P one; kernel, plain and SDPA milliseconds and the bound (SDPA is
+    timed beside the kernel only; the port never calls it);
+(c) prefill at full width (B 4, S 2048, ``attn_impl="flash"``): 16 kernel
+    launches, last-position logits within 2e-2 (relative) of the same
+    prefill with ``attn_impl="reference"``; host milliseconds and tokens/s;
+(d) teacher-forced decode at full width (B 1): 64 ``decode_step`` calls
+    against ``prefill`` of the 64-token prompt, and a 96-token prompt
+    through a 64-slot rolling cache against prefill with window 65, each
+    within 0.08 (relative);
+(e) serving at full width: ``ModelDecodeEngine`` buckets (2, 256) and
+    (4, 256) behind ``LPFServer``, 8 ``synthetic_requests`` (seed 0, at
+    most 32 tokens): no deadline miss, an empty queue after the drain,
+    every refusal classified, every completed stream bit-identical to a
+    solo re-decode; ms per token of each bucket and tokens/s;
+(f) last, ``torch.profiler`` over one prefill and one decode step:
+    device time by kernel family, kernel launches, and the device's idle
+    share.
 """
 
 from __future__ import annotations
@@ -51,6 +81,27 @@ KERNEL_SHAPES = [(1, 64), (4, 256), (8, 1024), (3, 4096),
 # data-sheet peaks of one H100 SXM (at its 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+
+ARCH = "llama3.2-1b"
+PREFILL_B, PREFILL_S = 4, 2048          # the serving path's prefill
+TEACHER_S, ROLL_S, ROLL_C = 64, 96, 64  # phase (d) prompts and cache
+SERVE_BUCKETS = [(2, 256), (4, 256)]
+# the JAX kernel tests' sweep (tests/test_kernels.py), then the prefill's
+# main shape; B, H, Hkv, S, D, causal, window, softcap, dtype
+FLASH_SHAPES = [
+    (1, 2, 2, 128, 64, True, None, None, "float32"),
+    (2, 4, 2, 256, 64, True, None, None, "float32"),
+    (1, 4, 1, 128, 128, False, None, None, "float32"),
+    (1, 2, 2, 256, 64, True, 64, None, "float32"),
+    (1, 2, 2, 128, 64, True, None, 30.0, "float32"),
+    (1, 2, 1, 192, 64, True, None, None, "float32"),
+    (1, 2, 2, 128, 64, True, None, None, "bfloat16"),
+    (PREFILL_B, 32, 8, PREFILL_S, 64, True, None, None, "bfloat16"),
+]
+# bf16 o row by row: |o - o_plain| within 2^-6 of the row's largest
+# |o_plain|, two bf16 ulps of it (rounding o gives one, rounding P less)
+BF16_ROW_BAR = 2.0 ** -6
 
 
 def check(cond: bool, what: str) -> None:
@@ -113,6 +164,253 @@ def fft_bound_ms(batch: int, n: int) -> tuple:
                                        else "operations")
 
 
+def flash_bound_ms(B, H, Hkv, S, D, causal, window, itemsize) -> tuple:
+    """Least time for flash attention on these inputs: q, k, v read and
+    o, lse written once, or the two products over the (q, k) pairs the
+    masks keep (4 D flops per pair) at the dtype's peak."""
+    q = np.arange(S)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(S, int)
+    hi = q + 1 if causal else np.full(S, S)
+    pairs = float(np.sum(hi - lo))
+    t_ops = 4.0 * B * H * D * pairs / (BF16_FLOPS if itemsize == 2
+                                       else FP32_FLOPS)
+    nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * itemsize \
+        + B * H * S * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def row_err(o, o_p) -> float:
+    """Largest |o - o_p| over its row's largest |o_p| (rows along D)."""
+    o, o_p = o.float(), o_p.float()
+    rmax = o_p.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    return ((o - o_p).abs() / rmax).max().item()
+
+
+def flash_phase(rng, dev, shapes=FLASH_SHAPES) -> list:
+    """(b): the CUDA kernel against its plain version at every shape."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for B, H, Hkv, S, D, causal, window, softcap, dt in shapes:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev, dtype)
+            for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        o, lse = fa_kernel.flash_attention_fwd(q, k, v, **kw)
+        o_p, lse_p = fa_ref.flash_attention_fwd_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (o.float() - o_p.float()).abs().max().item()
+        lse_err = (lse - lse_p).abs().max().item()
+        bar = 2e-5 if dt == "float32" else 2e-2
+        bf16 = {}
+        if dt == "bfloat16":
+            # the kernel rounds P to bf16 before P V; the plain version
+            # keeps it in f32 as the TPU kernel does.  The P-rounded plain
+            # version shows that rounding's share of the error.
+            o_r, _ = fa_ref.flash_attention_fwd_ref(q, k, v, round_p=True,
+                                                    **kw)
+            bf16 = dict(row_err=row_err(o, o_p),
+                        round_p_shift=(o_r.float() - o_p.float()).abs()
+                        .max().item(),
+                        err_vs_round_p=(o.float() - o_r.float()).abs()
+                        .max().item(),
+                        row_err_vs_round_p=row_err(o, o_r))
+            del o_r
+        bound_ms, bound_by = flash_bound_ms(B, H, Hkv, S, D, causal, window,
+                                            q.element_size())
+        library_ms = None
+        if window is None and softcap is None:
+            # SDPA computes the same function only without window/softcap
+            library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=causal,
+                                              enable_gqa=H != Hkv))
+        row = dict(shape=[B, H, Hkv, S, D], causal=causal, window=window,
+                   softcap=softcap, dtype=dt, max_abs_err=err,
+                   lse_err=lse_err, bar=bar, **bf16,
+                   ms=cuda_ms(lambda: fa_kernel.flash_attention_fwd(
+                       q, k, v, **kw)),
+                   plain_ms=cuda_ms(lambda: fa_ref.flash_attention_fwd_ref(
+                       q, k, v, **kw), reps=5, warmup=1),
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        rows.append(row)
+        print("flash_attention_fwd " + json.dumps(row), flush=True)
+        check(err < bar, f"flash_attention_fwd {row['shape']} {dt}: o err "
+                         f"{err} >= {bar}")
+        check(lse_err < 1e-4, f"flash_attention_fwd {row['shape']} {dt}: "
+                              f"lse err {lse_err}")
+        check(bf16.get("row_err", 0.0) <= BF16_ROW_BAR,
+              f"flash_attention_fwd {row['shape']} {dt}: row error "
+              f"{bf16.get('row_err')} > 2^-6 of the row's largest |o|")
+        del q, k, v, o, lse, o_p, lse_p
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rel_err(a, ref) -> float:
+    a, ref = a.float(), ref.float()
+    return ((a - ref).abs().max() / ref.abs().max()).item()
+
+
+def kernel_family(name: str) -> str:
+    n = name.lower()
+    if "fa_fwd" in n:
+        return "flash_attention_fwd"
+    if any(t in n for t in ("gemm", "cutlass", "xmma", "nvjet", "cublas",
+                            "sm90_")):
+        return "gemm"
+    if "reduce" in n:
+        return "reduce (norm means)"
+    if "copy" in n or "cat" in n or "index" in n or "gather" in n:
+        return "copy, cast, gather (layout swaps, embedding)"
+    if "elementwise" in n:
+        return "elementwise (norm scale, rope, silu, residual)"
+    return "other"
+
+
+def profile_families(label: str, run, wall_ms: float) -> dict:
+    """(f): where one call's device time goes, by kernel family, with its
+    kernel launches, and the device's idle share of the call's
+    unprofiled host wall time ``wall_ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    fam: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and e.self_device_time_total > 0:
+            f = fam.setdefault(kernel_family(e.key),
+                               dict(kernels=0, launches=0, device_us=0.0))
+            f["kernels"] += 1
+            f["launches"] += e.count
+            f["device_us"] += e.self_device_time_total
+    busy_us = sum(f["device_us"] for f in fam.values())
+    out = dict(wall_us=wall_ms * 1e3, device_busy_us=busy_us,
+               launches=sum(f["launches"] for f in fam.values()),
+               idle_share=1.0 - busy_us / (wall_ms * 1e3),
+               families=dict(sorted(fam.items(),
+                                    key=lambda kv: -kv[1]["device_us"])))
+    print(f"{label} profile " + json.dumps(out), flush=True)
+    check(busy_us > 0, f"profiler recorded no device time in {label}")
+    return out
+
+
+def serving_phases(rng, dev) -> dict:
+    """(c)-(f): the llama3.2-1b serving path at full width."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.serve import ModelDecodeEngine, serve
+    from repro_torch.models import (Group, Runtime, cast_params,
+                                    decode_step, init_caches, init_params,
+                                    prefill)
+
+    cfg = dataclasses.replace(get_config(ARCH), attn_impl="flash")
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    rt = Runtime(dev)
+    t0 = time.perf_counter()
+    params = cast_params(init_params(SEED, cfg, device=dev), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{ARCH}: {n_params} parameters, init + cast to "
+          f"{cfg.compute_dtype} {time.perf_counter() - t0:.2f} s", flush=True)
+    out = {}
+
+    # (c) prefill at full width ------------------------------------------
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S))).to(dev)}
+    fa_kernel.flash_attention_fwd.launches = 0
+    logits = prefill(params, batch, cfg, rt)
+    torch.cuda.synchronize()
+    launches = fa_kernel.flash_attention_fwd.launches
+    ref_logits = prefill(params, batch, ref_cfg, rt)
+    rel = rel_err(logits[:, :cfg.vocab], ref_logits[:, :cfg.vocab])
+    check(logits.shape == (PREFILL_B, cfg.vocab_padded)
+          and bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
+          "prefill logits shape/finite")
+    check(launches == cfg.n_layers,
+          f"prefill launched flash_attention_fwd {launches} times, not "
+          f"{cfg.n_layers}")
+    check(rel < 2e-2, f"prefill flash vs reference rel err {rel}")
+    del ref_logits
+    ms = host_ms(lambda: prefill(params, batch, cfg, rt))
+    ref_ms = host_ms(lambda: prefill(params, batch, ref_cfg, rt), reps=3,
+                     warmup=1)
+    out["prefill"] = dict(
+        batch=PREFILL_B, seq=PREFILL_S, flash_launches=launches,
+        rel_err_vs_reference=rel, e2e_ms=ms,
+        tokens_per_s=PREFILL_B * PREFILL_S / (ms * 1e-3),
+        e2e_ms_reference_attention=ref_ms)
+    print("prefill " + json.dumps(out["prefill"]), flush=True)
+
+    # (d) teacher-forced decode against prefill ---------------------------
+    def teacher(tcfg, S, cache_len):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S))).to(dev)
+        want = prefill(params, {"tokens": toks}, tcfg, rt)
+        caches = init_caches(tcfg, 1, cache_len, device=dev)
+        t1 = time.perf_counter()
+        for t in range(S):
+            _, got, caches = decode_step(params, toks[:, t], caches, t, tcfg,
+                                         rt)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) * 1e3 / S
+        return rel_err(got[:, :cfg.vocab], want[:, :cfg.vocab]), step_ms
+
+    rel_t, step_ms = teacher(cfg, TEACHER_S, TEACHER_S)
+    wcfg = dataclasses.replace(cfg, groups=tuple(
+        Group(g.name, tuple(dataclasses.replace(b, window=ROLL_C + 1)
+                            for b in g.blocks), g.repeats)
+        for g in cfg.groups))
+    rel_r, _ = teacher(wcfg, ROLL_S, ROLL_C)
+    out["teacher"] = dict(prompt=TEACHER_S, rel_err=rel_t,
+                          decode_ms_per_step_b1=step_ms,
+                          rolling_prompt=ROLL_S, rolling_cache=ROLL_C,
+                          rolling_rel_err=rel_r)
+    print("teacher-forced decode " + json.dumps(out["teacher"]), flush=True)
+    check(rel_t < 0.08, f"teacher-forced decode vs prefill rel err {rel_t}")
+    check(rel_r < 0.08, f"rolling-cache decode vs windowed prefill rel err "
+                        f"{rel_r}")
+
+    # (e) serving behind LPFServer ----------------------------------------
+    eng = ModelDecodeEngine(cfg, SERVE_BUCKETS, params=params, device=dev)
+    buckets = {str(b): dict(ms_per_token=eng.token_seconds(b) * 1e3,
+                            ms_per_call=eng.overhead_seconds(b) * 1e3)
+               for b in eng.buckets()}
+    res = serve(eng, requests=8, seed=0, max_tokens=32, check=True)
+    health = res["health"]
+    check(res["completed"] >= 1, "no request completed")
+    check(res["solo_identical"] == res["completed"],
+          "batched streams differ from solo decodes")
+    out["serve"] = dict(buckets=buckets, completed=res["completed"],
+                        tokens=res["tokens"], wall_s=res["wall_s"],
+                        tokens_per_s=res["tokens_per_s"],
+                        solo_identical=res["solo_identical"],
+                        **{k: health[k] for k in (
+                            "admitted", "rejected_total", "shed",
+                            "deadline_misses", "batches", "queue_depth")})
+    print("serve " + json.dumps(out["serve"]), flush=True)
+
+    # (f) profiles last: after a torch.profiler session the host's eager
+    # dispatch may run slower, which would skew the decode timings above
+    out["profile"] = profile_families(
+        "prefill", lambda: prefill(params, batch, cfg, rt), ms)
+    B, C = SERVE_BUCKETS[-1]
+    caches = init_caches(cfg, B, C, device=dev)
+    tok = torch.zeros(B, dtype=torch.long, device=dev)
+    step = lambda: decode_step(params, tok, caches, C // 2, cfg, rt)
+    out["decode_profile"] = profile_families(
+        f"decode step (B {B}, cache {C})", step, host_ms(step))
+    return out
+
+
 def profile_bsp_fft(bsp_fft, x, wall_ms: float) -> dict:
     """Where one ordered ``bsp_fft`` call's time goes: device time of each
     kernel (``torch.profiler``, device-side events only), and the device's
@@ -164,7 +462,7 @@ def main() -> int:
 
     # 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    built = build.build(["fft_stage"])
+    built = build.build(["fft_stage", "flash_attention_fwd"])
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s ({', '.join(built)})", flush=True)
     for res in built.values():
@@ -194,6 +492,7 @@ def main() -> int:
             check(rel < bar, f"fft_planes {batch}x{n} inverse={inverse}: "
                              f"rel err {rel} >= {bar}")
             del y_k, y_p
+    flash_rows = flash_phase(np.random.default_rng([SEED, 1]), dev)
 
     # 4. README quickstart through exec_ on the card -------------------------
     def quickstart(ctx, s, p, args):
@@ -303,6 +602,9 @@ def main() -> int:
     print("link fit " + json.dumps(fit), flush=True)
     check(g > 0 and l > 0, f"link fit g={g} l={l}")
 
+    # (c)-(f) the llama3.2-1b serving path ---------------------------------
+    serving = serving_phases(np.random.default_rng([SEED, 2]), dev)
+
     # 7. result lines ----------------------------------------------------------
     big = [r for r in rows if r["n"] == N_MAIN // P_MAIN and not r["inverse"]][0]
     bound_ms, bound_by = fft_bound_ms(big["batch"], big["n"])
@@ -312,7 +614,16 @@ def main() -> int:
         replaces="src/repro/kernels/fft_stage/kernel.py:64",
         launches=launches, max_abs_err=big["max_abs_err"], ms=big["ms"],
         plain_ms=big["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=big["library_ms"])]}
+        library_ms=big["library_ms"]), dict(
+        name="flash_attention_fwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_fwd.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:90",
+        launches=serving["prefill"]["flash_launches"],
+        max_abs_err=flash_rows[-1]["max_abs_err"], ms=flash_rows[-1]["ms"],
+        plain_ms=flash_rows[-1]["plain_ms"],
+        bound_ms=flash_rows[-1]["bound_ms"],
+        bound_by=flash_rows[-1]["bound_by"],
+        library_ms=flash_rows[-1]["library_ms"])]}
     print(json.dumps(kernels), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

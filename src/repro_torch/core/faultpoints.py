@@ -5,16 +5,23 @@ injector arms itself by installing into :data:`_INJECTOR`.  Every seam
 entry point is a single ``is None`` check, so with no injector armed the
 executed path is the same as a build without fault injection.
 
-Seams used by this port so far: ``capacity``
+Seams the port fires so far (:data:`SEAMS`): ``capacity``
 (:meth:`repro_torch.core.context.LPFContext._stage` — injected capacity
-exhaustion, a mitigable ``LPFCapacityError``).
+exhaustion, a mitigable ``LPFCapacityError``), ``serve_admit`` and
+``serve_decode`` (:class:`repro_torch.runtime.server.LPFServer` —
+admission and decode faults, refused or retried classified).  The JAX
+package's other seams (``persist_save``, ``persist_load``, ``compile``,
+``straggler``) come with the modules that fire them (ROADMAP A4, A7).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-__all__ = ["InjectedFault", "fire"]
+__all__ = ["InjectedFault", "SEAMS", "fire"]
+
+#: the seams the port fires; an injector's plan may target these
+SEAMS = ("capacity", "serve_admit", "serve_decode")
 
 
 class InjectedFault(RuntimeError):

@@ -15,7 +15,11 @@ same data to both packages:
 * :func:`hardware_from_fields` — a port
   :class:`~repro_torch.core.HardwareModel` from another model's
   ``dataclasses.asdict``, so both packages' ledgers can be priced on one
-  machine without the port holding that machine's constants.
+  machine without the port holding that machine's constants;
+* :func:`params_from_jax` / :func:`params_to_numpy` — a model's
+  parameters between the JAX package's ``init_params`` tree, as numpy
+  arrays (``jax.tree.map(np.asarray, tree)``), and the port's
+  :class:`~repro_torch.models.lm.ParamTree`.
 """
 
 from __future__ import annotations
@@ -24,12 +28,17 @@ from typing import Any, Dict, Iterable, List, Mapping, Tuple
 
 import numpy as np
 
+import torch
+
+from .core.context import resolve_device
 from .core.machine import HardwareModel, LinkModel
 from .core.memslot import Slot, as_torch_dtype
 from .core.sync import Msg
+from .models.lm import ParamTree
 
 __all__ = ["cyclic_scatter", "cyclic_gather", "unordered_to_natural",
-           "msgs_from_table", "hardware_from_fields"]
+           "msgs_from_table", "hardware_from_fields", "params_from_jax",
+           "params_to_numpy"]
 
 Row = Tuple[int, int, int, int, int, int, int, str]
 
@@ -86,3 +95,24 @@ def hardware_from_fields(fields: Mapping[str, Any]) -> HardwareModel:
     f["links"] = {k: LinkModel(**v) if isinstance(v, Mapping) else v
                   for k, v in f["links"].items()}
     return HardwareModel(**f)
+
+
+def params_from_jax(tree: Mapping[str, Any], *, device="cuda") -> ParamTree:
+    """The port's parameters from the JAX package's ``init_params`` tree
+    as numpy arrays: the same names, and each leaf copied as it is —
+    group leaves stacked ``[repeats, ...]``, matrices ``[in, out]``."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        return {k: conv(v) if isinstance(v, Mapping)
+                else torch.from_numpy(np.array(v, copy=True)).to(dev)
+                for k, v in t.items()}
+    return ParamTree(conv(tree))
+
+
+def params_to_numpy(params: ParamTree) -> Dict[str, Any]:
+    """The nested dict of numpy arrays :func:`params_from_jax` takes."""
+    def conv(t):
+        return {k: conv(v) if isinstance(v, dict)
+                else v.detach().cpu().numpy() for k, v in t.items()}
+    return conv(params.tree())

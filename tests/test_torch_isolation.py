@@ -4,7 +4,9 @@
   the JAX package ``repro`` (an AST scan, and a fresh interpreter that
   imports the whole port and finds no ``jax`` loaded);
 * entry points asked for no device run on the card: without one they
-  raise, they never carry on on the CPU;
+  raise, they never carry on on the CPU (the LPF core, the FFT, and the
+  serving path: ``init_params``, ``prefill``, ``decode_step``,
+  ``build_serve_buckets``, ``ModelDecodeEngine``, the serve launcher);
 * a CPU tensor takes the plain version and launches nothing; the CUDA
   wrapper refuses a CPU tensor, and a missing ``nvcc`` raises instead of
   falling back.
@@ -24,10 +26,17 @@ from repro_torch.algorithms import bsp_fft
 from repro_torch.kernels import build
 from repro_torch.kernels.fft_stage import kernel as fft_kernel
 from repro_torch.kernels.fft_stage import ops as fft_ops
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+PORT_ROOT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT_ROOT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+#: every module of the port, found by walking the tree
+PORT_MODULES = sorted(
+    ".".join(("repro_torch",) + p.relative_to(PORT_ROOT).with_suffix("")
+             .parts).removesuffix(".__init__")
+    for p in PORT_ROOT.rglob("*.py"))
 
 
 def _imported_modules(path: Path):
@@ -49,11 +58,12 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 
 def test_fresh_interpreter_loads_no_jax():
-    code = ("import sys, repro_torch, repro_torch.core, repro_torch.interop, "
-            "repro_torch.algorithms, repro_torch.kernels.build, "
-            "repro_torch.kernels.fft_stage.ops; "
+    assert "repro_torch.launch.serve" in PORT_MODULES
+    assert "repro_torch.kernels.flash_attention.kernel" in PORT_MODULES
+    code = ("import importlib, sys\n"
+            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]; print(bad); "
+            "('jax', 'jaxlib', 'repro')]; print(bad)\n"
             "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
@@ -74,9 +84,41 @@ def test_entry_points_refuse_without_a_card():
     assert bsp_fft(x, p=8, device="cpu").device.type == "cpu"
 
 
+def test_serving_entry_points_refuse_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points run on it")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import (Runtime, decode_step, init_caches,
+                                    init_params, prefill)
+    from repro_torch.runtime.train_step import build_serve_buckets
+    cfg = get_config("llama3.2-1b", smoke=True)
+    params = init_params(0, cfg, device="cpu")
+    caches = init_caches(cfg, 1, 4, device="cpu")
+    calls = [
+        lambda: init_params(0, cfg),
+        lambda: init_caches(cfg, 1, 4),
+        lambda: Runtime(),
+        lambda: prefill(params, {"tokens": [[1, 2]]}, cfg),
+        lambda: decode_step(params, [1], caches, 0, cfg),
+        lambda: build_serve_buckets(cfg, [(1, 8)]),
+        lambda: serve.ModelDecodeEngine(cfg, [(1, 8)]),
+        lambda: serve.main(["--requests", "1"]),
+    ]
+    for call in calls:
+        with pytest.raises(tlpf.LPFFatalError, match="cuda"):
+            call()
+    assert prefill(params, {"tokens": [[1, 2]]}, cfg,
+                   Runtime("cpu")).device.type == "cpu"
+
+
 def test_cpu_tensor_takes_the_plain_version():
     fft_kernel.fft_planes.launches = 0
     fft_kernel.fft_planes.cuda_launches = 0
+    fa_kernel.flash_attention_fwd.launches = 0
+    q = torch.randn(1, 4, 16, 32)
+    fa_ops.flash_attention(q, q[:, :2], q[:, :2])
+    assert fa_kernel.flash_attention_fwd.launches == 0
     x = torch.randn(4, 256, dtype=torch.complex64)
     fft_ops.fft(x)
     fft_ops.ifft(x)
@@ -89,6 +131,11 @@ def test_cpu_tensor_takes_the_plain_version():
 def test_cuda_wrapper_never_falls_back(monkeypatch):
     with pytest.raises(tlpf.LPFFatalError, match="CUDA tensor"):
         fft_kernel.fft_planes(torch.zeros(2, 8, dtype=torch.complex64))
+    q = torch.zeros(1, 2, 8, 32)
+    with pytest.raises(tlpf.LPFFatalError, match="CUDA tensors"):
+        fa_kernel.flash_attention_fwd(q, q, q)
+    with pytest.raises(tlpf.LPFFatalError, match="B3"):
+        fa_ops.flash_attention(q.clone().requires_grad_(), q, q)
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setattr(build, "TOOLKIT_NVCC", Path("/nonexistent/nvcc"))
     with pytest.raises(tlpf.LPFFatalError, match="nvcc not found"):
