@@ -58,6 +58,40 @@ bf16) adds, between phases 6 and 7:
 (f) last, ``torch.profiler`` over one prefill and one decode step:
     device time by kernel family, kernel launches, and the device's idle
     share.
+
+The llama3.2-1b training path (f32 masters, bf16 compute, ``remat="full"``,
+``attn_impl="flash"``) adds, after (f):
+
+(g) the build of phase 2 covers ``flash_attention_bwd`` too; its two
+    kernels (``flash_attention_bwd_dkv``, ``flash_attention_bwd_dq``)
+    against the plain ``flash_attention_bwd_ref`` on the card at the same
+    eight shapes, the training path's [4, 32, 2048, 64] bf16 causal, Hkv 8
+    last: in f32 each gradient within 5e-4 of the largest plain one (the
+    JAX backward test's bar); in bf16 each row of dq, dk, dv within 2^-6 of
+    the row's largest |plain| (``grad_row_err``), also against the plain
+    version with ``round_p=True``; each kernel's milliseconds, the plain
+    version's and SDPA's backward (timed beside the kernels only; the port
+    never calls it), and each kernel's bound;
+(h) training at full width: ``train_loop`` over ``build_train_step`` with
+    AdamW (lr ``warmup_cosine(3e-3, 10, steps)``) on ``SyntheticStream``
+    seed 0 at B 4 x S 2048 for ``TRAIN_STEPS`` steps: every loss finite,
+    the step-0 loss within 1e-2 (relative) of ``loss_fn`` with
+    ``attn_impl="reference"`` on the same batch and parameters, per step
+    exactly 16 ``flash_attention_bwd_dkv`` and 16 ``flash_attention_bwd_dq``
+    launches and 32 ``flash_attention_fwd`` launches (16 in the forward,
+    16 in ``torch.utils.checkpoint``'s recompute); then at B 1 x S 2048 the
+    flash model's gradients against the reference-attention model's, per
+    leaf and as a global norm (``GRAD_BARS``); step milliseconds (host
+    clock, median after ``TRAIN_WARMUP`` steps), tokens/s, model TFLOP/s
+    (6 N D per step; the remat recompute is not counted) and the peak
+    device memory, then the memory allocated at each stage of one more
+    step (``step_memory``); last, the loss witness: ``WITNESS_STEPS``
+    steps at B 1 of the flash and the reference-attention model under the
+    same schedule, their losses within ``WITNESS_BAR`` of each other, and
+    the flash model at B 4 under a 3e-4 peak, whose last loss must fall
+    below the initial weights' loss on the same batch;
+(i) last, ``torch.profiler`` over one training step: device time by
+    kernel family, launches, and the device's idle share.
 """
 
 from __future__ import annotations
@@ -102,6 +136,22 @@ FLASH_SHAPES = [
 # bf16 o row by row: |o - o_plain| within 2^-6 of the row's largest
 # |o_plain|, two bf16 ulps of it (rounding o gives one, rounding P less)
 BF16_ROW_BAR = 2.0 ** -6
+# the training path (h): B 4 x S 2048, TRAIN_STEPS steps, the first
+# TRAIN_WARMUP left out of the step time
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP = 4, 2048, 8, 2
+# (h) at B 1 x S 2048: the flash model's gradients against the
+# reference-attention model's, bf16 compute.  On the CPU at the smoke
+# config (2 layers, S 256 and 1024, seeds 0 and 1) the largest per-leaf
+# max|g_f - g_r| / max|g_r| was 1.1e-2, the global norms differed by
+# 1.4e-4 and |g_f - g_r| / |g_r| was 6.5e-3; the bars leave room for 16
+# layers: per leaf the JAX package's bf16 bar 0.08, the norm 1e-2, the
+# difference 0.05
+GRAD_BARS = dict(leaf=0.08, norm=1e-2, diff=0.05)
+# (h)'s loss witness: WITNESS_STEPS steps at B 1 x S 2048 of the flash and
+# the reference-attention model under (h)'s schedule; each step's losses
+# within WITNESS_BAR (relative) of each other, the step-0 bar's 1e-2
+# widened for the steps' bf16 differences compounding through AdamW
+WITNESS_STEPS, WITNESS_BAR = 4, 5e-2
 
 
 def check(cond: bool, what: str) -> None:
@@ -256,10 +306,337 @@ def rel_err(a, ref) -> float:
     return ((a - ref).abs().max() / ref.abs().max()).item()
 
 
+def grad_row_err(a, ref) -> float:
+    """Largest |a - ref| over its row's largest |ref| (rows along D), the
+    row's scale floored at 1e-3 of the tensor's largest |ref|: a row whose
+    gradient cancels to about 0 (the first query under the causal mask has
+    dS = P (dP - delta) = 0) holds only rounding."""
+    a, ref = a.float(), ref.float()
+    scale = ref.abs().amax(dim=-1, keepdim=True).clamp_min(
+        1e-3 * ref.abs().max().item())
+    return ((a - ref).abs() / scale).max().item()
+
+
+def kept_pairs(S, causal, window) -> float:
+    """The (q, k) pairs the masks keep in one [S, S] score square."""
+    q = np.arange(S)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(S, int)
+    hi = q + 1 if causal else np.full(S, S)
+    return float(np.sum(hi - lo))
+
+
+def flash_bwd_bound_ms(B, H, Hkv, S, D, causal, window, itemsize) -> dict:
+    """Least time of each backward kernel on these inputs: its products
+    over the kept (q, k) pairs at the dtype's peak (dK/dV: S^T, dP^T, dV,
+    dK, 8 D flops a pair; dQ: S, dP, dQ, 6 D), or its bytes at the memory
+    rate (q, k, v, dO, lse and delta read once; dk and dv, or dq, written
+    once), whichever is longer."""
+    peak = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
+    pairs = B * H * kept_pairs(S, causal, window)
+    ins = (2 * B * H * S * D + 2 * B * Hkv * S * D) * itemsize \
+        + 2 * B * H * S * 4
+    out = {}
+    for name, flops, written in (
+            ("flash_attention_bwd_dkv", 8.0 * D * pairs,
+             2 * B * Hkv * S * D * itemsize),
+            ("flash_attention_bwd_dq", 6.0 * D * pairs,
+             B * H * S * D * itemsize)):
+        t_ops, t_bytes = flops / peak, (ins + written) / HBM_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def flash_bwd_phase(rng, dev, shapes=FLASH_SHAPES) -> list:
+    """(g): the two backward kernels against their plain version."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for B, H, Hkv, S, D, causal, window, softcap, dt in shapes:
+        dtype = getattr(torch, dt)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev, dtype)
+            for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D),
+                          (B, H, S, D)))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        o, lse = fa_ref.flash_attention_fwd_ref(q, k, v, **kw)
+        got = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+        torch.cuda.synchronize()
+        names = ("dq", "dk", "dv")
+        err = {n: (a.float() - b.float()).abs().max().item()
+               for n, a, b in zip(names, got, want)}
+        row = dict(shape=[B, H, Hkv, S, D], causal=causal, window=window,
+                   softcap=softcap, dtype=dt, max_abs_err=err)
+        if dt == "float32":
+            row["rel_err"] = {n: rel_err(a, b)
+                              for n, a, b in zip(names, got, want)}
+            bad = {n: e for n, e in row["rel_err"].items() if e >= 5e-4}
+        else:
+            # the kernels round P and dS to bf16 before their products;
+            # the plain version with round_p=True does the same
+            want_r = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                                    round_p=True, **kw)
+            row["row_err"] = {n: grad_row_err(a, b)
+                              for n, a, b in zip(names, got, want)}
+            row["row_err_vs_round_p"] = {
+                n: grad_row_err(a, b) for n, a, b in zip(names, got, want_r)}
+            row["round_p_shift"] = {
+                n: (a.float() - b.float()).abs().max().item()
+                for n, a, b in zip(names, want_r, want)}
+            del want_r
+            bad = {n: e for n, e in {**row["row_err"], **{
+                f"{n} vs round_p": e for n, e in
+                row["row_err_vs_round_p"].items()}}.items()
+                if e > BF16_ROW_BAR}
+        del got, want
+        delta = (do.float() * o.float()).sum(dim=-1)
+        row["ms"] = {
+            "flash_attention_bwd_dkv": cuda_ms(
+                lambda: fa_kernel.flash_attention_bwd_dkv(
+                    q, k, v, do, lse, delta, **kw)),
+            "flash_attention_bwd_dq": cuda_ms(
+                lambda: fa_kernel.flash_attention_bwd_dq(
+                    q, k, v, do, lse, delta, **kw))}
+        # the plain version computes dq, dk and dv in one call
+        row["plain_ms"] = cuda_ms(lambda: fa_ref.flash_attention_bwd_ref(
+            q, k, v, o, do, lse, **kw), reps=5, warmup=1)
+        row["library_ms"] = None
+        if window is None and softcap is None:
+            # SDPA's backward computes the same (dq, dk, dv) only without
+            # window/softcap; one autograd call for both kernels' work
+            xs = [x.detach().requires_grad_() for x in (q, k, v)]
+            o_lib = sdpa(*xs, is_causal=causal, enable_gqa=H != Hkv)
+            row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                o_lib, xs, do, retain_graph=True))
+            del xs, o_lib
+        row["bound"] = flash_bwd_bound_ms(B, H, Hkv, S, D, causal, window,
+                                          q.element_size())
+        rows.append(row)
+        print("flash_attention_bwd " + json.dumps(row), flush=True)
+        check(not bad, f"flash_attention_bwd {row['shape']} {dt}: over the "
+                       f"bar: {bad}")
+        del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_phases(dev) -> dict:
+    """(h)-(i): llama3.2-1b training at full width."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import count_params, loss_fn, model_flops
+    from repro_torch.optim import AdamWConfig, global_norm, warmup_cosine
+    from repro_torch.runtime.train_loop import TrainLoopConfig, train_loop
+    from repro_torch.runtime.train_step import build_train_step
+
+    cfg = dataclasses.replace(get_config(ARCH), attn_impl="flash")
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    check(cfg.remat == "full" and cfg.param_dtype == "float32"
+          and cfg.compute_dtype == "bfloat16", "training config")
+    ts = build_train_step(cfg, opt_cfg=AdamWConfig(
+        lr=warmup_cosine(3e-3, 10, TRAIN_STEPS)), device=dev)
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                        global_batch=TRAIN_B, seed=0))
+    out = {}
+
+    # the reference-attention loss of step 0's batch at the initial weights
+    # (train_loop starts from the same seed-0 parameters), and the flash
+    # model's loss at those weights on each step's batch, the baseline
+    # that says how much of a step's loss is its batch
+    params = ts.init_fn(0)[0]
+    b0 = {k: torch.from_numpy(v).to(dev) for k, v in stream.batch(0).items()}
+    with torch.no_grad():
+        ref_loss0 = loss_fn(params, b0, ref_cfg, ts.rt).item()
+        init_losses = [loss_fn(params, {
+            k: torch.from_numpy(v).to(dev)
+            for k, v in stream.batch(i).items()}, cfg, ts.rt).item()
+            for i in range(TRAIN_STEPS)]
+    del params
+    torch.cuda.empty_cache()
+
+    # (h) the training loop, counts set to 0 just before it ---------------
+    kernels = (fa_kernel.flash_attention_fwd,
+               fa_kernel.flash_attention_bwd_dkv,
+               fa_kernel.flash_attention_bwd_dq)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_loop(ts, stream, TrainLoopConfig(steps=TRAIN_STEPS),
+                     on_step=lambda step, loss, v: print(
+                         f"train step {step}: loss {loss:.5f} "
+                         f"{v.duration * 1e3:.2f} ms", flush=True))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    step_ms = statistics.median(
+        v.duration * 1e3 for v in list(res["monitor"])[TRAIN_WARMUP:])
+    tokens = TRAIN_B * TRAIN_S
+    per_step = dict(flash_attention_fwd=2 * cfg.n_layers,
+                    flash_attention_bwd_dkv=cfg.n_layers,
+                    flash_attention_bwd_dq=cfg.n_layers)
+    out["train"] = dict(
+        batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
+        n_params=count_params(cfg), losses=losses,
+        ref_loss0=ref_loss0,
+        loss0_rel_vs_reference=abs(losses[0] - ref_loss0) / abs(ref_loss0),
+        launches=launches, step_ms=step_ms,
+        step_ms_all=[v.duration * 1e3 for v in res["monitor"]],
+        tokens_per_s=tokens / (step_ms * 1e-3),
+        model_tflops=model_flops(cfg, tokens) / (step_ms * 1e-3) / 1e12,
+        peak_mem_gb=peak / 1e9, loop_wall_s=wall_s)
+    print("train " + json.dumps(out["train"]), flush=True)
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"training losses {losses}")
+    check(out["train"]["loss0_rel_vs_reference"] < 1e-2,
+          f"step-0 loss {losses[0]} vs reference attention {ref_loss0}")
+    for name, n in per_step.items():
+        check(launches[name] == n * TRAIN_STEPS,
+              f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, "
+              f"not {n} per step")
+
+    # (i) profile of one more step, last --------------------------------------
+    params, opt = res["params"], res["opt"]
+    del res
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch(TRAIN_STEPS).items()}
+    out["train_memory"] = step_memory(ts, params, opt, batch)
+
+    def one_step():
+        _p, _o, m = ts.step_fn(params, opt, batch)
+        float(m["loss"])
+
+    out["train_profile"] = profile_families("train step (B 4, S 2048)",
+                                            one_step, step_ms)
+    del params, opt
+    torch.cuda.empty_cache()
+
+    # the flash model's gradients against the reference model's at B 1 ----
+    params = ts.init_fn(0)[0]
+    b1 = {k: v[:1] for k, v in b0.items()}
+    grads = []
+    for c in (cfg, ref_cfg):
+        loss = loss_fn(params, b1, c, ts.rt)
+        grads.append(dict(zip([n for n, _ in params.named_parameters()],
+                              torch.autograd.grad(loss,
+                                                  list(params.parameters())))))
+        del loss
+    g_f, g_r = grads
+    leaf = {n: rel_err(g_f[n], g_r[n]) for n in g_f}
+    n_f, n_r = global_norm(g_f).item(), global_norm(g_r).item()
+    diff = global_norm({n: g_f[n] - g_r[n] for n in g_f}).item() / n_r
+    worst = max(leaf, key=leaf.get)
+    out["grads_b1"] = dict(worst_leaf=worst, worst_leaf_rel=leaf[worst],
+                           norm_flash=n_f, norm_reference=n_r,
+                           norm_rel=abs(n_f - n_r) / n_r, diff_rel=diff,
+                           bars=GRAD_BARS)
+    print("train grads B1 flash vs reference " + json.dumps(out["grads_b1"]),
+          flush=True)
+    check(leaf[worst] < GRAD_BARS["leaf"]
+          and abs(n_f - n_r) / n_r < GRAD_BARS["norm"]
+          and diff < GRAD_BARS["diff"],
+          f"B1 gradients flash vs reference: {out['grads_b1']}")
+    del params, grads, g_f, g_r
+    torch.cuda.empty_cache()
+
+    # what makes the loss rise under the 3e-3 peak: the flash and the
+    # reference-attention model from the same weights under the same
+    # schedule at B 1; then the flash model at B 4 under a tenth of the
+    # peak, whose last loss must fall below the initial weights' on the
+    # same batch
+    b1_stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                           global_batch=1, seed=0))
+    witness = {"init_weights_b4": init_losses}
+    for name, c, lr, s, B in (
+            ("flash_b1_3e-3", cfg, 3e-3, b1_stream, 1),
+            ("reference_b1_3e-3", ref_cfg, 3e-3, b1_stream, 1),
+            ("flash_b4_3e-4", cfg, 3e-4, stream, TRAIN_B)):
+        steps = WITNESS_STEPS if B == 1 else TRAIN_STEPS
+        ts_w = build_train_step(c, opt_cfg=AdamWConfig(
+            lr=warmup_cosine(lr, 10, TRAIN_STEPS)), device=dev)
+        witness[name] = train_loop(ts_w, s,
+                                   TrainLoopConfig(steps=steps))["losses"]
+        torch.cuda.empty_cache()
+    f1, r1 = witness["flash_b1_3e-3"], witness["reference_b1_3e-3"]
+    witness["flash_vs_reference_rel"] = [abs(a - b) / abs(b)
+                                         for a, b in zip(f1, r1)]
+    out["loss_witness"] = witness
+    print("train loss witness " + json.dumps(witness), flush=True)
+    check(all(map(math.isfinite, f1 + r1))
+          and max(witness["flash_vs_reference_rel"]) < WITNESS_BAR,
+          f"B1 losses flash {f1} vs reference attention {r1}")
+    low = witness["flash_b4_3e-4"]
+    check(all(map(math.isfinite, low)) and low[-1] < init_losses[-1],
+          f"the flash model's loss under a 3e-4 peak {low} did not fall "
+          f"below the initial weights' {init_losses}")
+    return out
+
+
+def step_memory(ts, params, opt, batch) -> dict:
+    """GB allocated on the card through one training step, with the
+    step's own ``loss_fn`` and ``adamw_update`` wrapped: at the step's start
+    (parameters, AdamW state, batch), the forward's peak and what it leaves
+    saved for the backward, the backward's peak and what reaches
+    ``adamw_update`` (+ the f32 gradients), ``adamw_update``'s peak and its
+    exit, and the step's end (the caller still holds the old state)."""
+    import torch
+    from repro_torch.runtime import train_step as ts_mod
+    gb = 1e-9
+    mem = {}
+
+    def mark(peak_key, now_key):
+        torch.cuda.synchronize()
+        mem[peak_key] = torch.cuda.max_memory_allocated() * gb
+        mem[now_key] = torch.cuda.memory_allocated() * gb
+        torch.cuda.reset_peak_memory_stats()
+
+    real_loss, real_update = ts_mod.loss_fn, ts_mod.adamw_update
+
+    def loss_fn(*a, **kw):
+        loss = real_loss(*a, **kw)
+        mark("forward_peak", "after_forward")
+        return loss
+
+    def adamw_update(*a, **kw):
+        mark("backward_peak", "adamw_entry")
+        res = real_update(*a, **kw)
+        mark("adamw_peak", "adamw_exit")
+        return res
+
+    n = sum(p.numel() for p in params.parameters())
+    mem["f32_params"] = 4 * n * gb
+    mem["f32_moments"] = 8 * n * gb
+    torch.cuda.synchronize()
+    mem["step_start"] = torch.cuda.memory_allocated() * gb
+    torch.cuda.reset_peak_memory_stats()
+    ts_mod.loss_fn, ts_mod.adamw_update = loss_fn, adamw_update
+    try:
+        res = ts.step_fn(params, opt, batch)
+        float(res[2]["loss"])
+    finally:
+        ts_mod.loss_fn, ts_mod.adamw_update = real_loss, real_update
+    mark("tail_peak", "step_end")
+    del res
+    print("train step memory (GB) " + json.dumps(mem), flush=True)
+    return mem
+
+
 def kernel_family(name: str) -> str:
     n = name.lower()
     if "fa_fwd" in n:
         return "flash_attention_fwd"
+    if "fa_bwd_dkv" in n:
+        return "flash_attention_bwd_dkv"
+    if "fa_bwd_dq" in n:
+        return "flash_attention_bwd_dq"
     if any(t in n for t in ("gemm", "cutlass", "xmma", "nvjet", "cublas",
                             "sm90_")):
         return "gemm"
@@ -462,7 +839,8 @@ def main() -> int:
 
     # 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    built = build.build(["fft_stage", "flash_attention_fwd"])
+    built = build.build(["fft_stage", "flash_attention_fwd",
+                         "flash_attention_bwd"])
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s ({', '.join(built)})", flush=True)
     for res in built.values():
@@ -605,25 +983,46 @@ def main() -> int:
     # (c)-(f) the llama3.2-1b serving path ---------------------------------
     serving = serving_phases(np.random.default_rng([SEED, 2]), dev)
 
+    # (g)-(i) the llama3.2-1b training path ---------------------------------
+    bwd_rows = flash_bwd_phase(np.random.default_rng([SEED, 3]), dev)
+    training = train_phases(dev)
+
     # 7. result lines ----------------------------------------------------------
     big = [r for r in rows if r["n"] == N_MAIN // P_MAIN and not r["inverse"]][0]
     bound_ms, bound_by = fft_bound_ms(big["batch"], big["n"])
+    # "replaces" names each TPU kernel's pallas_call line; "launches" is
+    # the count from this slice's main path, the training loop (h)
+    main_bwd = bwd_rows[-1]
+    train_launches = training["train"]["launches"]
     kernels = {"kernels": [dict(
         name="fft_planes", route="cuda",
         source="src/repro_torch/csrc/fft_stage.cu",
-        replaces="src/repro/kernels/fft_stage/kernel.py:64",
+        replaces="src/repro/kernels/fft_stage/kernel.py:72",
         launches=launches, max_abs_err=big["max_abs_err"], ms=big["ms"],
         plain_ms=big["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
         library_ms=big["library_ms"]), dict(
         name="flash_attention_fwd", route="cuda",
         source="src/repro_torch/csrc/flash_attention_fwd.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:90",
-        launches=serving["prefill"]["flash_launches"],
+        replaces="src/repro/kernels/flash_attention/kernel.py:111",
+        launches=train_launches["flash_attention_fwd"],
+        launches_prefill=serving["prefill"]["flash_launches"],
         max_abs_err=flash_rows[-1]["max_abs_err"], ms=flash_rows[-1]["ms"],
         plain_ms=flash_rows[-1]["plain_ms"],
         bound_ms=flash_rows[-1]["bound_ms"],
         bound_by=flash_rows[-1]["bound_by"],
-        library_ms=flash_rows[-1]["library_ms"])]}
+        library_ms=flash_rows[-1]["library_ms"])] + [dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"src/repro/kernels/flash_attention/kernel.py:{line}",
+            launches=train_launches[name],
+            max_abs_err=max(main_bwd["max_abs_err"][g] for g in grads),
+            ms=main_bwd["ms"][name], plain_ms=main_bwd["plain_ms"],
+            bound_ms=main_bwd["bound"][name][0],
+            bound_by=main_bwd["bound"][name][1],
+            library_ms=main_bwd["library_ms"])
+        for name, line, grads in (
+            ("flash_attention_bwd_dkv", 272, ("dk", "dv")),
+            ("flash_attention_bwd_dq", 303, ("dq",)))]}
     print(json.dumps(kernels), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,13 +42,18 @@
 //
 // Precision: expf/logf/tanhf (no fast math: build without --use_fast_math).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
+using fa::ld32;
+using fa::mma_bf16;
+using fa::NEG_INF;
+using fa::pack_bf16;
+using fa::pack_f32;
+using fa::quad_max;
+using fa::quad_sum;
+
 constexpr int BQ = 64;          // query rows per block
 constexpr int THREADS = 128;    // 4 warps
 
@@ -85,50 +90,12 @@ __device__ __forceinline__ float score(const Params& p, float x, int row,
                                        int col) {
     x *= p.scale;
     if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-    bool ok = col < p.S;
-    if (p.causal) ok = ok && row >= col;
-    if (p.window > 0) ok = ok && (row - col) < p.window;
-    return ok ? x : NEG_INF;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    return x + __shfl_xor_sync(0xffffffffu, x, 2);
+    return fa::kept(row, col, p.S, p.causal, p.window) ? x : NEG_INF;
 }
 
 // ---------------------------------------------------------------------------
 // bf16: mma.sync m16n8k16, f32 accumulation
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x in the low half
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-    return (uint32_t)__bfloat16_as_ushort(lo)
-        | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a * b for one 16x8x16 tile (row-major A, column-major B).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)

@@ -19,7 +19,10 @@ same data to both packages:
 * :func:`params_from_jax` / :func:`params_to_numpy` — a model's
   parameters between the JAX package's ``init_params`` tree, as numpy
   arrays (``jax.tree.map(np.asarray, tree)``), and the port's
-  :class:`~repro_torch.models.lm.ParamTree`.
+  :class:`~repro_torch.models.lm.ParamTree`;
+* :func:`opt_state_from_jax` — the JAX package's AdamW state
+  (``{"m", "v", "step"}``, as numpy arrays) as the port's, so both
+  packages can train on from one state.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from .models.lm import ParamTree
 
 __all__ = ["cyclic_scatter", "cyclic_gather", "unordered_to_natural",
            "msgs_from_table", "hardware_from_fields", "params_from_jax",
-           "params_to_numpy"]
+           "params_to_numpy", "opt_state_from_jax"]
 
 Row = Tuple[int, int, int, int, int, int, int, str]
 
@@ -97,17 +100,29 @@ def hardware_from_fields(fields: Mapping[str, Any]) -> HardwareModel:
     return HardwareModel(**f)
 
 
-def params_from_jax(tree: Mapping[str, Any], *, device="cuda") -> ParamTree:
+def _tensors(tree: Mapping[str, Any], dev) -> Dict[str, Any]:
+    return {k: _tensors(v, dev) if isinstance(v, Mapping)
+            else torch.from_numpy(np.array(v, copy=True)).to(dev)
+            for k, v in tree.items()}
+
+
+def params_from_jax(tree: Mapping[str, Any], *, device="cuda",
+                    trainable: bool = False) -> ParamTree:
     """The port's parameters from the JAX package's ``init_params`` tree
     as numpy arrays: the same names, and each leaf copied as it is —
-    group leaves stacked ``[repeats, ...]``, matrices ``[in, out]``."""
-    dev = resolve_device(device)
+    group leaves stacked ``[repeats, ...]``, matrices ``[in, out]``.
+    ``trainable`` makes them require gradients."""
+    return ParamTree(_tensors(tree, resolve_device(device)), trainable)
 
-    def conv(t):
-        return {k: conv(v) if isinstance(v, Mapping)
-                else torch.from_numpy(np.array(v, copy=True)).to(dev)
-                for k, v in t.items()}
-    return ParamTree(conv(tree))
+
+def opt_state_from_jax(state: Mapping[str, Any], *, device="cuda"
+                       ) -> Dict[str, Any]:
+    """The port's AdamW state from the JAX package's ``adamw_init`` /
+    ``adamw_update`` state as numpy arrays: the moments ``m`` and ``v``
+    as trees of tensors, ``step`` as a Python int."""
+    dev = resolve_device(device)
+    return {"m": _tensors(state["m"], dev), "v": _tensors(state["v"], dev),
+            "step": int(np.asarray(state["step"]))}
 
 
 def params_to_numpy(params: ParamTree) -> Dict[str, Any]:

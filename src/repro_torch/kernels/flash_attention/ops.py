@@ -1,10 +1,15 @@
-"""Public wrapper of flash attention (forward only).
+"""Public wrapper of flash attention, differentiable.
 
-A CUDA tensor goes to the CUDA kernel (:func:`.kernel.flash_attention_fwd`)
-— it launches or raises, never falls back.  A CPU tensor goes to the plain
-version (:func:`.ref.flash_attention_fwd_ref`).  Inputs that require a
-gradient raise: the backward kernels are ROADMAP B3, and the plain version
-is never differentiated in their place.
+:func:`flash_attention` is a :class:`torch.autograd.Function`, the
+counterpart of the JAX package's ``custom_vjp`` (``repro/kernels/
+flash_attention/ops.py:26-53``).  Its forward saves q, k, v, o and the
+log-sum-exp ``lse``; its backward computes (dq, dk, dv) from them.
+
+A CUDA tensor goes to the CUDA kernels (:func:`.kernel.flash_attention_fwd`
+forward, :func:`.kernel.flash_attention_bwd` backward) — they launch or
+raise, never fall back.  A CPU tensor goes to the plain versions
+(:func:`.ref.flash_attention_fwd_ref`, :func:`.ref.flash_attention_bwd_ref`)
+and launches nothing.
 """
 
 from __future__ import annotations
@@ -20,22 +25,41 @@ from . import ref as _ref
 __all__ = ["flash_attention"]
 
 
+def _impl(device: torch.device, cuda_fn, cpu_fn):
+    if device.type == "cuda":
+        return cuda_fn
+    if device.type == "cpu":
+        return cpu_fn
+    raise LPFFatalError(f"flash_attention runs on CUDA or CPU tensors, not "
+                        f"{device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        # the kernels read [B,H,S,D] row-major: the model's swapped
+        # [B,S,H,D] views are made contiguous here
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        fwd = _impl(q.device, _k.flash_attention_fwd,
+                    _ref.flash_attention_fwd_ref)
+        o, lse = fwd(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = _impl(q.device, _k.flash_attention_bwd,
+                    _ref.flash_attention_bwd_ref)
+        dq, dk, dv = bwd(q, k, v, o, do.contiguous(), lse, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Flash attention: q [B,H,S,D], k/v [B,Hkv,S,D] -> [B,H,S,D]."""
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise LPFFatalError(
-            "flash_attention is forward-only in the port: its backward "
-            "kernels (flash_attention_bwd) are ROADMAP B3")
-    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-    if q.device.type == "cuda":
-        o, _lse = _k.flash_attention_fwd(q.contiguous(), k.contiguous(),
-                                         v.contiguous(), **kw)
-    elif q.device.type == "cpu":
-        o, _lse = _ref.flash_attention_fwd_ref(q, k, v, **kw)
-    else:
-        raise LPFFatalError(f"flash_attention runs on CUDA or CPU tensors, "
-                            f"not {q.device}")
-    return o
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)

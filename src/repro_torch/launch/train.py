@@ -1,0 +1,94 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> ...``.
+
+Trains ``--arch`` on the deterministic synthetic stream with AdamW under a
+warmup-cosine schedule, on the card unless ``--device cpu``.  The smoke
+config is the default; ``--no-smoke`` trains the published geometry (on
+the card: llama3.2-1b at B 4 x S 2048 fits one 80 GB H100 with
+``remat="full"``).  The JAX launcher's multi-device options need a mesh or
+pods: ``--mesh`` other than ``1x1``, ``--compress`` and ``--sync-every``
+raise (ROADMAP A10); ``--grad-sync lpf`` on one card is the plain step.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+from ..configs import get_config
+from ..core.errors import LPFFatalError
+from ..data import DataConfig, SyntheticStream
+from ..models import count_params, model_flops
+from ..optim import AdamWConfig, warmup_cosine
+from ..runtime.train_loop import TrainLoopConfig, train_loop
+from ..runtime.train_step import build_train_step
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--no-smoke", dest="smoke", action="store_false")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; refused without a card) or "
+                         "cpu")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--attn-impl", default=None,
+                    choices=["blocked", "flash", "reference"],
+                    help="override the config's attention implementation")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DxM (data x model); one card takes only 1x1")
+    ap.add_argument("--grad-sync", default="gspmd",
+                    choices=["gspmd", "lpf"])
+    ap.add_argument("--sync-every", type=int, default=0,
+                    help="local-SGD period (0 = synchronous)")
+    ap.add_argument("--compress", action="store_true",
+                    help="int8 cross-pod gradient compression (lpf mode)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    args = ap.parse_args(argv)
+
+    if args.mesh != "1x1" or args.compress or args.sync_every:
+        raise LPFFatalError(
+            "--mesh other than 1x1, --compress and --sync-every need a "
+            "device mesh or pods, which the one-card port does not have "
+            "yet (ROADMAP A10)")
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if args.attn_impl:
+        cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    ts = build_train_step(
+        cfg, opt_cfg=AdamWConfig(lr=warmup_cosine(args.lr, 10, args.steps)),
+        grad_sync=args.grad_sync, grad_accum=args.grad_accum,
+        device=args.device)
+    stream = SyntheticStream(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch))
+    tokens = args.batch * args.seq
+    print(f"{cfg.name}: {count_params(cfg)} parameters, attn_impl "
+          f"{cfg.attn_impl}, remat {cfg.remat}, B {args.batch} x S "
+          f"{args.seq} on {ts.rt.device}")
+
+    def on_step(step, loss, verdict):
+        if step % 10 == 0 or step == args.steps - 1 or verdict.straggle:
+            flag = f" [{verdict.action}]" if verdict.action != "ok" else ""
+            print(f"step {step:>5}  loss {loss:.4f}  "
+                  f"{verdict.duration * 1e3:9.1f} ms  "
+                  f"{tokens / verdict.duration:10.1f} tok/s{flag}")
+
+    t0 = time.perf_counter()
+    out = train_loop(ts, stream, TrainLoopConfig(
+        steps=args.steps, ckpt_dir=args.ckpt_dir), on_step=on_step)
+    wall = time.perf_counter() - t0
+    print(f"final loss: {out['final_loss']:.4f}")
+    ran = len(out["losses"])
+    if ran:
+        print(f"{ran} steps in {wall:.2f} s wall on {ts.rt.device}; model "
+              f"flops 6ND {model_flops(cfg, tokens * ran) / wall / 1e12:.2f}"
+              f" TFLOP/s (the remat recompute not counted)")
+    return out
+
+
+if __name__ == "__main__":
+    main()

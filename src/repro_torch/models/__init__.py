@@ -1,11 +1,12 @@
 """The model stack on one device: dense attention blocks assembled into a
-decoder-only LM (llama3.2-1b first), prefill through the flash-attention
-kernel and greedy decode against a rolling KV cache."""
+decoder-only LM (llama3.2-1b first), the training loss with autograd
+through the flash-attention kernels, prefill and greedy decode against a
+rolling KV cache."""
 
 from .blocks import Runtime
 from .config import BlockCfg, Group, MLACfg, ModelConfig
-from .lm import (ParamTree, cast_params, decode_step, forward, init_caches,
-                 init_params, prefill)
+from .lm import (ParamTree, cast_params, count_params, decode_step, forward,
+                 init_caches, init_params, loss_fn, model_flops, prefill)
 from .mamba import MambaConfig
 from .moe import MoEConfig
 
@@ -13,5 +14,5 @@ __all__ = [
     "Runtime", "BlockCfg", "Group", "MLACfg", "ModelConfig",
     "MambaConfig", "MoEConfig", "ParamTree",
     "init_params", "cast_params", "forward", "prefill", "decode_step",
-    "init_caches",
+    "init_caches", "loss_fn", "count_params", "model_flops",
 ]

@@ -1,6 +1,6 @@
 """The language model on one device: embed -> block groups -> head, with
-prefill and single-token greedy decode (decoder-only, dense attention
-blocks in this slice).
+the training loss, prefill and single-token greedy decode (decoder-only,
+dense attention blocks in this slice).
 
 Parameters live in a :class:`ParamTree`, an ``nn.Module`` whose
 parameters are named as in the JAX tree (``embed``, ``final_norm.w``,
@@ -11,21 +11,27 @@ copy (:func:`repro_torch.interop.params_from_jax`).
 
 Batch conventions (as in ``repro.models.lm``)::
 
+    train:    {"tokens" [B, S] int, "labels" [B, S] int (-1 = masked)}
     prefill:  {"tokens" [B, S] int}
     decode:   decode_step(params, token [B] int, caches, pos int, cfg, rt)
 
 Every entry point runs on ``rt.device`` (``Runtime()`` is the card) and
-refuses parameters that live elsewhere.  ``loss_fn`` and ``count_params``
-come with the training slice.
+refuses parameters that live elsewhere.  :func:`loss_fn` runs with
+autograd: each layer is checkpointed as ``cfg.remat`` says and casts its
+weights to the compute dtype inside, so gradients reach the f32 masters of
+a trainable tree (``init_params(..., trainable=True)``).  ``forward``,
+``prefill`` and ``decode_step`` run without autograd.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from ..core.context import resolve_device
 from ..core.errors import LPFFatalError
@@ -36,24 +42,25 @@ from .common import (dense_init, dtype_of, layer_norm, rms_norm,
 from .config import Group, ModelConfig
 
 __all__ = ["ParamTree", "init_params", "cast_params", "forward", "prefill",
-           "init_caches", "decode_step"]
+           "loss_fn", "init_caches", "decode_step", "count_params",
+           "model_flops"]
 
 Tree = Dict[str, Any]
 
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: each dict becomes a child
-    module, each tensor a parameter (``requires_grad=False``: the serving
-    slice has no backward)."""
+    module, each tensor a parameter.  ``trainable`` sets the parameters'
+    ``requires_grad`` (off for serving, which has no backward)."""
 
-    def __init__(self, tree: Tree):
+    def __init__(self, tree: Tree, trainable: bool = False):
         super().__init__()
         for key, val in tree.items():
             if isinstance(val, dict):
-                self.add_module(key, ParamTree(val))
+                self.add_module(key, ParamTree(val, trainable))
             else:
                 self.register_parameter(
-                    key, nn.Parameter(val, requires_grad=False))
+                    key, nn.Parameter(val, requires_grad=trainable))
 
     def tree(self) -> Tree:
         """The parameters as a nested dict (the tensors themselves)."""
@@ -95,14 +102,18 @@ def _group_params(gen, g: Group, cfg: ModelConfig, dtype, device) -> Tree:
 
 
 def init_params(key: Union[int, torch.Generator], cfg: ModelConfig, *,
-                device="cuda") -> ParamTree:
+                device="cuda", trainable: bool = False) -> ParamTree:
     """Random parameters in ``cfg.param_dtype`` on ``device``, drawn from
     ``key`` (a seed, or a ``torch.Generator`` on that device).  The JAX
-    package's tree layout; not its random numbers."""
+    package's tree layout; not its random numbers.  ``device="meta"``
+    gives the shapes alone; ``trainable`` makes the parameters require
+    gradients."""
     _check_blocks(cfg)
     dev = resolve_device(device)
     if isinstance(key, torch.Generator):
         gen = key
+    elif dev.type == "meta":
+        gen = None
     else:
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(key))
@@ -120,7 +131,7 @@ def init_params(key: Union[int, torch.Generator], cfg: ModelConfig, *,
                                     in_axis=1, dtype=dtype, device=dev)
     for g in cfg.groups:
         p[f"dec_{g.name}"] = _group_params(gen, g, cfg, dtype, dev)
-    return ParamTree(p)
+    return ParamTree(p, trainable)
 
 
 def _cast_params(tree: Tree, cdt: torch.dtype, stacked: bool = False
@@ -166,8 +177,12 @@ def _runtime(params: ParamTree, rt: Optional[Runtime]) -> Runtime:
 
 
 def _layers(gp: Tree, repeats: int) -> List[Tree]:
-    """Per-layer views of a group's stacked leaves."""
-    return [_map(lambda a, l=l: a[l], gp) for l in range(repeats)]
+    """Per-layer views of a group's stacked leaves: one ``unbind`` per
+    leaf, so the backward stacks a leaf's per-layer gradients once (an
+    index per layer would add a zero-filled full-size gradient per
+    layer)."""
+    split = _map(lambda a: a.unbind(0), gp)
+    return [_map(lambda parts, l=l: parts[l], split) for l in range(repeats)]
 
 
 def _top(params: ParamTree, cdt) -> Tree:
@@ -194,9 +209,53 @@ def _head(top: Tree, x, cfg: ModelConfig):
     if cfg.logit_softcap is not None:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     if cfg.vocab_padded != cfg.vocab:
-        # vocab-padding columns must never win softmax/argmax
-        logits[..., cfg.vocab:] = -1e30
+        # vocab-padding columns must never win softmax/argmax (out of
+        # place: the loss differentiates through the logits)
+        pad = torch.arange(cfg.vocab_padded, device=logits.device) \
+            >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e30)
     return logits
+
+
+def _apply_layer(layer_p: Tree, x, g: Group, cfg: ModelConfig, rt: Runtime,
+                 positions, cdt) -> torch.Tensor:
+    """One layer of group ``g``; its weights cast to ``cdt`` here, inside
+    whatever checkpoint wraps the layer, as the JAX scan body does."""
+    layer_p = _cast_params(layer_p, cdt)
+    for i, b in enumerate(g.blocks):
+        x = block_apply(layer_p[f"b{i}"], x, b, cfg, rt, positions)
+    return x
+
+
+#: what ``remat="dots"`` saves: matrix products with no batch dimension
+#: (the projections and the MLP), the JAX package's
+#: ``dots_with_no_batch_dims_saveable``; everything else is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _layer(layer_p: Tree, x, g: Group, cfg: ModelConfig, rt: Runtime,
+           positions, cdt) -> torch.Tensor:
+    """One layer, checkpointed per ``cfg.remat`` when autograd records:
+    ``"full"`` saves only the layer's input and recomputes the layer in
+    the backward, ``"dots"`` also saves its matrix products, ``"none"``
+    saves everything."""
+    fn = functools.partial(_apply_layer, g=g, cfg=cfg, rt=rt,
+                           positions=positions, cdt=cdt)
+    if not torch.is_grad_enabled() or cfg.remat == "none":
+        return fn(layer_p, x)
+    if cfg.remat == "full":
+        return _ckpt.checkpoint(fn, layer_p, x, use_reentrant=False)
+    if cfg.remat == "dots":
+        return _ckpt.checkpoint(
+            fn, layer_p, x, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise LPFFatalError(f"remat={cfg.remat!r}: expected full, dots or none")
 
 
 def _hidden(params: ParamTree, batch: dict, cfg: ModelConfig, rt: Runtime,
@@ -216,9 +275,7 @@ def _hidden(params: ParamTree, batch: dict, cfg: ModelConfig, rt: Runtime,
     tree = params.tree()
     for g in cfg.groups:
         for layer_p in _layers(tree[f"dec_{g.name}"], g.repeats):
-            layer_p = _cast_params(layer_p, cdt)
-            for i, b in enumerate(g.blocks):
-                x = block_apply(layer_p[f"b{i}"], x, b, cfg, rt, positions)
+            x = _layer(layer_p, x, g, cfg, rt, positions, cdt)
     return x
 
 
@@ -242,6 +299,23 @@ def prefill(params: ParamTree, batch: dict, cfg: ModelConfig,
     top = _top(params, dtype_of(cfg.compute_dtype))
     x = _hidden(params, batch, cfg, rt, top)[:, -1]
     return _head(top, _final_norm(x, top["final_norm"], cfg), cfg)
+
+
+def loss_fn(params: ParamTree, batch: dict, cfg: ModelConfig,
+            rt: Optional[Runtime] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy over the labels that are not -1 (a
+    0-d f32 tensor), with autograd.  The label's logit is gathered: the
+    value the JAX package's one-hot einsum computes, without the
+    ``[B, S, V]`` one-hot."""
+    rt = _runtime(params, rt)
+    top = _top(params, dtype_of(cfg.compute_dtype))
+    x = _hidden(params, batch, cfg, rt, top)
+    logits = _head(top, _final_norm(x, top["final_norm"], cfg), cfg)
+    labels = torch.as_tensor(batch["labels"], device=rt.device).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - picked) * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
@@ -289,3 +363,22 @@ def decode_step(params: ParamTree, token, caches: Tree, pos: int,
     # torch.argmax returns the first maximal index, as jnp.argmax does
     nxt = torch.argmax(logits, dim=-1)
     return nxt, logits, caches
+
+
+# --------------------------------------------------------------------------
+# accounting
+# --------------------------------------------------------------------------
+
+def count_params(cfg: ModelConfig) -> int:
+    """The parameter count, from the tree's shapes (built on the meta
+    device: nothing is allocated).  MoE blocks are not ported, so every
+    parameter is active: the JAX package's ``active_only`` count is the
+    same number."""
+    params = init_params(0, cfg, device="meta")
+    return sum(p.numel() for p in params.parameters())
+
+
+def model_flops(cfg: ModelConfig, tokens: int) -> float:
+    """6*N*D useful-training flops; for serve cells the caller divides by
+    3 (forward only)."""
+    return 6.0 * count_params(cfg) * tokens

@@ -8,8 +8,8 @@
 * ``attention_ref`` against the JAX ``attention_ref``;
 * the dispatch: a CPU tensor takes the plain version and launches nothing;
   the CUDA wrapper refuses a CPU tensor, a strided view, an unsupported
-  head dim or dtype; an input that requires a gradient raises (the
-  backward kernels are ROADMAP B3).
+  head dim or dtype; an input that requires a gradient gets one from the
+  plain backward (``tests/test_torch_flash_bwd.py`` holds it to JAX).
 
 The CUDA kernel itself is held against the plain version on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
@@ -97,5 +97,16 @@ def test_cuda_wrapper_refuses_what_it_does_not_take():
     with pytest.raises(LPFFatalError, match="Hkv dividing H"):
         fa_kernel.flash_attention_fwd(q, k[:, :1].repeat(1, 3, 1, 1),
                                       v[:, :1].repeat(1, 3, 1, 1))
-    with pytest.raises(LPFFatalError, match="ROADMAP B3"):
-        fa_ops.flash_attention(q.clone().requires_grad_(), k, v)
+    # an input that requires a gradient gets one from the plain backward
+    # on the CPU, and no kernel launches; the backward wrapper refuses CPU
+    # tensors
+    fa_kernel.flash_attention_bwd_dkv.launches = 0
+    fa_kernel.flash_attention_bwd_dq.launches = 0
+    qg = q.clone().requires_grad_()
+    fa_ops.flash_attention(qg, k, v).sum().backward()
+    assert qg.grad is not None and bool(torch.isfinite(qg.grad).all())
+    assert (fa_kernel.flash_attention_bwd_dkv.launches,
+            fa_kernel.flash_attention_bwd_dq.launches) == (0, 0)
+    o, lse = fa_ref.flash_attention_fwd_ref(q, k, v)
+    with pytest.raises(LPFFatalError, match="CUDA tensors"):
+        fa_kernel.flash_attention_bwd(q, k, v, o, o, lse)

@@ -6,11 +6,14 @@ so it runs on a machine that has only PyTorch and the CUDA toolkit:
 
 The CUDA kernels are held against their plain PyTorch versions on the
 same inputs, at the JAX kernel tests' bars: ``fft_stage`` (relative error
-< 1e-5) and ``flash_attention_fwd`` (o within 2e-5 in f32 and 2e-2 in
-bf16, and in bf16 also each row's error within 2^-6 of the row's largest
-|o_plain|; lse within 1e-4).  The FFT path and the llama3.2-1b serving path
-(smoke config: prefill and the ``LPFServer`` loop) are driven through their
-entry points on the card.
+< 1e-5), ``flash_attention_fwd`` (o within 2e-5 in f32 and 2e-2 in bf16,
+and in bf16 also each row's error within 2^-6 of the row's largest
+|o_plain|; lse within 1e-4) and the two ``flash_attention_bwd`` kernels
+(each gradient within 5e-4 of the largest plain one in f32; in bf16 each
+row within 2^-6 of the row's largest |plain|).  The FFT path and the
+llama3.2-1b serving and training paths (smoke config: prefill, the
+``LPFServer`` loop, train steps) are driven through their entry points on
+the card.
 """
 
 import ctypes
@@ -170,8 +173,9 @@ def test_flash_row_bar_catches_a_dropped_pv_tile(cuda, tmp_path, monkeypatch):
     (tmp_path / "fa.cu").write_text(src.replace(
         loop, "if (kt != hi - 2 || blockIdx.y != 0) " + loop))
     so = tmp_path / "libfa.so"
-    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(so),
-                    str(tmp_path / "fa.cu")], check=True, capture_output=True)
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I",
+                    str(build.CSRC), "-o", str(so), str(tmp_path / "fa.cu")],
+                   check=True, capture_output=True)
     broken = ctypes.CDLL(str(so))
     broken.flash_attention_fwd.argtypes = fa_kernel._ARGTYPES
     broken.flash_attention_fwd.restype = ctypes.c_int
@@ -197,15 +201,137 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         fa_kernel.flash_attention_fwd(q48, k48, v48)
     with pytest.raises(tlpf.LPFFatalError, match="float32 or bfloat16"):
         fa_kernel.flash_attention_fwd(q.half(), k.half(), v.half())
-    with pytest.raises(tlpf.LPFFatalError, match="B3"):
-        fa_ops.flash_attention(q.float().requires_grad_(), k.float(),
-                               v.float())
+    # an input that requires a gradient gets one, through both backward
+    # kernels; the backward wrapper refuses CPU tensors
+    qg = q.float().requires_grad_()
+    before = (fa_kernel.flash_attention_bwd_dkv.launches,
+              fa_kernel.flash_attention_bwd_dq.launches)
+    fa_ops.flash_attention(qg, k.float(), v.float()).sum().backward()
+    assert qg.grad is not None and bool(torch.isfinite(qg.grad).all())
+    assert (fa_kernel.flash_attention_bwd_dkv.launches,
+            fa_kernel.flash_attention_bwd_dq.launches) == \
+        (before[0] + 1, before[1] + 1)
+    o, lse = fa_ref.flash_attention_fwd_ref(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(tlpf.LPFFatalError, match="CUDA tensors"):
+        fa_kernel.flash_attention_bwd(q.cpu(), k.cpu(), v.cpu(), o, o, lse)
     # ops makes the model's swapped [B,S,H,D] views contiguous first
     swapped = q.transpose(1, 2).contiguous().transpose(1, 2)
     assert not swapped.is_contiguous()
     o = fa_ops.flash_attention(swapped, k, v)
     want = fa_ref.attention_ref(q, k, v)
     assert (o.float() - want.float()).abs().max().item() < 2e-2
+
+
+# bf16 gradients row by row: each row of dq, dk, dv within 2^-6 of the
+# row's largest |plain| (rounding P and dS to bf16 and the outputs to bf16
+# give 2^-7 in a CPU simulation at [1, 8, 2048, 64], Hkv 2)
+BWD_ROW_BAR = 2.0 ** -6
+
+
+def grad_row_err(a, ref):
+    """Largest |a - ref| over its row's largest |ref| (rows along D), the
+    row's scale floored at 1e-3 of the tensor's largest |ref|: a row whose
+    gradient cancels to about 0 (the first query under the causal mask has
+    dS = P (dP - delta) = 0) holds only rounding."""
+    a, ref = a.float(), ref.float()
+    scale = ref.abs().amax(dim=-1, keepdim=True).clamp_min(
+        1e-3 * ref.abs().max().item())
+    return ((a - ref).abs() / scale).max().item()
+
+
+def bwd_inputs(seed, B, H, Hkv, S, D, dtype, device, **kw):
+    """q, k, v, dO from a seed, and the forward's o and lse (plain)."""
+    q, k, v = qkv(seed, B, H, Hkv, S, D, dtype, device)
+    do = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (B, H, S, D), np.float32)).to(device=device, dtype=dtype)
+    o, lse = fa_ref.flash_attention_fwd_ref(q, k, v, **kw)
+    return q, k, v, o, do, lse
+
+
+def rel_grad(a, ref):
+    """The JAX backward test's measure: max |a - ref| / max |ref|."""
+    a, ref = a.float(), ref.float()
+    return ((a - ref).abs().max() / (ref.abs().max() + 1e-9)).item()
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window,softcap,dtype",
+                         FLASH_SWEEP)
+def test_flash_bwd_kernels_match_plain_version(cuda, B, H, Hkv, S, D,
+                                               causal, window, softcap,
+                                               dtype):
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v, o, do, lse = bwd_inputs(S + D, B, H, Hkv, S, D, dtype, cuda,
+                                     **kw)
+    before = (fa_kernel.flash_attention_bwd_dkv.launches,
+              fa_kernel.flash_attention_bwd_dq.launches)
+    got = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert (fa_kernel.flash_attention_bwd_dkv.launches,
+            fa_kernel.flash_attention_bwd_dq.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for name, a, b, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert a.dtype == x.dtype and a.shape == x.shape, name
+        if dtype == torch.float32:
+            assert rel_grad(a, b) < 5e-4, name
+        else:
+            assert grad_row_err(a, b) <= BWD_ROW_BAR, name
+    if dtype == torch.bfloat16:
+        want_r = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                                round_p=True, **kw)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want_r):
+            assert grad_row_err(a, b) <= BWD_ROW_BAR, name
+
+
+def test_flash_bwd_row_bar_catches_a_dropped_ds_tile(cuda, tmp_path,
+                                                     monkeypatch):
+    """The bf16 row bar has power at the training shape: a copy of the
+    dK/dV kernel that leaves the diagonal query tile of each group's first
+    head out of dK fails it, and the kernel passes."""
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    dk_mma = "mma_bf16(dk[dt], da, b0, b1);"
+    assert src.count(dk_mma) == 1
+    (tmp_path / "fa_bwd.cu").write_text(src.replace(
+        dk_mma, "if (qt != lo || hh != 0) " + dk_mma))
+    so = tmp_path / "libfa_bwd.so"
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I",
+                    str(build.CSRC), "-o", str(so),
+                    str(tmp_path / "fa_bwd.cu")], check=True,
+                   capture_output=True)
+    broken = ctypes.CDLL(str(so))
+    for name, argtypes in fa_kernel._BWD_ARGTYPES.items():
+        getattr(broken, name).argtypes = argtypes
+        getattr(broken, name).restype = ctypes.c_int
+
+    q, k, v, o, do, lse = bwd_inputs(7, 4, 32, 8, 2048, 64, torch.bfloat16,
+                                     cuda)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, lse)
+    got = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse)
+    monkeypatch.setattr(fa_kernel, "_bwd_lib", lambda name: broken)
+    bad = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse)
+    good_dk = grad_row_err(got[1], want[1])
+    bad_dk = grad_row_err(bad[1], want[1])
+    print(f"dk row_err: kernel {good_dk}, dropped dS tile {bad_dk}")
+    assert good_dk <= BWD_ROW_BAR < bad_dk
+    assert torch.equal(bad[0], got[0]) and torch.equal(bad[2], got[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_gradients_on_card_match_autograd_of_reference(cuda, dtype):
+    """ops.flash_attention's gradients (both kernels) against torch
+    autograd through attention_ref, GQA with a window and a soft-cap."""
+    kw = dict(causal=True, window=40, softcap=25.0)
+    q, k, v = qkv(5, 2, 4, 2, 130, 64, dtype, cuda)
+    w = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 4, 130, 64), np.float32)).to(cuda)
+    grads = []
+    for fn in (fa_ops.flash_attention, fa_ref.attention_ref):
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        (fn(*xs, **kw).float() * w).sum().backward()
+        grads.append([x.grad for x in xs])
+    bar = 5e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(*grads):
+        assert rel_grad(a, b) < bar
 
 
 # --------------------------------------------------------------------------
@@ -277,3 +403,38 @@ def test_smoke_serve_on_card(cuda):
     assert out["completed"] >= 1
     assert out["solo_identical"] == out["completed"]
     assert out["health"]["deadline_misses"] == 0
+
+
+def test_smoke_train_steps_on_card(cuda):
+    """Two train steps of the smoke config through both backward kernels:
+    2 launches of each per step, finite losses, the first within 1e-2 of
+    the reference-attention loss on the same batch."""
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train_step import build_train_step
+    cfg = smoke_cfg(attn_impl="flash")
+    ts = build_train_step(cfg, opt_cfg=AdamWConfig(lr=1e-3))
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=100,
+                                        global_batch=2))
+    params, opt = ts.init_fn(0)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in stream.batch(0).items()}
+    with torch.no_grad():
+        want = loss_fn(params, batch, smoke_cfg(attn_impl="reference"),
+                       ts.rt).item()
+    for fn in (fa_kernel.flash_attention_fwd,
+               fa_kernel.flash_attention_bwd_dkv,
+               fa_kernel.flash_attention_bwd_dq):
+        fn.launches = 0
+    losses = []
+    for step in range(2):
+        batch = {k: torch.from_numpy(v).to(cuda)
+                 for k, v in stream.batch(step).items()}
+        params, opt, m = ts.step_fn(params, opt, batch)
+        losses.append(m["loss"].item())
+    assert all(np.isfinite(losses)) and abs(losses[0] - want) < 1e-2 * want
+    assert (fa_kernel.flash_attention_fwd.launches,
+            fa_kernel.flash_attention_bwd_dkv.launches,
+            fa_kernel.flash_attention_bwd_dq.launches) == (8, 4, 4)
+    assert all(p.is_cuda for p in params.parameters())

@@ -4,9 +4,11 @@
   the JAX package ``repro`` (an AST scan, and a fresh interpreter that
   imports the whole port and finds no ``jax`` loaded);
 * entry points asked for no device run on the card: without one they
-  raise, they never carry on on the CPU (the LPF core, the FFT, and the
+  raise, they never carry on on the CPU (the LPF core, the FFT, the
   serving path: ``init_params``, ``prefill``, ``decode_step``,
-  ``build_serve_buckets``, ``ModelDecodeEngine``, the serve launcher);
+  ``build_serve_buckets``, ``ModelDecodeEngine``, the serve launcher; and
+  the training path: ``loss_fn``, ``build_train_step``, the train
+  launcher, the interop loaders, a checkpoint restore);
 * a CPU tensor takes the plain version and launches nothing; the CUDA
   wrapper refuses a CPU tensor, and a missing ``nvcc`` raises instead of
   falling back.
@@ -59,6 +61,9 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_fresh_interpreter_loads_no_jax():
     assert "repro_torch.launch.serve" in PORT_MODULES
+    assert {"repro_torch.launch.train", "repro_torch.runtime.train_loop",
+            "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.store"} <= set(PORT_MODULES)
     assert "repro_torch.kernels.flash_attention.kernel" in PORT_MODULES
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
@@ -112,6 +117,36 @@ def test_serving_entry_points_refuse_without_a_card():
                    Runtime("cpu")).device.type == "cpu"
 
 
+def test_training_entry_points_refuse_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points run on it")
+    import numpy as np
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.interop import opt_state_from_jax, params_from_jax
+    from repro_torch.launch import train
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.runtime.train_step import build_train_step
+    cfg = get_config("llama3.2-1b", smoke=True)
+    params = init_params(0, cfg, device="cpu", trainable=True)
+    batch = {"tokens": [[1, 2]], "labels": [[2, -1]]}
+    meta = init_params(0, cfg, device="meta")
+    save(str(tmp_path), 1, params)
+    calls = [
+        lambda: init_params(0, cfg, trainable=True),
+        lambda: loss_fn(params, batch, cfg),
+        lambda: build_train_step(cfg),
+        lambda: train.main(["--steps", "1"]),
+        lambda: params_from_jax({"w": np.zeros(2, np.float32)}),
+        lambda: opt_state_from_jax({"m": {}, "v": {}, "step": 0}),
+        lambda: restore(str(tmp_path), 1, meta, device="cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(tlpf.LPFFatalError, match="cuda"):
+            call()
+    assert build_train_step(cfg, device="cpu").rt.device.type == "cpu"
+
+
 def test_cpu_tensor_takes_the_plain_version():
     fft_kernel.fft_planes.launches = 0
     fft_kernel.fft_planes.cuda_launches = 0
@@ -134,8 +169,18 @@ def test_cuda_wrapper_never_falls_back(monkeypatch):
     q = torch.zeros(1, 2, 8, 32)
     with pytest.raises(tlpf.LPFFatalError, match="CUDA tensors"):
         fa_kernel.flash_attention_fwd(q, q, q)
-    with pytest.raises(tlpf.LPFFatalError, match="B3"):
-        fa_ops.flash_attention(q.clone().requires_grad_(), q, q)
+    # a gradient on CPU tensors comes from the plain backward, never a
+    # kernel; the backward wrapper refuses CPU tensors
+    fa_kernel.flash_attention_bwd_dkv.launches = 0
+    fa_kernel.flash_attention_bwd_dq.launches = 0
+    qg = q.clone().requires_grad_()
+    fa_ops.flash_attention(qg, q, q).sum().backward()
+    assert qg.grad is not None
+    assert (fa_kernel.flash_attention_bwd_dkv.launches,
+            fa_kernel.flash_attention_bwd_dq.launches) == (0, 0)
+    lse = torch.zeros(1, 2, 8, 1)
+    with pytest.raises(tlpf.LPFFatalError, match="CUDA tensors"):
+        fa_kernel.flash_attention_bwd(q, q, q, q, q, lse)
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setattr(build, "TOOLKIT_NVCC", Path("/nonexistent/nvcc"))
     with pytest.raises(tlpf.LPFFatalError, match="nvcc not found"):
