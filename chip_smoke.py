@@ -92,6 +92,36 @@ The llama3.2-1b training path (f32 masters, bf16 compute, ``remat="full"``,
     below the initial weights' loss on the same batch;
 (i) last, ``torch.profiler`` over one training step: device time by
     kernel family, launches, and the device's idle share.
+
+The mamba2-130m serving path (the published width, uncut, random weights
+from ``SEED``, f32 parameters cast once to bf16 compute) adds, after (i):
+
+(j) the build of phase 2 covers ``ssd_scan`` too; the kernel against its
+    plain version ``ssd_scan_plain`` on the card at the JAX kernel tests'
+    four shapes, a ragged S (200, chunk 64) and the prefill's main shape
+    [4, 2048, 24, 64], G 1, N 128, chunk 128, in bf16 and in f32 (the
+    model hands the kernel f32): y and the final state within 1e-4 of the
+    plain version's largest |value| (the JAX bar); in bf16 y is held
+    against the plain version's f32 y within 1e-4 of its largest |value|
+    plus half a bf16 ulp of each value (the output's rounding); kernel,
+    plain and ``_ssd_chunked`` (the JAX model's default path, batched
+    einsums) milliseconds and the bound;
+(k) prefill at full width, B 4 x S 2048: exactly 24 ``ssd_scan`` launches
+    and no flash-attention launch; last-position logits against the same
+    prefill through ``impl="chunked"`` (run on the card as a check only):
+    within 2e-2 (relative) in f32 compute, and in bf16 within 2e-2 or,
+    where the chunked path's own spread (chunk 64 against 128) is wider,
+    twice that spread: the random model amplifies bf16 rounding through
+    its 24 layers; host milliseconds and tokens/s, the profile by kernel
+    family with the device's idle share; then a B 1 x S 16384 prefill (128
+    chunks a launch), timed, with its 24 launches;
+(l) teacher-forced decode over 64 tokens at B 1 against prefill: within
+    0.08 in f32 compute, and in bf16 within 0.08 or, where the chunked
+    path's own spread (chunk 16 against 64) is wider, twice that spread;
+    serving behind ``LPFServer`` (buckets (2, 256) and (4, 256), 8
+    requests): no deadline miss, an empty queue, streams bit-identical to
+    solo re-decodes; ms per token per bucket, tokens/s, and the idle share
+    of one decode step.
 """
 
 from __future__ import annotations
@@ -147,6 +177,21 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP = 4, 2048, 8, 2
 # layers: per leaf the JAX package's bf16 bar 0.08, the norm 1e-2, the
 # difference 0.05
 GRAD_BARS = dict(leaf=0.08, norm=1e-2, diff=0.05)
+# the mamba2-130m path (j)-(l): the JAX kernel tests' sweep, a ragged S,
+# then the prefill's main shape in bf16 and (last) in f32, the dtype the
+# bf16 model hands the kernel; B, S, H, P, G, N, chunk, dtype
+MAMBA_ARCH = "mamba2-130m"
+SSD_SHAPES = [
+    (1, 64, 2, 16, 1, 16, 16, "float32"),
+    (2, 128, 4, 32, 2, 32, 32, "float32"),
+    (1, 256, 2, 16, 1, 64, 64, "float32"),
+    (1, 128, 4, 16, 1, 16, 128, "float32"),
+    (1, 200, 2, 16, 1, 16, 64, "float32"),
+    (PREFILL_B, PREFILL_S, 24, 64, 1, 128, 128, "bfloat16"),
+    (PREFILL_B, PREFILL_S, 24, 64, 1, 128, 128, "float32"),
+]
+SSD_BAR = 1e-4
+LONG_S = 16384                          # (k)'s B 1 long-sequence prefill
 # (h)'s loss witness: WITNESS_STEPS steps at B 1 x S 2048 of the flash and
 # the reference-attention model under (h)'s schedule; each step's losses
 # within WITNESS_BAR (relative) of each other, the step-0 bar's 1e-2
@@ -637,6 +682,8 @@ def kernel_family(name: str) -> str:
         return "flash_attention_bwd_dkv"
     if "fa_bwd_dq" in n:
         return "flash_attention_bwd_dq"
+    if "ssd_kernel" in n:
+        return "ssd_scan"
     if any(t in n for t in ("gemm", "cutlass", "xmma", "nvjet", "cublas",
                             "sm90_")):
         return "gemm"
@@ -788,6 +835,260 @@ def serving_phases(rng, dev) -> dict:
     return out
 
 
+def ssd_bound_ms(B, S, H, P, G, N, L, itemsize) -> tuple:
+    """Least time for the SSD scan on these inputs: x, dt, a, b, c read
+    and y, the state written once, or the products at the f32 peak (the
+    1e-4 bar rules out bf16 and TF32 operands).  Per chunk of Lv rows:
+    C B^T over the causal triangle's Lv (Lv + 1) / 2 pairs once per
+    (b, group), M x over the same pairs and the inter (C state) and state
+    (B^T x) products, Lv N P each, per (b, h); 2 flops per multiply-add."""
+    lengths = [L] * (S // L) + ([S % L] if S % L else [])
+    flops = 0.0
+    for lv in lengths:
+        pairs = lv * (lv + 1) / 2
+        flops += 2.0 * B * G * pairs * N + 2.0 * B * H * (
+            pairs * P + 2 * lv * N * P)
+    nbytes = (2 * B * S * H * P + 2 * B * S * G * N) * itemsize \
+        + B * S * H * 4 + H * 4 + B * H * N * P * 4
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def ssd_phase(rng, dev, shapes=SSD_SHAPES) -> list:
+    """(j): the CUDA ssd_scan kernel against its plain version."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.models.mamba import MambaConfig, _ssd_chunked
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for B, S, H, P, G, N, chunk, dt_name in shapes:
+        dtype = getattr(torch, dt_name)
+        x = torch.from_numpy(rng.standard_normal(
+            (B, S, H, P), dtype=np.float32)).to(dev, dtype)
+        dt = torch.from_numpy(rng.uniform(0.001, 0.1, (B, S, H)).astype(
+            np.float32)).to(dev)
+        a = torch.from_numpy(-rng.uniform(0.5, 2.0, (H,)).astype(
+            np.float32)).to(dev)
+        b, c = (torch.from_numpy(rng.standard_normal(
+            (B, S, G, N), dtype=np.float32)).to(dev, dtype)
+            for _ in range(2))
+        before = ssd_kernel.ssd_scan.launches
+        y, st = ssd_kernel.ssd_scan(x, dt, a, b, c, chunk=chunk)
+        torch.cuda.synchronize()
+        check(ssd_kernel.ssd_scan.launches == before + 1,
+              "ssd_scan launch count")
+        y_p, st_p = ssd_ref.ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
+        err = (y.float() - y_p.float()).abs().max().item()
+        row = dict(shape=[B, S, H, P, G, N], chunk=chunk, dtype=dt_name,
+                   columns_per_block=ssd_kernel.pick_columns(
+                       B, H, P, min(chunk, S), N, sms),
+                   max_abs_err=err, rel_err=err / y_p.float().abs().max()
+                   .item(), state_rel_err=rel_err(st, st_p), bar=SSD_BAR)
+        if dtype == torch.bfloat16:
+            # y is rounded to bf16: hold it against the plain version's
+            # f32 y, within the bar plus half a bf16 ulp of each value
+            # (at most 2^-8 of it)
+            y32, _ = ssd_ref.ssd_scan_plain(x.float(), dt, a, b.float(),
+                                            c.float(), chunk=chunk)
+            over = (y.float() - y32).abs() - 2.0 ** -8 * y32.abs()
+            row["rel_err_vs_f32_less_rounding"] = \
+                over.max().item() / y32.abs().max().item()
+            ok = row["rel_err_vs_f32_less_rounding"] < SSD_BAR
+            del y32, over
+        else:
+            ok = row["rel_err"] < SSD_BAR
+        row["ms"] = cuda_ms(lambda: ssd_kernel.ssd_scan(x, dt, a, b, c,
+                                                        chunk=chunk))
+        row["plain_ms"] = cuda_ms(lambda: ssd_ref.ssd_scan_plain(
+            x, dt, a, b, c, chunk=chunk), reps=5, warmup=1)
+        row["chunked_ms"] = None
+        if S % min(chunk, S) == 0:
+            mcfg = MambaConfig(d_model=H * P // 2, d_state=N, head_dim=P,
+                               n_groups=G, chunk=chunk)
+            row["chunked_ms"] = cuda_ms(lambda: _ssd_chunked(
+                x, dt, a, b, c, mcfg), reps=5, warmup=1)
+        row["bound_ms"], row["bound_by"] = ssd_bound_ms(
+            B, S, H, P, G, N, min(chunk, S), x.element_size())
+        rows.append(row)
+        print("ssd_scan " + json.dumps(row), flush=True)
+        check(ok and row["state_rel_err"] < SSD_BAR,
+              f"ssd_scan {row['shape']} chunk {chunk} {dt_name}: {row}")
+        del x, dt, a, b, c, y, st, y_p, st_p
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mamba_phases(rng, dev) -> dict:
+    """(k)-(l): mamba2-130m prefill, decode and serving at full width."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch.serve import ModelDecodeEngine, serve
+    from repro_torch.models import (Runtime, blocks, cast_params,
+                                    decode_step, init_caches, init_params,
+                                    prefill)
+
+    cfg = get_config(MAMBA_ARCH)
+    check(cfg.compute_dtype == "bfloat16" and cfg.n_layers == 24,
+          "mamba2-130m config")
+    rt = Runtime(dev)
+    t0 = time.perf_counter()
+    params = cast_params(init_params(SEED, cfg, device=dev), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{MAMBA_ARCH}: {n_params} parameters, init + cast to "
+          f"{cfg.compute_dtype} {time.perf_counter() - t0:.2f} s", flush=True)
+    out = {}
+
+    def chunked_prefill(batch, chunk=None, p=params, c=cfg):
+        """The same prefill with the blocks' scan through the JAX model's
+        default path (``impl="chunked"``, optionally at another chunk
+        length), a check only."""
+        real = blocks.mamba_apply
+        blocks.mamba_apply = lambda p_, h, mcfg, impl: real(
+            p_, h, dataclasses.replace(mcfg, chunk=chunk or mcfg.chunk),
+            impl="chunked")
+        try:
+            before = ssd_kernel.ssd_scan.launches
+            out = prefill(p, batch, c, rt)
+            check(ssd_kernel.ssd_scan.launches == before,
+                  "the chunked prefill launched ssd_scan")
+            return out
+        finally:
+            blocks.mamba_apply = real
+
+    # (k) prefill at full width, counts set to 0 just before --------------
+    V = cfg.vocab
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S))).to(dev)}
+    ssd_kernel.ssd_scan.launches = 0
+    fa_kernel.flash_attention_fwd.launches = 0
+    logits = prefill(params, batch, cfg, rt)
+    torch.cuda.synchronize()
+    launches = ssd_kernel.ssd_scan.launches
+    flash = fa_kernel.flash_attention_fwd.launches
+    check(logits.shape == (PREFILL_B, cfg.vocab_padded)
+          and bool(torch.isfinite(logits[:, :V]).all()),
+          "mamba2 prefill logits shape/finite")
+    check(launches == cfg.n_layers and flash == 0,
+          f"mamba2 prefill launched ssd_scan {launches} times (not "
+          f"{cfg.n_layers}) and flash attention {flash} times")
+    # in bf16 the random-weight model amplifies rounding through its 24
+    # layers: the chunked path at chunk 64 against itself at 128 (the same
+    # algebra summed in another order) already differs by ~0.09.  Each
+    # full-width comparison holds its bar in f32 compute; in bf16 the bar,
+    # or where the reference algebra's own spread on the same inputs is
+    # wider, twice that spread
+    ref_logits = chunked_prefill(batch)
+    rel = rel_err(logits[:, :V], ref_logits[:, :V])
+    spread = rel_err(chunked_prefill(batch, chunk=64)[:, :V],
+                     ref_logits[:, :V])
+    del ref_logits
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params32 = cast_params(init_params(SEED, cfg32, device=dev), cfg32)
+    before = ssd_kernel.ssd_scan.launches
+    logits32 = prefill(params32, batch, cfg32, rt)
+    check(ssd_kernel.ssd_scan.launches == before + cfg.n_layers,
+          "f32 prefill launches")
+    rel32 = rel_err(logits32[:, :V], chunked_prefill(
+        batch, p=params32, c=cfg32)[:, :V])
+    del logits32
+    check(rel32 < 2e-2, f"mamba2 f32 prefill kernel vs chunked rel err "
+                        f"{rel32}")
+    check(rel < 2e-2 or rel <= 2 * spread,
+          f"mamba2 bf16 prefill kernel vs chunked rel err {rel}, over 2e-2 "
+          f"and over twice the chunked path's own spread {spread}")
+    ms = host_ms(lambda: prefill(params, batch, cfg, rt))
+    chunked_ms = host_ms(lambda: chunked_prefill(batch), reps=3, warmup=1)
+    long = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, LONG_S))).to(dev)}
+    before = ssd_kernel.ssd_scan.launches
+    long_logits = prefill(params, long, cfg, rt)
+    torch.cuda.synchronize()
+    long_launches = ssd_kernel.ssd_scan.launches - before
+    check(long_launches == cfg.n_layers
+          and bool(torch.isfinite(long_logits[:, :cfg.vocab]).all()),
+          f"B 1 x S {LONG_S} prefill: {long_launches} launches, finite")
+    long_ms = host_ms(lambda: prefill(params, long, cfg, rt), reps=3,
+                      warmup=1)
+    out["prefill"] = dict(
+        batch=PREFILL_B, seq=PREFILL_S, ssd_launches=launches,
+        flash_launches=flash, rel_err_vs_chunked=rel,
+        chunked_64_vs_128_rel=spread, f32_rel_err_vs_chunked=rel32, e2e_ms=ms,
+        tokens_per_s=PREFILL_B * PREFILL_S / (ms * 1e-3),
+        e2e_ms_chunked=chunked_ms, long_seq=LONG_S,
+        long_ssd_launches=long_launches, long_e2e_ms=long_ms,
+        long_tokens_per_s=LONG_S / (long_ms * 1e-3))
+    print("mamba2 prefill " + json.dumps(out["prefill"]), flush=True)
+
+    # (l) teacher-forced decode against prefill ---------------------------
+    toks = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, TEACHER_S))).to(dev)}
+
+    def teacher(p, c):
+        want = prefill(p, toks, c, rt)
+        caches = init_caches(c, 1, TEACHER_S, device=dev)
+        t1 = time.perf_counter()
+        for t in range(TEACHER_S):
+            _, got, caches = decode_step(p, toks["tokens"][:, t], caches, t,
+                                         c, rt)
+        torch.cuda.synchronize()
+        return (rel_err(got[:, :V], want[:, :V]),
+                (time.perf_counter() - t1) * 1e3 / TEACHER_S)
+
+    rel_t, step_ms = teacher(params, cfg)
+    rel_t32, _ = teacher(params32, cfg32)
+    spread_t = rel_err(chunked_prefill(toks, chunk=16)[:, :V],
+                       chunked_prefill(toks)[:, :V])
+    del params32
+    out["teacher"] = dict(prompt=TEACHER_S, rel_err=rel_t,
+                          chunked_16_vs_64_rel=spread_t, f32_rel_err=rel_t32,
+                          decode_ms_per_step_b1=step_ms)
+    print("mamba2 teacher-forced decode " + json.dumps(out["teacher"]),
+          flush=True)
+    check(rel_t32 < 0.08, f"mamba2 f32 teacher-forced decode vs prefill "
+                          f"rel err {rel_t32}")
+    check(rel_t < 0.08 or rel_t <= 2 * spread_t,
+          f"mamba2 teacher-forced decode vs prefill rel err {rel_t}, over "
+          f"0.08 and over twice the chunked path's own spread {spread_t}")
+
+    # serving behind LPFServer ---------------------------------------------
+    eng = ModelDecodeEngine(cfg, SERVE_BUCKETS, params=params, device=dev)
+    buckets = {str(b): dict(ms_per_token=eng.token_seconds(b) * 1e3,
+                            ms_per_call=eng.overhead_seconds(b) * 1e3)
+               for b in eng.buckets()}
+    res = serve(eng, requests=8, seed=0, max_tokens=32, check=True)
+    health = res["health"]
+    check(res["completed"] >= 1, "mamba2: no request completed")
+    check(res["solo_identical"] == res["completed"],
+          "mamba2: batched streams differ from solo decodes")
+    out["serve"] = dict(buckets=buckets, completed=res["completed"],
+                        tokens=res["tokens"], wall_s=res["wall_s"],
+                        tokens_per_s=res["tokens_per_s"],
+                        solo_identical=res["solo_identical"],
+                        **{k: health[k] for k in (
+                            "admitted", "rejected_total", "shed",
+                            "deadline_misses", "batches", "queue_depth")})
+    print("mamba2 serve " + json.dumps(out["serve"]), flush=True)
+
+    # profiles last, as in (f)
+    out["profile"] = profile_families(
+        "mamba2 prefill", lambda: prefill(params, batch, cfg, rt), ms)
+    B, C = SERVE_BUCKETS[-1]
+    caches = init_caches(cfg, B, C, device=dev)
+    tok = torch.zeros(B, dtype=torch.long, device=dev)
+    step = lambda: decode_step(params, tok, caches, 0, cfg, rt)
+    out["decode_profile"] = profile_families(
+        f"mamba2 decode step (B {B})", step, host_ms(step))
+    del params, caches, logits, long_logits
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_bsp_fft(bsp_fft, x, wall_ms: float) -> dict:
     """Where one ordered ``bsp_fft`` call's time goes: device time of each
     kernel (``torch.profiler``, device-side events only), and the device's
@@ -840,7 +1141,7 @@ def main() -> int:
     # 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     built = build.build(["fft_stage", "flash_attention_fwd",
-                         "flash_attention_bwd"])
+                         "flash_attention_bwd", "ssd_scan"])
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s ({', '.join(built)})", flush=True)
     for res in built.values():
@@ -987,6 +1288,10 @@ def main() -> int:
     bwd_rows = flash_bwd_phase(np.random.default_rng([SEED, 3]), dev)
     training = train_phases(dev)
 
+    # (j)-(l) the mamba2-130m serving path -----------------------------------
+    ssd_rows = ssd_phase(np.random.default_rng([SEED, 4]), dev)
+    mamba = mamba_phases(np.random.default_rng([SEED, 5]), dev)
+
     # 7. result lines ----------------------------------------------------------
     big = [r for r in rows if r["n"] == N_MAIN // P_MAIN and not r["inverse"]][0]
     bound_ms, bound_by = fft_bound_ms(big["batch"], big["n"])
@@ -1022,7 +1327,16 @@ def main() -> int:
             library_ms=main_bwd["library_ms"])
         for name, line, grads in (
             ("flash_attention_bwd_dkv", 272, ("dk", "dv")),
-            ("flash_attention_bwd_dq", 303, ("dq",)))]}
+            ("flash_attention_bwd_dq", 303, ("dq",)))] + [dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:101",
+        launches=mamba["prefill"]["ssd_launches"],
+        max_abs_err=ssd_rows[-1]["max_abs_err"], ms=ssd_rows[-1]["ms"],
+        plain_ms=ssd_rows[-1]["plain_ms"],
+        chunked_ms=ssd_rows[-1]["chunked_ms"],
+        bound_ms=ssd_rows[-1]["bound_ms"],
+        bound_by=ssd_rows[-1]["bound_by"], library_ms=None)]}
     print(json.dumps(kernels), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 Each module exposes ``config(ep_degree)`` (the published geometry, as in
 the JAX package's ``repro.configs``) and ``smoke_config()`` (a reduced
 same-family config for CPU tests).  Only the architectures whose blocks
-the port runs are registered; the JAX package's other nine come with
+the port runs are registered; the JAX package's other eight come with
 their blocks (ROADMAP A8).
 """
 
@@ -11,9 +11,9 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
-from . import llama3_2_1b
+from . import llama3_2_1b, mamba2_130m
 
-_MODULES = (llama3_2_1b,)
+_MODULES = (llama3_2_1b, mamba2_130m)
 
 REGISTRY: Dict[str, Tuple[Callable, Callable]] = {
     m.ARCH: (m.config, m.smoke_config) for m in _MODULES
@@ -23,7 +23,7 @@ ARCHS = tuple(REGISTRY)
 
 #: the JAX package's architectures whose blocks are not ported yet
 NOT_PORTED = ("qwen1.5-110b", "qwen3-14b", "gemma2-9b",
-              "granite-moe-3b-a800m", "deepseek-v3-671b", "mamba2-130m",
+              "granite-moe-3b-a800m", "deepseek-v3-671b",
               "llava-next-mistral-7b", "jamba-v0.1-52b", "whisper-base")
 
 

@@ -2,9 +2,10 @@
 decode buckets, on one device.
 
 ``python -m repro_torch.launch.serve --device cpu --check`` serves the
-llama3.2-1b smoke config on the CPU; without ``--device`` it runs on the
-card (and refuses to start without one), and ``--no-smoke`` serves the
-full-width model.  Requests are admitted by the model-priced controller
+llama3.2-1b smoke config on the CPU (``--arch mamba2-130m`` the Mamba-2
+one, whose decode carries a recurrent state in place of a KV cache);
+without ``--device`` it runs on the card (and refuses to start without
+one), and ``--no-smoke`` serves the full-width model.  Requests are admitted by the model-priced controller
 (:class:`repro_torch.runtime.server.LPFServer`), batched continuously
 into ``(batch, cache_len)`` buckets and decoded greedily through each
 bucket's loop (:func:`repro_torch.runtime.train_step.build_serve_buckets`).

@@ -1,7 +1,8 @@
-"""The model stack on one device: dense attention blocks assembled into a
-decoder-only LM (llama3.2-1b first), the training loss with autograd
-through the flash-attention kernels, prefill and greedy decode against a
-rolling KV cache."""
+"""The model stack on one device: dense attention blocks and Mamba-2
+blocks assembled into a decoder-only LM (llama3.2-1b, mamba2-130m), the
+training loss with autograd through the flash-attention kernels, prefill
+(through the flash-attention or ``ssd_scan`` kernel) and greedy decode
+against a rolling KV cache or a recurrent state."""
 
 from .blocks import Runtime
 from .config import BlockCfg, Group, MLACfg, ModelConfig

@@ -3,15 +3,22 @@
 All blocks are pre-norm residual (``post_norms`` adds gemma-2's sandwich
 norms).  A block's parameters are a plain dict of tensors named as in the
 JAX tree (``attn.wq``, ``mlp.w_gate``, ``ln1.w``, ...), weight matrices
-in the ``[in, out]`` layout (``x @ w``).  This slice ports the dense
+in the ``[in, out]`` layout (``x @ w``).  The port runs the dense
 attention block (``mixer="attn"``, ``ffn="dense"``) with GQA, qk-norm,
-QKV bias, RoPE, sliding windows and soft-capping.  MLA, Mamba, MoE and
-cross-attention blocks raise :class:`LPFFatalError` naming the ROADMAP
-item that ports them.
+QKV bias, RoPE, sliding windows and soft-capping, and the Mamba-2 block
+(``mixer="mamba"``).  MLA, MoE and cross-attention blocks raise
+:class:`LPFFatalError` naming the ROADMAP item that ports them.
 
-Decode writes the new token's K/V into the cache in place (a slice copy
-at slot ``pos % cache_len``, after attention has read the cache); the JAX
-package returns an updated copy.  The values are the same.
+One deliberate departure from the JAX package: a Mamba block calls
+``mamba_apply(..., impl="kernel")``, where the JAX block takes the
+default chunked path.  On the card that is the CUDA ``ssd_scan`` kernel;
+on the CPU, ``ops.ssd`` takes the kernel's plain version, which computes
+the same function as the JAX block's chunked path.
+
+Decode writes the new token's K/V (or the Mamba state and convolution
+window) into the cache in place (for attention a slice copy at slot
+``pos % cache_len``, after attention has read the cache); the JAX package
+returns an updated copy.  The values are the same.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from ..core.errors import LPFFatalError
 from .attention import _partial_softmax, attention, merge_partials
 from .common import apply_rope, dense_init, layer_norm, rms_norm
 from .config import BlockCfg, ModelConfig
+from .mamba import (mamba_apply, mamba_decode_step, mamba_init_cache,
+                    mamba_params)
 
 __all__ = ["block_params", "block_apply", "block_decode",
            "block_init_cache", "Runtime"]
@@ -51,11 +60,9 @@ class Runtime:
 
 def _unported(bcfg: BlockCfg) -> None:
     """Raise for the block kinds this slice does not port."""
-    if bcfg.mixer in ("mla", "mamba"):
-        item = "A8/B4 (the ssd_scan slice)" if bcfg.mixer == "mamba" \
-            else "A8"
-        raise LPFFatalError(f"mixer={bcfg.mixer!r} blocks are not ported "
-                            f"yet (ROADMAP {item})")
+    if bcfg.mixer == "mla":
+        raise LPFFatalError("mixer='mla' blocks are not ported yet "
+                            "(ROADMAP A8)")
     if bcfg.ffn == "moe":
         raise LPFFatalError("ffn='moe' blocks are not ported yet "
                             "(ROADMAP A8)")
@@ -113,6 +120,9 @@ def block_params(gen: torch.Generator, bcfg: BlockCfg, cfg: ModelConfig,
     if bcfg.mixer == "attn":
         p["attn"] = _attn_params(gen, cfg, dtype, device)
         p["ln1"] = _norm_params(cfg.d_model, cfg.norm, device)
+    elif bcfg.mixer == "mamba":
+        p["mamba"] = mamba_params(gen, cfg.mamba, dtype, device)
+        p["ln1"] = _norm_params(cfg.d_model, cfg.norm, device)
     if cfg.post_norms and bcfg.mixer != "none":
         p["post_ln1"] = _norm_params(cfg.d_model, cfg.norm, device)
     if bcfg.ffn == "dense":
@@ -168,6 +178,9 @@ def block_apply(p: Tree, x: torch.Tensor, bcfg: BlockCfg, cfg: ModelConfig,
         if cfg.post_norms:
             o = _norm(o, p["post_ln1"], cfg.norm, plus_one)
         x = x + o
+    elif bcfg.mixer == "mamba":
+        h = _norm(x, p["ln1"], cfg.norm, plus_one)
+        x = x + mamba_apply(p["mamba"], h, cfg.mamba, impl="kernel")
     if bcfg.ffn != "none":
         h = _norm(x, p["ln2"], cfg.norm, plus_one)
         o = _mlp(p["mlp"], h)
@@ -191,6 +204,8 @@ def block_init_cache(bcfg: BlockCfg, cfg: ModelConfig, batch: int,
                              device=device)
         c["v"] = torch.zeros(batch, S, cfg.n_kv, cfg.hd, dtype=dtype,
                              device=device)
+    elif bcfg.mixer == "mamba":
+        c.update(mamba_init_cache(batch, cfg.mamba, dtype, device))
     return c
 
 
@@ -245,6 +260,10 @@ def block_decode(p: Tree, x: torch.Tensor, cache: Tree, bcfg: BlockCfg,
         o = _attn_decode(p["attn"], h, cache, cfg, bcfg, pos)
         if cfg.post_norms:
             o = _norm(o, p["post_ln1"], cfg.norm, plus_one)
+        x = x + o
+    elif bcfg.mixer == "mamba":
+        h = _norm(x, p["ln1"], cfg.norm, plus_one)
+        o, _ = mamba_decode_step(p["mamba"], h, cache, cfg.mamba)
         x = x + o
     if bcfg.ffn != "none":
         h = _norm(x, p["ln2"], cfg.norm, plus_one)

@@ -1,6 +1,6 @@
 """The language model on one device: embed -> block groups -> head, with
-the training loss, prefill and single-token greedy decode (decoder-only,
-dense attention blocks in this slice).
+the training loss, prefill and single-token greedy decode (decoder-only:
+dense attention blocks and Mamba-2 blocks).
 
 Parameters live in a :class:`ParamTree`, an ``nn.Module`` whose
 parameters are named as in the JAX tree (``embed``, ``final_norm.w``,
@@ -320,8 +320,10 @@ def loss_fn(params: ParamTree, batch: dict, cfg: ModelConfig,
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
                 *, device="cuda") -> Tree:
-    """Zeroed KV caches ``{group: {"b<i>": {"k", "v"}}}``, each leaf
-    ``[repeats, batch, cache_len, n_kv, hd]`` (the JAX layout)."""
+    """Zeroed caches ``{group: {"b<i>": {...}}}`` in the JAX layout, each
+    leaf ``[repeats, batch, ...]``: an attention block's ``k``, ``v``
+    ``[.., cache_len, n_kv, hd]``; a Mamba block's ``ssm`` state
+    ``[.., H, N, P]`` (f32) and ``conv`` window ``[.., 3, conv_dim]``."""
     _check_blocks(cfg)
     dev = resolve_device(device)
     dtype = dtype or dtype_of(cfg.compute_dtype)
@@ -337,8 +339,8 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
 def decode_step(params: ParamTree, token, caches: Tree, pos: int,
                 cfg: ModelConfig, rt: Optional[Runtime] = None):
     """One greedy decode step.  token [B] int; ``pos`` the absolute
-    position of the new token (cache writes roll modulo the cache length,
-    in place).  Returns (next_token [B], logits [B, V_padded], caches)."""
+    position of the new token (KV-cache writes roll modulo the cache
+    length; every cache is updated in place).  Returns (next_token [B], logits [B, V_padded], caches)."""
     rt = _runtime(params, rt)
     _check_blocks(cfg)
     cdt = dtype_of(cfg.compute_dtype)

@@ -10,10 +10,11 @@ same inputs, at the JAX kernel tests' bars: ``fft_stage`` (relative error
 and in bf16 also each row's error within 2^-6 of the row's largest
 |o_plain|; lse within 1e-4) and the two ``flash_attention_bwd`` kernels
 (each gradient within 5e-4 of the largest plain one in f32; in bf16 each
-row within 2^-6 of the row's largest |plain|).  The FFT path and the
-llama3.2-1b serving and training paths (smoke config: prefill, the
-``LPFServer`` loop, train steps) are driven through their entry points on
-the card.
+row within 2^-6 of the row's largest |plain|) and ``ssd_scan`` (y and the
+final state within 1e-4 of the plain version's largest |value|).  The FFT
+path, the llama3.2-1b serving and training paths (smoke config: prefill,
+the ``LPFServer`` loop, train steps) and the mamba2-130m serving path
+(smoke config) are driven through their entry points on the card.
 """
 
 import ctypes
@@ -32,6 +33,9 @@ from repro_torch.kernels.fft_stage import ref as fft_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -438,3 +442,168 @@ def test_smoke_train_steps_on_card(cuda):
             fa_kernel.flash_attention_bwd_dkv.launches,
             fa_kernel.flash_attention_bwd_dq.launches) == (8, 4, 4)
     assert all(p.is_cuda for p in params.parameters())
+
+
+# --------------------------------------------------------------------------
+# ssd_scan and the mamba2-130m path
+# --------------------------------------------------------------------------
+
+# the JAX kernel tests' sweep, a ragged S and a ragged S with G 2;
+# B, S, H, P, G, N, chunk
+SSD_SWEEP = [
+    (1, 64, 2, 16, 1, 16, 16),
+    (2, 128, 4, 32, 2, 32, 32),
+    (1, 256, 2, 16, 1, 64, 64),
+    (1, 128, 4, 16, 1, 16, 128),
+    (1, 200, 2, 16, 1, 16, 64),
+    (2, 77, 4, 32, 2, 16, 32),
+]
+
+
+def ssd_inputs(seed, B, S, H, P, G, N, dtype, device):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((B, S, H, P), np.float32))
+    dt = torch.from_numpy(rng.uniform(0.001, 0.1, (B, S, H)).astype(
+        np.float32))
+    a = torch.from_numpy(-rng.uniform(0.5, 2.0, (H,)).astype(np.float32))
+    b, c = (torch.from_numpy(rng.standard_normal((B, S, G, N), np.float32))
+            for _ in range(2))
+    return (x.to(device, dtype), dt.to(device), a.to(device),
+            b.to(device, dtype), c.to(device, dtype))
+
+
+def rel_max(a, ref):
+    return ((a.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_SWEEP)
+def test_ssd_kernel_matches_plain_version(cuda, B, S, H, P, G, N, chunk):
+    args = ssd_inputs(S + N, B, S, H, P, G, N, torch.float32, cuda)
+    before = ssd_kernel.ssd_scan.launches
+    y, st = ssd_kernel.ssd_scan(*args, chunk=chunk)
+    y_p, st_p = ssd_ref.ssd_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_scan.launches == before + 1
+    assert y.shape == (B, S, H, P) and st.shape == (B, H, N, P)
+    assert rel_max(y, y_p) < 1e-4 and rel_max(st, st_p) < 1e-4
+    # ... and against the sequential oracle, ragged tails included
+    y_r, st_r = ssd_ref.ssd_ref(*args)
+    assert rel_max(y, y_r) < 1e-4 and rel_max(st, st_r) < 1e-4
+
+
+def test_ssd_kernel_bf16_and_strided_views(cuda):
+    """bf16 x, b, c (f32 arithmetic; y within the bar plus half a bf16 ulp
+    of the f32 plain y), and f32 inputs that are strided views of one
+    wider tensor, as the model hands them over."""
+    x, dt, a, b, c = ssd_inputs(5, 2, 256, 4, 64, 1, 128, torch.bfloat16,
+                                cuda)
+    y, st = ssd_kernel.ssd_scan(x, dt, a, b, c)
+    y32, st32 = ssd_ref.ssd_scan_plain(x.float(), dt, a, b.float(),
+                                       c.float())
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    over = ((y.float() - y32).abs() - 2.0 ** -8 * y32.abs()).max()
+    assert over.item() / y32.abs().max().item() < 1e-4
+    assert rel_max(st, st32) < 1e-4
+    wide = torch.cat([x.float().reshape(2, 256, -1), b.float()[:, :, 0],
+                      c.float()[:, :, 0]], dim=-1)
+    xs = wide[..., :256].reshape(2, 256, 4, 64)
+    bs = wide[..., 256:384].reshape(2, 256, 1, 128)
+    cs = wide[..., 384:].reshape(2, 256, 1, 128)
+    assert not xs.is_contiguous()
+    y_v, st_v = ssd_kernel.ssd_scan(xs, dt, a, bs, cs)
+    assert rel_max(y_v, y32) < 1e-4 and rel_max(st_v, st32) < 1e-4
+
+
+def test_ssd_bar_catches_a_missing_state_decay(cuda, tmp_path, monkeypatch):
+    """The 1e-4 bar has teeth on the card: a copy of the kernel that
+    carries the state across chunks without its exp(cum_L) decay misses
+    the plain version by orders of magnitude, where the kernel passes."""
+    src = (build.CSRC / "ssd_scan.cu").read_text()
+    decay = "const float decay = expf(cum_L);"
+    assert src.count(decay) == 1
+    (tmp_path / "ssd.cu").write_text(src.replace(
+        decay, "const float decay = 1.f;"))
+    so = tmp_path / "libssd.so"
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(so),
+                    str(tmp_path / "ssd.cu")], check=True,
+                   capture_output=True)
+    broken = ctypes.CDLL(str(so))
+    broken.ssd_scan.argtypes = ssd_kernel._ARGTYPES
+    broken.ssd_scan.restype = ctypes.c_int
+    args = ssd_inputs(6, 2, 512, 4, 64, 1, 128, torch.float32, cuda)
+    y_p, st_p = ssd_ref.ssd_scan_plain(*args)
+    y, st = ssd_kernel.ssd_scan(*args)
+    monkeypatch.setattr(ssd_kernel, "_lib", lambda: broken)
+    y_bad, st_bad = ssd_kernel.ssd_scan(*args)
+    good, bad = rel_max(y, y_p), rel_max(y_bad, y_p)
+    print(f"ssd_scan rel err: kernel {good}, no state decay {bad}")
+    assert good < 1e-4 < 100 * 1e-4 < bad
+    assert rel_max(st_bad, st_p) > 100 * 1e-4
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    """Wrong layouts and shapes past the kernel's limits raise on CUDA
+    tensors; nothing falls back to the plain version."""
+    x, dt, a, b, c = ssd_inputs(7, 1, 256, 2, 32, 1, 16, torch.float32,
+                                cuda)
+    before = ssd_kernel.ssd_scan.launches
+    with pytest.raises(tlpf.LPFFatalError, match="unit stride"):
+        ssd_kernel.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3),
+                            dt, a, b, c)
+    with pytest.raises(tlpf.LPFFatalError, match="1 to 128"):
+        ssd_kernel.ssd_scan(x, dt, a, b, c, chunk=256)
+    with pytest.raises(tlpf.LPFFatalError, match="up to 128"):
+        ssd_kernel.ssd_scan(*ssd_inputs(8, 1, 64, 2, 32, 1, 256,
+                                        torch.float32, cuda))
+    with pytest.raises(tlpf.LPFFatalError, match="float32 or bfloat16"):
+        ssd_kernel.ssd_scan(x.half(), dt, a, b.half(), c.half())
+    with pytest.raises(tlpf.LPFFatalError, match="1 to 128"):
+        ssd_ops.ssd(x, dt, a, b, c, chunk=512)
+    assert ssd_kernel.ssd_scan.launches == before
+
+
+def mamba_cfg(**kw):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("mamba2-130m", smoke=True), **kw)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_mamba_smoke_prefill_on_card(cuda, compute):
+    """The smoke model's prefill launches the kernel once a layer and
+    matches the same weights' prefill on the CPU (the plain version)."""
+    from repro_torch.interop import params_from_jax, params_to_numpy
+    from repro_torch.models import Runtime, init_params, prefill
+    cfg = mamba_cfg(compute_dtype=compute)
+    params = init_params(3, cfg)
+    cpu = params_from_jax(params_to_numpy(params), device="cpu")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 100))
+    ssd_kernel.ssd_scan.launches = 0
+    got = prefill(params, {"tokens": toks}, cfg)
+    assert got.is_cuda and ssd_kernel.ssd_scan.launches == cfg.n_layers
+    want = prefill(cpu, {"tokens": toks}, cfg, Runtime("cpu"))
+    assert rel(got.cpu()[:, :cfg.vocab], want[:, :cfg.vocab]) < (
+        1e-4 if compute == "float32" else 2e-2)
+
+
+def test_mamba_smoke_decode_and_serve_on_card(cuda):
+    from repro_torch.launch.serve import ModelDecodeEngine, serve
+    from repro_torch.models import (cast_params, decode_step, init_caches,
+                                    init_params, prefill)
+    cfg = mamba_cfg()
+    params = cast_params(init_params(0, cfg), cfg)
+    toks = torch.from_numpy(
+        np.random.default_rng(4).integers(0, cfg.vocab, (1, 24))).to(cuda)
+    want = prefill(params, {"tokens": toks}, cfg)
+    caches = init_caches(cfg, 1, 24)
+    for t in range(24):
+        _, logits, caches = decode_step(params, toks[:, t], caches, t, cfg)
+    assert rel(logits[:, :cfg.vocab], want[:, :cfg.vocab]) < 0.08
+    eng = ModelDecodeEngine(cfg, [(2, 32), (4, 32)], params=params,
+                            calibrate_tokens=3)
+    out = serve(eng, requests=8, seed=0, max_tokens=16, check=True,
+                verbose=False)
+    assert out["completed"] >= 1
+    assert out["solo_identical"] == out["completed"]
+    assert out["health"]["deadline_misses"] == 0

@@ -82,10 +82,10 @@ def test_config_matches_jax(smoke):
 
 def test_other_archs_refused_until_ported():
     with pytest.raises(KeyError, match="A8"):
-        get_config("mamba2-130m")
+        get_config("granite-moe-3b-a800m")
     cfg = dataclasses.replace(
         get_config(ARCH, smoke=True),
-        groups=(Group("body", (BlockCfg("mamba", "dense"),), 1),))
+        groups=(Group("body", (BlockCfg("attn", "moe"),), 1),))
     with pytest.raises(LPFFatalError, match="ROADMAP"):
         init_params(0, cfg, device="cpu")
 

@@ -1,0 +1,217 @@
+"""Parity of the port's SSD scan with the JAX reference on the CPU.
+
+* ``ssd_scan_plain`` (what ``ops.ssd`` runs for a CPU tensor, and what
+  ``chip_smoke.py`` holds the CUDA kernel against on the card) against the
+  JAX kernel ``ssd_scan`` in Pallas interpret mode, y and the final state,
+  at the JAX kernel tests' sweep (``tests/test_kernels.py``) and their bar:
+  max |port - jax| / max |jax| below 1e-4;
+* ``ssd_ref`` / ``ssd_step`` against the JAX oracle (1e-5);
+* chunk invariance, and the ragged tail (S 200, chunk 64) against the JAX
+  oracle;
+* ``ops.ssd`` gradients against ``jax.vjp`` of the JAX ``ops.ssd`` (5e-4,
+  the reference's gradient bar);
+* the dispatch and the CUDA wrapper's refusals, and a planted fault that
+  shows the 1e-4 bar has teeth.
+
+The CUDA kernel itself is held against the plain version on the card by
+``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+"""
+
+import inspect
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd_scan.kernel import ssd_scan as jax_ssd_scan
+from repro.kernels.ssd_scan.ops import ssd as jax_ssd
+from repro.kernels.ssd_scan.ref import ssd_ref as jax_ssd_ref
+from repro.kernels.ssd_scan.ref import ssd_step as jax_ssd_step
+from repro_torch.core import LPFFatalError
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+# B, S, H, P, G, N, chunk (the JAX kernel tests' sweep)
+SSD_SWEEP = [
+    (1, 64, 2, 16, 1, 16, 16),
+    (2, 128, 4, 32, 2, 32, 32),
+    (1, 256, 2, 16, 1, 64, 64),
+    (1, 128, 4, 16, 1, 16, 128),    # chunk == S
+]
+BAR = 1e-4
+
+
+def inputs(seed, B, S, H, P, G, N):
+    """x, dt, a, b, c as the JAX kernel tests draw them."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, P)).astype(np.float32),
+            rng.uniform(0.001, 0.1, (B, S, H)).astype(np.float32),
+            -rng.uniform(0.5, 2.0, (H,)).astype(np.float32),
+            rng.standard_normal((B, S, G, N)).astype(np.float32),
+            rng.standard_normal((B, S, G, N)).astype(np.float32))
+
+
+def rel(a, ref):
+    a = np.asarray(a, np.float32)
+    ref = np.asarray(ref, np.float32)
+    return float(np.abs(a - ref).max() / (np.abs(ref).max() + 1e-9))
+
+
+def torch_args(arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_SWEEP)
+def test_plain_version_matches_jax_kernel(B, S, H, P, G, N, chunk):
+    arrays = inputs(S + N + chunk, B, S, H, P, G, N)
+    want_y, want_st = jax_ssd_scan(*map(jnp.asarray, arrays), chunk=chunk,
+                                   interpret=True)
+    y, st = ssd_ref.ssd_scan_plain(*torch_args(arrays), chunk=chunk)
+    assert y.shape == (B, S, H, P) and y.dtype == torch.float32
+    assert st.shape == (B, H, N, P) and st.dtype == torch.float32
+    assert rel(y, want_y) < BAR
+    assert rel(st, want_st) < BAR
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_SWEEP)
+def test_oracle_matches_jax(B, S, H, P, G, N, chunk):
+    arrays = inputs(S + N, B, S, H, P, G, N)
+    want_y, want_st = jax_ssd_ref(*map(jnp.asarray, arrays))
+    y, st = ssd_ref.ssd_ref(*torch_args(arrays))
+    assert rel(y, want_y) < 1e-5
+    assert rel(st, want_st) < 1e-5
+
+
+def test_step_matches_jax():
+    x, dt, a, b, c = inputs(3, 1, 1, 4, 16, 2, 8)
+    state = np.random.default_rng(4).standard_normal(
+        (4, 8, 16)).astype(np.float32)
+    args = (state, x[0, 0], dt[0, 0], a, b[0, 0], c[0, 0])
+    want_st, want_y = jax_ssd_step(*map(jnp.asarray, args))
+    st, y = ssd_ref.ssd_step(*torch_args(args))
+    assert rel(st, want_st) < 1e-5
+    assert rel(y, want_y) < 1e-5
+
+
+def test_chunk_invariance():
+    """The chunk length is an implementation detail: results agree."""
+    args = torch_args(inputs(7, 1, 128, 2, 16, 1, 32))
+    y16, st16 = ssd_ref.ssd_scan_plain(*args, chunk=16)
+    y64, st64 = ssd_ref.ssd_scan_plain(*args, chunk=64)
+    assert (y16 - y64).abs().max().item() < BAR
+    assert rel(st16, st64) < BAR
+
+
+def test_ragged_tail_matches_jax_oracle():
+    """S 200 with chunk 64: the last chunk holds 8 rows.  The plain
+    version masks the tail (x = 0, dt = 0 past S) and agrees with the JAX
+    oracle.  It is held against the oracle and not the JAX kernel: the
+    TPU kernel's grid is cdiv(S, L) with no mask, so it reads past the end
+    there (ROADMAP C)."""
+    arrays = inputs(8, 2, 200, 2, 16, 1, 16)
+    want_y, want_st = jax_ssd_ref(*map(jnp.asarray, arrays))
+    y, st = ssd_ref.ssd_scan_plain(*torch_args(arrays), chunk=64)
+    assert y.shape == (2, 200, 2, 16)
+    assert rel(y, want_y) < BAR
+    assert rel(st, want_st) < BAR
+
+
+def test_bf16_inputs_keep_f32_arithmetic():
+    """bf16 x, b, c: y comes back in bf16, the state in f32, both from f32
+    arithmetic (the kernel's contract; the CPU path is its plain
+    version)."""
+    x, dt, a, b, c = torch_args(inputs(9, 1, 96, 2, 16, 1, 16))
+    xb, bb, cb = (t.to(torch.bfloat16) for t in (x, b, c))
+    y, st = ssd_ref.ssd_scan_plain(xb, dt, a, bb, cb, chunk=32)
+    y32, st32 = ssd_ref.ssd_scan_plain(xb.float(), dt, a, bb.float(),
+                                       cb.float(), chunk=32)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    assert torch.equal(y, y32.to(torch.bfloat16))
+    assert torch.equal(st, st32)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (1, 64, 2, 16, 1, 16, 16),
+    (2, 48, 4, 16, 2, 8, 16),
+])
+def test_gradients_match_jax(B, S, H, P, G, N, chunk):
+    """ops.ssd's backward (autograd of the oracle) against jax.vjp of the
+    JAX custom_vjp (the oracle's VJP), for a random cotangent."""
+    arrays = inputs(11, B, S, H, P, G, N)
+    dy = np.random.default_rng(12).standard_normal(
+        (B, S, H, P)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *ops: jax_ssd(*ops, chunk=chunk,
+                                          interpret=True),
+                     *map(jnp.asarray, arrays))
+    want = vjp(jnp.asarray(dy))
+    args = [t.requires_grad_() for t in torch_args(arrays)]
+    y = ssd_ops.ssd(*args, chunk=chunk)
+    got = torch.autograd.grad(y, args, torch.from_numpy(dy))
+    for name, g, w in zip(("x", "dt", "a", "b", "c"), got, want):
+        assert g.shape == w.shape, name
+        assert rel(g, w) < 5e-4, name
+
+
+def test_cpu_tensor_takes_the_plain_version():
+    args = torch_args(inputs(13, 1, 64, 2, 16, 1, 16))
+    before = ssd_kernel.ssd_scan.launches
+    y = ssd_ops.ssd(*args, chunk=16)
+    assert ssd_kernel.ssd_scan.launches == before
+    want, _ = ssd_ref.ssd_scan_plain(*args, chunk=16)
+    assert torch.equal(y, want)
+
+
+def test_kernel_wrapper_refuses_what_it_does_not_take():
+    """Every refusal but the device shows without a card; a CPU tensor is
+    refused last, never handed to the plain version."""
+    x, dt, a, b, c = torch_args(inputs(14, 1, 64, 2, 16, 1, 16))
+    with pytest.raises(LPFFatalError, match="CUDA tensors"):
+        ssd_kernel.ssd_scan(x, dt, a, b, c)
+    with pytest.raises(LPFFatalError, match="float32 or bfloat16"):
+        ssd_kernel.ssd_scan(x.half(), dt, a, b.half(), c.half())
+    with pytest.raises(LPFFatalError, match="one dtype"):
+        ssd_kernel.ssd_scan(x, dt, a, b.to(torch.bfloat16), c)
+    with pytest.raises(LPFFatalError, match="float32 dt"):
+        ssd_kernel.ssd_scan(x, dt.double(), a, b, c)
+    with pytest.raises(LPFFatalError, match="unit stride"):
+        ssd_kernel.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3),
+                            dt, a, b, c)
+    with pytest.raises(LPFFatalError, match="1 to 128"):
+        ssd_kernel.ssd_scan(*torch_args(inputs(15, 1, 256, 2, 16, 1, 16)),
+                            chunk=256)
+    with pytest.raises(LPFFatalError, match="multiple of 4 up to 128"):
+        ssd_kernel.ssd_scan(*torch_args(inputs(16, 1, 64, 2, 16, 1, 136)))
+    with pytest.raises(LPFFatalError, match="multiple of 16"):
+        ssd_kernel.ssd_scan(*torch_args(inputs(17, 1, 64, 2, 24, 1, 16)))
+    with pytest.raises(LPFFatalError, match="G dividing H"):
+        ssd_kernel.ssd_scan(*torch_args(inputs(18, 1, 64, 3, 16, 2, 16)))
+
+
+def test_pick_columns_fills_the_card():
+    """P splits over blocks only when B x H leaves multiprocessors idle."""
+    assert ssd_kernel.pick_columns(4, 24, 64, 128, 128, 132) == 64
+    assert ssd_kernel.pick_columns(1, 24, 64, 128, 128, 132) == 16
+    assert ssd_kernel.pick_columns(1, 2, 16, 64, 16, 132) == 16
+
+
+def test_bar_catches_a_missing_state_decay():
+    """The 1e-4 bar has teeth: a copy of the plain version that leaves
+    exp(cum_L) out of the carried state misses the JAX kernel by orders of
+    magnitude on a sweep shape, where the plain version itself passes."""
+    src = inspect.getsource(ssd_ref.ssd_scan_plain)
+    decay = "torch.exp(cl)[..., None, None] * state"
+    assert src.count(decay) == 1
+    scope = dict(vars(ssd_ref))
+    exec(src.replace(decay, "state"), scope)
+    broken = scope["ssd_scan_plain"]
+    arrays = inputs(19, 2, 128, 4, 32, 2, 32)
+    want_y, want_st = jax_ssd_scan(*map(jnp.asarray, arrays), chunk=32,
+                                   interpret=True)
+    y, st = ssd_ref.ssd_scan_plain(*torch_args(arrays), chunk=32)
+    y_bad, st_bad = broken(*torch_args(arrays), chunk=32)
+    assert rel(y, want_y) < BAR and rel(st, want_st) < BAR
+    assert rel(y_bad, want_y) > 100 * BAR
+    assert rel(st_bad, want_st) > 100 * BAR
