@@ -69,9 +69,14 @@ The llama3.2-1b training path (f32 masters, bf16 compute, ``remat="full"``,
     last: in f32 each gradient within 5e-4 of the largest plain one (the
     JAX backward test's bar); in bf16 each row of dq, dk, dv within 2^-6 of
     the row's largest |plain| (``grad_row_err``), also against the plain
-    version with ``round_p=True``; each kernel's milliseconds, the plain
+    version with ``round_p=True``; each kernel's milliseconds, the pair's
+    sum and, beside it, the wrapper's ``delta = rowsum(dO * o)`` (SDPA's
+    backward computes its own inside the call it is timed by), the plain
     version's and SDPA's backward (timed beside the kernels only; the port
-    never calls it), and each kernel's bound;
+    never calls it; at the training shape the kernels that one profiled
+    SDPA backward call launched are named), each kernel's bound, and each
+    bf16 kernel's registers, spills and shared memory (``-Xptxas -v`` and
+    the dynamic bytes its launch requests);
 (h) training at full width: ``train_loop`` over ``build_train_step`` with
     AdamW (lr ``warmup_cosine(3e-3, 10, steps)``) on ``SyntheticStream``
     seed 0 at B 4 x S 2048 for ``TRAIN_STEPS`` steps: every loss finite,
@@ -126,9 +131,11 @@ from ``SEED``, f32 parameters cast once to bf16 compute) adds, after (i):
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -392,12 +399,55 @@ def flash_bwd_bound_ms(B, H, Hkv, S, D, causal, window, itemsize) -> dict:
     return out
 
 
-def flash_bwd_phase(rng, dev, shapes=FLASH_SHAPES) -> list:
+def kernel_build_report(log: str, marker: str, smem_dynamic: int) -> dict:
+    """Registers, spills and shared memory of the kernel whose mangled name
+    holds ``marker``, from an ``nvcc -Xptxas -v`` log, beside the dynamic
+    shared memory its launch requests."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or marker not in name:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out["spill_store_bytes"], out["spill_load_bytes"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out["smem_static_bytes"] = int(m.group(1)) if m else 0
+    check("registers" in out, f"no ptxas report for {marker}")
+    out["smem_dynamic_bytes"] = smem_dynamic
+    return out
+
+
+def device_kernels(run) -> list:
+    """Names of the CUDA kernels one call of ``run`` launches (every
+    device event the profiler recorded, whether or not it carries time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def flash_bwd_phase(rng, dev, build_log: str,
+                    shapes=FLASH_SHAPES) -> list:
     """(g): the two backward kernels against their plain version."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    smem = build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     rows = []
     for B, H, Hkv, S, D, causal, window, softcap, dt in shapes:
         dtype = getattr(torch, dt)
@@ -437,7 +487,11 @@ def flash_bwd_phase(rng, dev, shapes=FLASH_SHAPES) -> list:
                 row["row_err_vs_round_p"].items()}}.items()
                 if e > BF16_ROW_BAR}
         del got, want
+        # the wrapper's delta (kernel.py's flash_attention_bwd), timed: SDPA's
+        # backward does its own such pass inside the call it is timed by
         delta = (do.float() * o.float()).sum(dim=-1)
+        row["delta_ms"] = cuda_ms(lambda: (do.float() * o.float()).sum(
+            dim=-1))
         row["ms"] = {
             "flash_attention_bwd_dkv": cuda_ms(
                 lambda: fa_kernel.flash_attention_bwd_dkv(
@@ -445,6 +499,8 @@ def flash_bwd_phase(rng, dev, shapes=FLASH_SHAPES) -> list:
             "flash_attention_bwd_dq": cuda_ms(
                 lambda: fa_kernel.flash_attention_bwd_dq(
                     q, k, v, do, lse, delta, **kw))}
+        row["pair_ms"] = sum(row["ms"].values())
+        row["pair_plus_delta_ms"] = row["pair_ms"] + row["delta_ms"]
         # the plain version computes dq, dk and dv in one call
         row["plain_ms"] = cuda_ms(lambda: fa_ref.flash_attention_bwd_ref(
             q, k, v, o, do, lse, **kw), reps=5, warmup=1)
@@ -454,11 +510,21 @@ def flash_bwd_phase(rng, dev, shapes=FLASH_SHAPES) -> list:
             # window/softcap; one autograd call for both kernels' work
             xs = [x.detach().requires_grad_() for x in (q, k, v)]
             o_lib = sdpa(*xs, is_causal=causal, enable_gqa=H != Hkv)
-            row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-                o_lib, xs, do, retain_graph=True))
+            sdpa_bwd = lambda: torch.autograd.grad(o_lib, xs, do,
+                                                   retain_graph=True)
+            row["library_ms"] = cuda_ms(sdpa_bwd)
+            if (B, H, Hkv, S, D) == shapes[-1][:5]:
+                # the yardstick's backend: the kernels one call launched
+                row["library_kernels"] = device_kernels(sdpa_bwd)
             del xs, o_lib
         row["bound"] = flash_bwd_bound_ms(B, H, Hkv, S, D, causal, window,
                                           q.element_size())
+        if dt == "bfloat16":
+            row["build"] = {name: kernel_build_report(
+                build_log, f"{fn}ILi{D}E", smem(pass_, D))
+                for name, fn, pass_ in (
+                    ("flash_attention_bwd_dkv", "fa_bwd_dkv_bf16", 0),
+                    ("flash_attention_bwd_dq", "fa_bwd_dq_bf16", 1))}
         rows.append(row)
         print("flash_attention_bwd " + json.dumps(row), flush=True)
         check(not bad, f"flash_attention_bwd {row['shape']} {dt}: over the "
@@ -1285,7 +1351,8 @@ def main() -> int:
     serving = serving_phases(np.random.default_rng([SEED, 2]), dev)
 
     # (g)-(i) the llama3.2-1b training path ---------------------------------
-    bwd_rows = flash_bwd_phase(np.random.default_rng([SEED, 3]), dev)
+    bwd_rows = flash_bwd_phase(np.random.default_rng([SEED, 3]), dev,
+                               built["flash_attention_bwd"].log)
     training = train_phases(dev)
 
     # (j)-(l) the mamba2-130m serving path -----------------------------------
@@ -1324,7 +1391,9 @@ def main() -> int:
             ms=main_bwd["ms"][name], plain_ms=main_bwd["plain_ms"],
             bound_ms=main_bwd["bound"][name][0],
             bound_by=main_bwd["bound"][name][1],
-            library_ms=main_bwd["library_ms"])
+            library_ms=main_bwd["library_ms"],
+            pair_ms=main_bwd["pair_ms"], delta_ms=main_bwd["delta_ms"],
+            build=main_bwd["build"][name])
         for name, line, grads in (
             ("flash_attention_bwd_dkv", 272, ("dk", "dv")),
             ("flash_attention_bwd_dq", 303, ("dq",)))] + [dict(

@@ -25,58 +25,87 @@
 // a pair, 137.5 GFLOP, 139 us at the data sheet's 989 TFLOP/s bf16) and the
 // dQ pass three (S, dP, dQ: 6*D flops, 103.1 GFLOP, 104 us), against about
 // 100 MB that each must move once (31 us at 3.35 TB/s).  Both are bound by
-// operations, so only the tensor cores can approach the bound.
+// operations, and only wgmma reaches the tensor cores' full rate.
 //
-// What this design does about it (a simple kernel that is right first):
-// * bf16, dK/dV: one block of 4 warps per (b, kv head, 64-key tile); each
-//   warp owns 16 keys.  K and V are staged once in shared memory (rows
-//   padded by 16 bytes).  A loop over the group's query heads and, inside
-//   it, over the query tiles of the causal/window band (64 queries at
-//   D <= 64, 32 at D = 128) stages Q, dO, lse and delta, then computes the
-//   products transposed, keys as rows: S^T = K Q^T and dP^T = V dO^T with
-//   mma.sync m16n8k16 (bf16 operands, f32 accumulation), forms P^T and
-//   dS^T in the accumulators, and re-packs them as A fragments for
-//   dV += P^T dO and dK += dS^T Q.  Computing S^T instead of S puts P^T
-//   and dS^T where the next products need them, so no transpose goes
-//   through shared memory.  dK and dV stay in f32 registers for the whole
-//   loop.
-// * bf16, dQ: one block of 4 warps per (b, head, 64-query tile); Q and dO
-//   stay in registers as A fragments; a loop over the key tiles of the band
-//   (64 keys at D <= 64, 32 at D = 128) stages K and V, computes S = Q K^T
-//   and dP = dO V^T, forms dS and accumulates dQ += dS K in f32 registers.
+// The bf16 design (wgmma, TMA, an mbarrier ring; helpers in hopper.cuh):
+// * Warp roles.  A block has 3 warpgroups: warpgroup 0 is the producer (one
+//   warp issues every TMA load; setmaxnreg drops the group to 24
+//   registers), warpgroups 1 and 2 are consumers of 64 rows each (one
+//   wgmma M; setmaxnreg raises them to 240 registers).
+// * dK/dV: one block per (b, kv head, 128-key tile).  K and V arrive once by
+//   TMA and stay in shared memory.  A ring of STAGES stages holds per query
+//   tile Q and dO (TMA) and the tile's lse and delta (copied by the
+//   producer warp's lanes, which arrive on the same barrier); the ring walks
+//   the group's query heads and, inside, the query tiles of the causal/
+//   window band.  Each consumer computes S^T = K Q^T and dP^T = V dO^T
+//   (wgmma, both operands K-major descriptors), forms P^T and dS^T in the
+//   accumulators, re-packs them as bf16 A fragments in registers (the
+//   accumulator layout is the A layout) and computes dV += P^T dO and
+//   dK += dS^T Q with B read through MN-major (transposed) descriptors of
+//   the dO and Q tiles: no transpose goes through shared memory.  dK and dV
+//   stay in f32 registers for the whole loop, written once at the end.
+// * dQ: one block per (b, head, 128-query tile).  Q and dO arrive once by
+//   TMA and stay in shared memory as wgmma A operands; lse and delta stay
+//   in registers.  A ring of K/V stages of 64 keys walks the band's key
+//   tiles: S = Q K^T and dP = dO V^T from descriptors, dS in registers,
+//   dQ += dS K with B = K through an MN-major descriptor.
+// * Within a consumer the products run in batches that overlap its own
+//   arithmetic: P^T (P) forms while dP^T (dP) is still in flight, and in
+//   dK/dV dS^T forms while dV += P^T dO is.  Under a soft-cap dS needs the
+//   score's tanh, so both wait for the two first products and form
+//   together.
+// * Stages are released by every consumer thread's arrival on the stage's
+//   empty barrier after its products have completed; the producer refills
+//   a stage when its empty barrier's phase completes.
+// * Tensor maps are 3-D ([B*H or B*Hkv, S, D]), so rows past S of one head
+//   load as zeros, never as the next head's rows: ragged S needs no
+//   padding.
+// * Tiles by D, from the -Xptxas -v report: D <= 64 keeps 64-query stages
+//   in dK/dV (dK and dV 2 x 32 registers a thread, S^T and dP^T 2 x 32);
+//   at D = 128 dK and dV take 128 registers a thread, so the dK/dV stages
+//   hold 32 queries (S^T and dP^T 2 x 16), and the kernel still spills
+//   about 500 bytes there.  dK/dV spills 56 bytes at D 32 and 64 alike:
+//   the producer warp's, in its 24 registers, off the products' path.
+//   Products over D = 128 run as two N = 64 wgmmas, one per panel.
 // * Rounding: the re-packed P^T and dS^T are rounded to bf16 before their
 //   products, as FlashAttention-2 does; the TPU kernel keeps them in f32.
 //   The plain version's `round_p=True` does the same, so chip_smoke.py
 //   shows that rounding's share of the error (PERF.md).
+// * Tiles wholly outside the band are not loaded; a consumer whose 64 rows
+//   see nothing of a loaded tile skips its products, and tiles wholly
+//   inside the band skip the mask.  dK/dV blocks run first-key-tile first
+//   and dQ blocks last-query-tile first, the longest first under the
+//   causal mask.
 // * f32: FMA on the CUDA cores, four threads per key (dK/dV) or query row
 //   (dQ), each holding a quarter of D; tiles of 32 rows.  The JAX bar in f32
 //   (relative gradient error below 5e-4, tests/test_kernels.py:53-71) rules
 //   out TF32 and bf16 tensor cores.
-// * Tiles wholly outside the causal/window band are skipped in both passes
-//   (the TPU kernels visit them and mask them to 0); dK/dV blocks run
-//   first-key-tile first and dQ blocks last-query-tile first, the longest
-//   first under the causal mask.  Ragged S (not a multiple of the tile) is
-//   masked here; the TPU kernels shrank their blocks to divide S.
-// wgmma, TMA, warp specialisation and a ring of stages are later work.
 //
 // Precision: expf/tanhf (no fast math: build without --use_fast_math).
 
 #include "flash_attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using fa::kept;
-using fa::load_a;
-using fa::load_b_cols;
-using fa::load_b_rows;
-using fa::mma_bf16;
 using fa::pack_f32;
+using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 128;    // 4 warps
-constexpr int BKV = 64;         // keys per bf16 dK/dV block (16 a warp)
-constexpr int BQ_DQ = 64;       // queries per bf16 dQ block (16 a warp)
+constexpr int THREADS = 128;    // f32: 4 warps
 constexpr int TPR = 4;          // f32: threads per key or query row
 constexpr int ROWS_F32 = THREADS / TPR;   // f32: rows per block and tile
+
+// bf16: a producer warpgroup and NC consumer warpgroups of 64 rows each
+constexpr int WG = 128;
+constexpr int NC = 2;
+constexpr int THREADS_WG = WG * (NC + 1);
+constexpr int ROWS_WG = 64;                // a consumer's rows, wgmma's M
+constexpr int BKV = NC * ROWS_WG;          // keys per dK/dV block
+constexpr int BQ_DQ = NC * ROWS_WG;        // queries per dQ block
+constexpr int BK_DQ = 64;                  // keys per dQ stage
+constexpr int STAGES = 3;
+constexpr int REGS_PRODUCER = 24, REGS_CONSUMER = 240;
 
 struct Params {
     const void* q;
@@ -96,11 +125,14 @@ struct Params {
 };
 
 // P of one (query, key) pair from its raw score q.k; `dcap` gets the
-// soft-cap's derivative (1 where there is none).
+// soft-cap's derivative (1 where there is none).  MASK false: the caller
+// knows the pair is kept.
+template <bool MASK = true>
 __device__ __forceinline__ float prob(const Params& p, float s, float lse,
                                       int q, int k, float& dcap) {
     dcap = 1.f;
-    if (q >= p.S || !kept(q, k, p.S, p.causal, p.window)) return 0.f;
+    if (MASK && (q >= p.S || !kept(q, k, p.S, p.causal, p.window)))
+        return 0.f;
     float x = s * p.scale;
     if (p.softcap > 0.f) {
         const float t = tanhf(x / p.softcap);
@@ -133,276 +165,587 @@ __device__ __forceinline__ void key_tiles(const Params& p, int q0, int bq,
     }
 }
 
-template <int D>
-__host__ __device__ constexpr int dkv_bq() { return D > 64 ? 32 : 64; }
+// Whether no pair of queries [q0, q0 + nq) and keys [k0, k0 + nk) is kept
+// (`dead`), or every pair is (`full`: no mask needed).
+__device__ __forceinline__ bool pairs_dead(const Params& p, int q0, int nq,
+                                           int k0, int nk) {
+    return q0 >= p.S || k0 >= p.S || (p.causal && q0 + nq - 1 < k0)
+        || (p.window > 0 && q0 - (k0 + nk - 1) >= p.window);
+}
 
-template <int D>
-constexpr size_t dkv_smem() {
-    return (size_t)(2 * BKV + 2 * dkv_bq<D>()) * (D + 8) * 2
-        + 2 * dkv_bq<D>() * sizeof(float);
+__device__ __forceinline__ bool pairs_full(const Params& p, int q0, int nq,
+                                           int k0, int nk) {
+    return q0 + nq <= p.S && k0 + nk <= p.S
+        && (!p.causal || q0 >= k0 + nk - 1)
+        && (p.window <= 0 || q0 + nq - 1 - k0 < p.window);
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16, f32 accumulation
+// bf16: wgmma, TMA, an mbarrier ring
 // ---------------------------------------------------------------------------
 
+// A bf16 tile of R rows and D columns in shared memory (hopper.cuh's note):
+// D / PW panels of R rows of PW columns, each one TMA box.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_dkv_bf16(Params p) {
-    constexpr int BQ = dkv_bq<D>();  // queries per tile
-    constexpr int LD = D + 8;       // shared row stride, elements (+16 B)
-    constexpr int KS = D / 16;      // k-steps over D
-    constexpr int NT = BQ / 8;      // 8-query column tiles of S^T
-    constexpr int DT = D / 8;       // 8-wide column tiles of dK, dV
-    extern __shared__ __align__(16) unsigned char smem[];
-    __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-    __nv_bfloat16* Vs = Ks + BKV * LD;
-    __nv_bfloat16* Qs = Vs + BKV * LD;
-    __nv_bfloat16* dOs = Qs + BQ * LD;
-    float* lse_s = reinterpret_cast<float*>(dOs + BQ * LD);
-    float* delta_s = lse_s + BQ;
+struct Panels {
+    static constexpr int PW = D < 64 ? D : 64;   // columns a panel
+    static constexpr int NP = D / PW;            // panels
+    static constexpr int SWIZZLE = PW * 2;       // bytes: one row of a panel
+    static constexpr int SBO = 8 * SWIZZLE;      // 8 rows of a panel
+};
+
+// K-major descriptor of rows [r0, r0 + 64) of a tile of R rows at k-step
+// ks (columns [16 ks, 16 ks + 16)).
+template <int D, int R>
+__device__ __forceinline__ uint64_t kmajor(const bf16* tile, int r0,
+                                           int ks) {
+    using P = Panels<D>;
+    const int col = ks * 16;
+    const bf16* at = tile + (col / P::PW) * R * P::PW + r0 * P::PW
+        + col % P::PW;
+    return hopper::smem_desc(at, 16, P::SBO, P::SWIZZLE);
+}
+
+// MN-major descriptor of rows [16 kk, 16 kk + 16) (the depth) and panel pn
+// (N = PW columns) of a tile of R rows.
+template <int D, int R>
+__device__ __forceinline__ uint64_t mnmajor(const bf16* tile, int kk,
+                                            int pn) {
+    using P = Panels<D>;
+    const bf16* at = tile + pn * R * P::PW + kk * 16 * P::PW;
+    return hopper::smem_desc(at, P::SBO, P::SBO, P::SWIZZLE);
+}
+
+// TMA of rows [r0, r0 + R) of matrix `m` of `map` into a tile of R rows.
+template <int D, int R>
+__device__ __forceinline__ void load_tile(bf16* tile, const CUtensorMap* map,
+                                          uint64_t* bar, int r0, int m) {
+    using P = Panels<D>;
+#pragma unroll
+    for (int pn = 0; pn < P::NP; ++pn)
+        hopper::tma_load_3d(tile + pn * R * P::PW, map, bar, pn * P::PW, r0,
+                            m);
+}
+
+// The bf16 A fragments of k-steps [0, NR / 8) from an m64nN accumulator
+// (NR = N / 2 registers): columns [16k, 16k + 16) are k-step k.
+template <int NR>
+__device__ __forceinline__ void to_frags(const float (&c)[NR],
+                                         uint32_t (&a)[NR / 8][4]) {
+#pragma unroll
+    for (int k = 0; k < NR / 8; ++k) {
+        a[k][0] = pack_f32(c[8 * k], c[8 * k + 1]);
+        a[k][1] = pack_f32(c[8 * k + 2], c[8 * k + 3]);
+        a[k][2] = pack_f32(c[8 * k + 4], c[8 * k + 5]);
+        a[k][3] = pack_f32(c[8 * k + 6], c[8 * k + 7]);
+    }
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+    return p + ((1024 - (hopper::smem_addr(p) & 1023)) & 1023);
+}
+
+// Shared memory of the dK/dV kernel: K, V, STAGES x (Q, dO), STAGES x (lse,
+// delta), the barriers; 1024 bytes of slack for the alignment.
+template <int D>
+struct DkvSmem {
+    static constexpr int BQ = D > 64 ? 32 : 64;    // queries a stage
+    static constexpr int KV = BKV * D * 2;         // bytes of K (and of V)
+    static constexpr int QT = BQ * D * 2;          // bytes of Q (and of dO)
+    static constexpr int STAGE = 2 * QT;
+    static constexpr int OFF_STAGES = 2 * KV;
+    static constexpr int OFF_STATS = OFF_STAGES + STAGES * STAGE;
+    static constexpr int OFF_BARS = OFF_STATS + STAGES * 2 * BQ * 4;
+    static constexpr int BYTES = OFF_BARS + (2 * STAGES + 1) * 8 + 1024;
+};
+
+// P^T and dS^T of a dK/dV consumer: s and dp hold S^T and dP^T (rows keys
+// kr0, kr0 + 8; columns queries q0 + 8j + 2t + (e & 1)); ls and dl the
+// stage's lse and delta.
+template <bool MASK, int NR>
+__device__ __forceinline__ void dkv_probs(const Params& p, float (&s)[NR],
+                                          float (&dp)[NR], const float* ls,
+                                          const float* dl, int q0, int kr0,
+                                          int t) {
+#pragma unroll
+    for (int j = 0; j < NR / 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int qi = 8 * j + 2 * t + (e & 1);
+            float dcap;
+            const float pr = prob<MASK>(p, s[4 * j + e], ls[qi], q0 + qi,
+                                        e < 2 ? kr0 : kr0 + 8, dcap);
+            s[4 * j + e] = pr;
+            dp[4 * j + e] = pr * (dp[4 * j + e] - dl[qi]) * dcap;
+        }
+    }
+}
+
+// Without a soft-cap, P^T alone (into s), so that it overlaps the dP^T
+// product still in flight ...
+template <bool MASK, int NR>
+__device__ __forceinline__ void dkv_p(const Params& p, float (&s)[NR],
+                                      const float* ls, int q0, int kr0,
+                                      int t) {
+#pragma unroll
+    for (int j = 0; j < NR / 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int qi = 8 * j + 2 * t + (e & 1);
+            float dcap;
+            s[4 * j + e] = prob<MASK>(p, s[4 * j + e], ls[qi], q0 + qi,
+                                      e < 2 ? kr0 : kr0 + 8, dcap);
+        }
+    }
+}
+
+// ... and then dS^T = P^T (dP^T - delta) (into dp).
+template <int NR>
+__device__ __forceinline__ void dkv_ds(const float (&s)[NR], float (&dp)[NR],
+                                       const float* dl, int t) {
+#pragma unroll
+    for (int j = 0; j < NR / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            dp[4 * j + e] = s[4 * j + e]
+                * (dp[4 * j + e] - dl[8 * j + 2 * t + (e & 1)]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS_WG, 1)
+fa_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_do, Params p) {
+    using L = DkvSmem<D>;
+    using P = Panels<D>;
+    constexpr int BQ = L::BQ;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = align1024(smem_raw);
+    bf16* Ks = reinterpret_cast<bf16*>(smem);
+    bf16* Vs = reinterpret_cast<bf16*>(smem + L::KV);
+    float* stats = reinterpret_cast<float*>(smem + L::OFF_STATS);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::OFF_BARS);
+    uint64_t* empty = full + STAGES;
+    uint64_t* kv_full = empty + STAGES;
 
     const int S = p.S;
     const int bkv = blockIdx.x;                       // b * Hkv + kv head
     const int b = bkv / p.Hkv, kvh = bkv % p.Hkv;
     const int group = p.H / p.Hkv;
     const int k0 = blockIdx.y * BKV;
-    const size_t kv_off = (size_t)bkv * S * D;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;            // fragment row, column pair
-    const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;
-
-    fa::stage_bf16<D, THREADS>(
-        Ks, static_cast<const __nv_bfloat16*>(p.k) + kv_off, k0, BKV, S);
-    fa::stage_bf16<D, THREADS>(
-        Vs, static_cast<const __nv_bfloat16*>(p.v) + kv_off, k0, BKV, S);
-
-    float dk[DT][4], dv[DT][4];
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
-
     int lo, hi;
     query_tiles(p, k0, BKV, BQ, lo, hi);
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            hopper::mbar_init(&full[s], 32);          // the producer's lanes
+            hopper::mbar_init(&empty[s], NC * WG);    // every consumer thread
+        }
+        hopper::mbar_init(kv_full, 1);
+        hopper::fence_barrier_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x < WG) {
+        // ---- producer --------------------------------------------------
+        hopper::regs_dec<REGS_PRODUCER>();
+        if (threadIdx.x >= 32) return;
+        const int lane = threadIdx.x;
+        if (lane == 0) {
+            hopper::mbar_arrive_expect_tx(kv_full, 2 * L::KV);
+            load_tile<D, BKV>(Ks, &tm_k, kv_full, k0, bkv);
+            load_tile<D, BKV>(Vs, &tm_v, kv_full, k0, bkv);
+        }
+        int stage = 0;
+        uint32_t phase = 0;
+        for (int hh = 0; hh < group; ++hh) {
+            const int bh = b * p.H + kvh * group + hh;
+            const float* lse = p.lse + (size_t)bh * S;
+            const float* delta = p.delta + (size_t)bh * S;
+            for (int qt = lo; qt < hi; ++qt) {
+                const int q0 = qt * BQ;
+                hopper::mbar_wait(&empty[stage], phase ^ 1);
+                bf16* Qs = reinterpret_cast<bf16*>(
+                    smem + L::OFF_STAGES + stage * L::STAGE);
+                if (lane == 0) {
+                    hopper::mbar_expect_tx(&full[stage], L::STAGE);
+                    load_tile<D, BQ>(Qs, &tm_q, &full[stage], q0, bh);
+                    load_tile<D, BQ>(Qs + BQ * D, &tm_do, &full[stage], q0,
+                                     bh);
+                }
+                float* st = stats + stage * 2 * BQ;
+                for (int i = lane; i < BQ; i += 32) {
+                    const bool in = q0 + i < S;
+                    st[i] = in ? lse[q0 + i] : 0.f;
+                    st[BQ + i] = in ? delta[q0 + i] : 0.f;
+                }
+                hopper::mbar_arrive(&full[stage]);
+                if (++stage == STAGES) {
+                    stage = 0;
+                    phase ^= 1;
+                }
+            }
+        }
+        return;
+    }
+
+    // ---- consumers ---------------------------------------------------------
+    hopper::regs_inc<REGS_CONSUMER>();
+    const int cw = threadIdx.x / WG - 1;              // consumer index
+    const int tid = threadIdx.x % WG;
+    const int lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int kw0 = k0 + cw * ROWS_WG;                // this consumer's keys
+    const int kr0 = kw0 + (tid >> 5) * 16 + g;        // this thread's rows
+    const int kr1 = kr0 + 8;
+
+    float dk[P::NP][P::PW / 2], dv[P::NP][P::PW / 2];
+#pragma unroll
+    for (int pn = 0; pn < P::NP; ++pn)
+#pragma unroll
+        for (int i = 0; i < P::PW / 2; ++i) dk[pn][i] = dv[pn][i] = 0.f;
+
+    hopper::mbar_wait(kv_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
     for (int hh = 0; hh < group; ++hh) {
-        const size_t bh = (size_t)b * p.H + kvh * group + hh;
-        const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + bh * S * D;
-        const __nv_bfloat16* dout =
-            static_cast<const __nv_bfloat16*>(p.dout) + bh * S * D;
-        const float* lse = p.lse + bh * S;
-        const float* delta = p.delta + bh * S;
         for (int qt = lo; qt < hi; ++qt) {
             const int q0 = qt * BQ;
-            __syncthreads();                          // tiles free to overwrite
-            fa::stage_bf16<D, THREADS>(Qs, q, q0, BQ, S);
-            fa::stage_bf16<D, THREADS>(dOs, dout, q0, BQ, S);
-            for (int i = threadIdx.x; i < BQ; i += THREADS) {
-                const bool in = q0 + i < S;
-                lse_s[i] = in ? lse[q0 + i] : 0.f;
-                delta_s[i] = in ? delta[q0 + i] : 0.f;
-            }
-            __syncthreads();
+            hopper::mbar_wait(&full[stage], phase);
+            if (!pairs_dead(p, q0, BQ, kw0, ROWS_WG)) {
+                const bf16* Qs = reinterpret_cast<const bf16*>(
+                    smem + L::OFF_STAGES + stage * L::STAGE);
+                const bf16* dOs = Qs + BQ * D;
+                const float* ls = stats + stage * 2 * BQ;
 
-            // S^T = K Q^T and dP^T = V dO^T over this warp's 16 keys: element
-            // e of tile nt is key (e < 2 ? kr0 : kr1), query q0 + nt*8 + 2t +
-            // (e & 1)
-            float s[NT][4], dp[NT][4];
+                // S^T = K Q^T, dP^T = V dO^T: two batches, so that P^T
+                // forms while dP^T is still in flight
+                float s[BQ / 2], dp[BQ / 2];
+                hopper::wgmma_fence();
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt)
+                for (int ks = 0; ks < D / 16; ++ks)
+                    hopper::wgmma_ss(s, kmajor<D, BKV>(Ks, cw * ROWS_WG, ks),
+                                     kmajor<D, BQ>(Qs, 0, ks), ks > 0);
+                hopper::wgmma_commit();
 #pragma unroll
-                for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+                for (int ks = 0; ks < D / 16; ++ks)
+                    hopper::wgmma_ss(dp, kmajor<D, BKV>(Vs, cw * ROWS_WG, ks),
+                                     kmajor<D, BQ>(dOs, 0, ks), ks > 0);
+                hopper::wgmma_commit();
+                const bool capped = p.softcap > 0.f;
+                const bool full = pairs_full(p, q0, BQ, kw0, ROWS_WG);
+                if (capped) {
+                    // the soft-cap's derivative needs the score: both at once
+                    hopper::wgmma_wait<0>();
+                    hopper::fence_regs(s);
+                    hopper::fence_regs(dp);
+                    if (full)
+                        dkv_probs<false>(p, s, dp, ls, ls + BQ, q0, kr0, t);
+                    else
+                        dkv_probs<true>(p, s, dp, ls, ls + BQ, q0, kr0, t);
+                } else {
+                    hopper::wgmma_wait<1>();
+                    hopper::fence_regs(s);
+                    if (full)
+                        dkv_p<false>(p, s, ls, q0, kr0, t);
+                    else
+                        dkv_p<true>(p, s, ls, q0, kr0, t);
+                }
+
+                // dV += P^T dO (in flight while dS^T forms), dK += dS^T Q
+                uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+                to_frags(s, pa);
+                hopper::wgmma_fence();
 #pragma unroll
-            for (int ks = 0; ks < KS; ++ks) {
-                uint32_t ka[4], va[4];
-                load_a(ka, Ks, LD, warp * 16, ks * 16, g, t);
-                load_a(va, Vs, LD, warp * 16, ks * 16, g, t);
+                for (int kk = 0; kk < BQ / 16; ++kk) {
 #pragma unroll
-                for (int nt = 0; nt < NT; ++nt) {
-                    uint32_t b0, b1;
-                    load_b_rows(b0, b1, Qs, LD, nt * 8, ks * 16, g, t);
-                    mma_bf16(s[nt], ka, b0, b1);
-                    load_b_rows(b0, b1, dOs, LD, nt * 8, ks * 16, g, t);
-                    mma_bf16(dp[nt], va, b0, b1);
+                    for (int pn = 0; pn < P::NP; ++pn) {
+                        const uint64_t bo = mnmajor<D, BQ>(dOs, kk, pn);
+                        hopper::wgmma_rs(dv[pn], pa[kk], bo, 1);
+                    }
+                }
+                hopper::wgmma_commit();
+                if (!capped) {
+                    hopper::wgmma_wait<1>();
+                    hopper::fence_regs(dp);
+                    dkv_ds(s, dp, ls + BQ, t);
+                }
+                to_frags(dp, da);
+                hopper::wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+                    for (int pn = 0; pn < P::NP; ++pn) {
+                        const uint64_t bq = mnmajor<D, BQ>(Qs, kk, pn);
+                        hopper::wgmma_rs(dk[pn], da[kk], bq, 1);
+                    }
+                }
+                hopper::wgmma_commit();
+                hopper::wgmma_wait<0>();
+#pragma unroll
+                for (int pn = 0; pn < P::NP; ++pn) {
+                    hopper::fence_regs(dk[pn]);
+                    hopper::fence_regs(dv[pn]);
                 }
             }
-
-            // P^T into s, dS^T into dp
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int qi = nt * 8 + 2 * t + (e & 1);
-                    float dcap;
-                    const float pr = prob(p, s[nt][e], lse_s[qi], q0 + qi,
-                                          e < 2 ? kr0 : kr1, dcap);
-                    s[nt][e] = pr;
-                    dp[nt][e] = pr * (dp[nt][e] - delta_s[qi]) * dcap;
-                }
-            }
-
-            // dV += P^T dO, dK += dS^T Q: the accumulators of query tiles 2j,
-            // 2j+1 are the A fragment of k-step j
-#pragma unroll
-            for (int j = 0; j < BQ / 16; ++j) {
-                uint32_t pa[4], da[4];
-                pa[0] = pack_f32(s[2 * j][0], s[2 * j][1]);
-                pa[1] = pack_f32(s[2 * j][2], s[2 * j][3]);
-                pa[2] = pack_f32(s[2 * j + 1][0], s[2 * j + 1][1]);
-                pa[3] = pack_f32(s[2 * j + 1][2], s[2 * j + 1][3]);
-                da[0] = pack_f32(dp[2 * j][0], dp[2 * j][1]);
-                da[1] = pack_f32(dp[2 * j][2], dp[2 * j][3]);
-                da[2] = pack_f32(dp[2 * j + 1][0], dp[2 * j + 1][1]);
-                da[3] = pack_f32(dp[2 * j + 1][2], dp[2 * j + 1][3]);
-#pragma unroll
-                for (int dt = 0; dt < DT; ++dt) {
-                    uint32_t b0, b1;
-                    load_b_cols(b0, b1, dOs, LD, 16 * j, dt * 8, g, t);
-                    mma_bf16(dv[dt], pa, b0, b1);
-                    load_b_cols(b0, b1, Qs, LD, 16 * j, dt * 8, g, t);
-                    mma_bf16(dk[dt], da, b0, b1);
-                }
+            hopper::mbar_arrive(&empty[stage]);
+            if (++stage == STAGES) {
+                stage = 0;
+                phase ^= 1;
             }
         }
     }
 
-    __nv_bfloat16* dko = static_cast<__nv_bfloat16*>(p.dk) + kv_off;
-    __nv_bfloat16* dvo = static_cast<__nv_bfloat16*>(p.dv) + kv_off;
+    const size_t kv_off = (size_t)bkv * S * D;
+    bf16* dko = static_cast<bf16*>(p.dk) + kv_off;
+    bf16* dvo = static_cast<bf16*>(p.dv) + kv_off;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-        const int c = dt * 8 + 2 * t;
-        if (kr0 < S) {
-            *reinterpret_cast<uint32_t*>(dko + (size_t)kr0 * D + c) =
-                pack_f32(dk[dt][0] * p.scale, dk[dt][1] * p.scale);
-            *reinterpret_cast<uint32_t*>(dvo + (size_t)kr0 * D + c) =
-                pack_f32(dv[dt][0], dv[dt][1]);
-        }
-        if (kr1 < S) {
-            *reinterpret_cast<uint32_t*>(dko + (size_t)kr1 * D + c) =
-                pack_f32(dk[dt][2] * p.scale, dk[dt][3] * p.scale);
-            *reinterpret_cast<uint32_t*>(dvo + (size_t)kr1 * D + c) =
-                pack_f32(dv[dt][2], dv[dt][3]);
+    for (int pn = 0; pn < P::NP; ++pn) {
+#pragma unroll
+        for (int j = 0; j < P::PW / 8; ++j) {
+            const int c = pn * P::PW + 8 * j + 2 * t;
+            const float* k4 = &dk[pn][4 * j];
+            const float* v4 = &dv[pn][4 * j];
+            if (kr0 < S) {
+                *reinterpret_cast<uint32_t*>(dko + (size_t)kr0 * D + c) =
+                    pack_f32(k4[0] * p.scale, k4[1] * p.scale);
+                *reinterpret_cast<uint32_t*>(dvo + (size_t)kr0 * D + c) =
+                    pack_f32(v4[0], v4[1]);
+            }
+            if (kr1 < S) {
+                *reinterpret_cast<uint32_t*>(dko + (size_t)kr1 * D + c) =
+                    pack_f32(k4[2] * p.scale, k4[3] * p.scale);
+                *reinterpret_cast<uint32_t*>(dvo + (size_t)kr1 * D + c) =
+                    pack_f32(v4[2], v4[3]);
+            }
         }
     }
 }
 
+// Shared memory of the dQ kernel: Q, dO, STAGES x (K, V), the barriers.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_dq_bf16(Params p) {
-    constexpr int BK = D > 64 ? 32 : 64;   // keys per tile
-    constexpr int LD = D + 8;
-    constexpr int KS = D / 16;
-    constexpr int NT = BK / 8;      // 8-key column tiles of S
-    constexpr int DT = D / 8;       // 8-wide column tiles of dQ
-    __shared__ __align__(16) __nv_bfloat16 Ks[BK * LD];
-    __shared__ __align__(16) __nv_bfloat16 Vs[BK * LD];
+struct DqSmem {
+    static constexpr int QT = BQ_DQ * D * 2;       // bytes of Q (and of dO)
+    static constexpr int KV = BK_DQ * D * 2;       // bytes of K (and of V)
+    static constexpr int STAGE = 2 * KV;
+    static constexpr int OFF_STAGES = 2 * QT;
+    static constexpr int OFF_BARS = OFF_STAGES + STAGES * STAGE;
+    static constexpr int BYTES = OFF_BARS + (2 * STAGES + 1) * 8 + 1024;
+};
+
+// dS of a dQ consumer: s and dp hold S and dP (rows queries qr0, qr0 + 8;
+// columns keys k0 + 8j + 2t + (e & 1)).
+template <bool MASK, int NR>
+__device__ __forceinline__ void dq_probs(const Params& p, const float (&s)[NR],
+                                         float (&dp)[NR], float lse0,
+                                         float lse1, float dl0, float dl1,
+                                         int qr0, int k0, int t) {
+#pragma unroll
+    for (int j = 0; j < NR / 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            float dcap;
+            const float pr = prob<MASK>(p, s[4 * j + e], e < 2 ? lse0 : lse1,
+                                        e < 2 ? qr0 : qr0 + 8,
+                                        k0 + 8 * j + 2 * t + (e & 1), dcap);
+            dp[4 * j + e] = pr * (dp[4 * j + e] - (e < 2 ? dl0 : dl1)) * dcap;
+        }
+    }
+}
+
+// Without a soft-cap, P alone (into s) while the dP product runs, then
+// dS = P (dP - delta) (into dp).
+template <bool MASK, int NR>
+__device__ __forceinline__ void dq_p(const Params& p, float (&s)[NR],
+                                     float lse0, float lse1, int qr0, int k0,
+                                     int t) {
+#pragma unroll
+    for (int j = 0; j < NR / 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            float dcap;
+            s[4 * j + e] = prob<MASK>(p, s[4 * j + e], e < 2 ? lse0 : lse1,
+                                      e < 2 ? qr0 : qr0 + 8,
+                                      k0 + 8 * j + 2 * t + (e & 1), dcap);
+        }
+    }
+}
+
+template <int NR>
+__device__ __forceinline__ void dq_ds(const float (&s)[NR], float (&dp)[NR],
+                                      float dl0, float dl1) {
+#pragma unroll
+    for (int i = 0; i < NR; ++i)
+        dp[i] = s[i] * (dp[i] - ((i & 3) < 2 ? dl0 : dl1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS_WG, 1)
+fa_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               const __grid_constant__ CUtensorMap tm_do, Params p) {
+    using L = DqSmem<D>;
+    using P = Panels<D>;
+    constexpr int BK = BK_DQ;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = align1024(smem_raw);
+    bf16* Qs = reinterpret_cast<bf16*>(smem);
+    bf16* dOs = reinterpret_cast<bf16*>(smem + L::QT);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::OFF_BARS);
+    uint64_t* empty = full + STAGES;
+    uint64_t* q_full = empty + STAGES;
 
     const int S = p.S;
     const int bh = blockIdx.x;                        // b * H + h
     const int b = bh / p.H, h = bh % p.H;
-    const int kvh = h / (p.H / p.Hkv);
+    const int bkv = b * p.Hkv + h / (p.H / p.Hkv);
     const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ_DQ;
-    const size_t kv_off = ((size_t)b * p.Hkv + kvh) * S * D;
-    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + (size_t)bh * S * D;
-    const __nv_bfloat16* dout =
-        static_cast<const __nv_bfloat16*>(p.dout) + (size_t)bh * S * D;
-    const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + kv_off;
-    const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + kv_off;
-
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-
-    uint32_t qa[KS][4], oa[KS][4];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-        const int c = ks * 16 + 2 * t;
-        qa[ks][0] = r0 < S ? fa::ld32(q + (size_t)r0 * D + c) : 0u;
-        qa[ks][1] = r1 < S ? fa::ld32(q + (size_t)r1 * D + c) : 0u;
-        qa[ks][2] = r0 < S ? fa::ld32(q + (size_t)r0 * D + c + 8) : 0u;
-        qa[ks][3] = r1 < S ? fa::ld32(q + (size_t)r1 * D + c + 8) : 0u;
-        oa[ks][0] = r0 < S ? fa::ld32(dout + (size_t)r0 * D + c) : 0u;
-        oa[ks][1] = r1 < S ? fa::ld32(dout + (size_t)r1 * D + c) : 0u;
-        oa[ks][2] = r0 < S ? fa::ld32(dout + (size_t)r0 * D + c + 8) : 0u;
-        oa[ks][3] = r1 < S ? fa::ld32(dout + (size_t)r1 * D + c + 8) : 0u;
-    }
-    const float* lse = p.lse + (size_t)bh * S;
-    const float* delta = p.delta + (size_t)bh * S;
-    const float lse0 = r0 < S ? lse[r0] : 0.f, lse1 = r1 < S ? lse[r1] : 0.f;
-    const float dl0 = r0 < S ? delta[r0] : 0.f;
-    const float dl1 = r1 < S ? delta[r1] : 0.f;
-
-    float acc[DT][4];
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-        acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
     int lo, hi;
     key_tiles(p, q0, BQ_DQ, BK, lo, hi);
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            hopper::mbar_init(&full[s], 1);
+            hopper::mbar_init(&empty[s], NC * WG);
+        }
+        hopper::mbar_init(q_full, 1);
+        hopper::fence_barrier_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x < WG) {
+        // ---- producer --------------------------------------------------
+        hopper::regs_dec<REGS_PRODUCER>();
+        if (threadIdx.x != 0) return;
+        hopper::mbar_arrive_expect_tx(q_full, 2 * L::QT);
+        load_tile<D, BQ_DQ>(Qs, &tm_q, q_full, q0, bh);
+        load_tile<D, BQ_DQ>(dOs, &tm_do, q_full, q0, bh);
+        int stage = 0;
+        uint32_t phase = 0;
+        for (int kt = lo; kt < hi; ++kt) {
+            hopper::mbar_wait(&empty[stage], phase ^ 1);
+            bf16* Ks = reinterpret_cast<bf16*>(
+                smem + L::OFF_STAGES + stage * L::STAGE);
+            hopper::mbar_arrive_expect_tx(&full[stage], L::STAGE);
+            load_tile<D, BK>(Ks, &tm_k, &full[stage], kt * BK, bkv);
+            load_tile<D, BK>(Ks + BK * D, &tm_v, &full[stage], kt * BK, bkv);
+            if (++stage == STAGES) {
+                stage = 0;
+                phase ^= 1;
+            }
+        }
+        return;
+    }
+
+    // ---- consumers ---------------------------------------------------------
+    hopper::regs_inc<REGS_CONSUMER>();
+    const int cw = threadIdx.x / WG - 1;
+    const int tid = threadIdx.x % WG;
+    const int lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int qw0 = q0 + cw * ROWS_WG;                // this consumer's queries
+    const int qr0 = qw0 + (tid >> 5) * 16 + g;        // this thread's rows
+    const int qr1 = qr0 + 8;
+    const float* lse = p.lse + (size_t)bh * S;
+    const float* delta = p.delta + (size_t)bh * S;
+    const float lse0 = qr0 < S ? lse[qr0] : 0.f;
+    const float lse1 = qr1 < S ? lse[qr1] : 0.f;
+    const float dl0 = qr0 < S ? delta[qr0] : 0.f;
+    const float dl1 = qr1 < S ? delta[qr1] : 0.f;
+
+    float dq[P::NP][P::PW / 2];
+#pragma unroll
+    for (int pn = 0; pn < P::NP; ++pn)
+#pragma unroll
+        for (int i = 0; i < P::PW / 2; ++i) dq[pn][i] = 0.f;
+
+    hopper::mbar_wait(q_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
     for (int kt = lo; kt < hi; ++kt) {
         const int k0 = kt * BK;
-        __syncthreads();
-        fa::stage_bf16<D, THREADS>(Ks, k, k0, BK, S);
-        fa::stage_bf16<D, THREADS>(Vs, v, k0, BK, S);
-        __syncthreads();
+        hopper::mbar_wait(&full[stage], phase);
+        if (!pairs_dead(p, qw0, ROWS_WG, k0, BK)) {
+            const bf16* Ks = reinterpret_cast<const bf16*>(
+                smem + L::OFF_STAGES + stage * L::STAGE);
+            const bf16* Vs = Ks + BK * D;
 
-        // S = Q K^T and dP = dO V^T: element e of tile nt is row (e < 2 ? r0
-        // : r1), key k0 + nt*8 + 2t + (e & 1)
-        float s[NT][4], dp[NT][4];
+            // S = Q K^T, dP = dO V^T: two batches, so that P forms while dP
+            // is still in flight
+            float s[BK / 2], dp[BK / 2];
+            hopper::wgmma_fence();
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
+            for (int ks = 0; ks < D / 16; ++ks)
+                hopper::wgmma_ss(s, kmajor<D, BQ_DQ>(Qs, cw * ROWS_WG, ks),
+                                 kmajor<D, BK>(Ks, 0, ks), ks > 0);
+            hopper::wgmma_commit();
 #pragma unroll
-            for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-            for (int ks = 0; ks < KS; ++ks) {
-                uint32_t b0, b1;
-                load_b_rows(b0, b1, Ks, LD, nt * 8, ks * 16, g, t);
-                mma_bf16(s[nt], qa[ks], b0, b1);
-                load_b_rows(b0, b1, Vs, LD, nt * 8, ks * 16, g, t);
-                mma_bf16(dp[nt], oa[ks], b0, b1);
+            for (int ks = 0; ks < D / 16; ++ks)
+                hopper::wgmma_ss(dp, kmajor<D, BQ_DQ>(dOs, cw * ROWS_WG, ks),
+                                 kmajor<D, BK>(Vs, 0, ks), ks > 0);
+            hopper::wgmma_commit();
+            const bool full = pairs_full(p, qw0, ROWS_WG, k0, BK);
+            if (p.softcap > 0.f) {
+                // the soft-cap's derivative needs the score: both at once
+                hopper::wgmma_wait<0>();
+                hopper::fence_regs(s);
+                hopper::fence_regs(dp);
+                if (full)
+                    dq_probs<false>(p, s, dp, lse0, lse1, dl0, dl1, qr0, k0, t);
+                else
+                    dq_probs<true>(p, s, dp, lse0, lse1, dl0, dl1, qr0, k0, t);
+            } else {
+                hopper::wgmma_wait<1>();
+                hopper::fence_regs(s);
+                if (full)
+                    dq_p<false>(p, s, lse0, lse1, qr0, k0, t);
+                else
+                    dq_p<true>(p, s, lse0, lse1, qr0, k0, t);
+                hopper::wgmma_wait<0>();
+                hopper::fence_regs(dp);
+                dq_ds(s, dp, dl0, dl1);
             }
+            uint32_t da[BK / 16][4];
+            to_frags(dp, da);
+
+            // dQ += dS K
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+                for (int pn = 0; pn < P::NP; ++pn) {
+                    const uint64_t bk = mnmajor<D, BK>(Ks, kk, pn);
+                    hopper::wgmma_rs(dq[pn], da[kk], bk, 1);
+                }
+            }
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<0>();
+#pragma unroll
+            for (int pn = 0; pn < P::NP; ++pn) hopper::fence_regs(dq[pn]);
         }
-
-        // dS into dp
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int col = k0 + nt * 8 + 2 * t + (e & 1);
-                float dcap;
-                const float pr = prob(p, s[nt][e], e < 2 ? lse0 : lse1,
-                                      e < 2 ? r0 : r1, col, dcap);
-                dp[nt][e] = pr * (dp[nt][e] - (e < 2 ? dl0 : dl1)) * dcap;
-            }
-        }
-
-        // dQ += dS K
-#pragma unroll
-        for (int j = 0; j < BK / 16; ++j) {
-            uint32_t a[4];
-            a[0] = pack_f32(dp[2 * j][0], dp[2 * j][1]);
-            a[1] = pack_f32(dp[2 * j][2], dp[2 * j][3]);
-            a[2] = pack_f32(dp[2 * j + 1][0], dp[2 * j + 1][1]);
-            a[3] = pack_f32(dp[2 * j + 1][2], dp[2 * j + 1][3]);
-#pragma unroll
-            for (int dt = 0; dt < DT; ++dt) {
-                uint32_t b0, b1;
-                load_b_cols(b0, b1, Ks, LD, 16 * j, dt * 8, g, t);
-                mma_bf16(acc[dt], a, b0, b1);
-            }
+        hopper::mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
         }
     }
 
-    __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(p.dq) + (size_t)bh * S * D;
+    bf16* dqo = static_cast<bf16*>(p.dq) + (size_t)bh * S * D;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-        const int c = dt * 8 + 2 * t;
-        if (r0 < S)
-            *reinterpret_cast<uint32_t*>(dq + (size_t)r0 * D + c) =
-                pack_f32(acc[dt][0] * p.scale, acc[dt][1] * p.scale);
-        if (r1 < S)
-            *reinterpret_cast<uint32_t*>(dq + (size_t)r1 * D + c) =
-                pack_f32(acc[dt][2] * p.scale, acc[dt][3] * p.scale);
+    for (int pn = 0; pn < P::NP; ++pn) {
+#pragma unroll
+        for (int j = 0; j < P::PW / 8; ++j) {
+            const int c = pn * P::PW + 8 * j + 2 * t;
+            const float* q4 = &dq[pn][4 * j];
+            if (qr0 < S)
+                *reinterpret_cast<uint32_t*>(dqo + (size_t)qr0 * D + c) =
+                    pack_f32(q4[0] * p.scale, q4[1] * p.scale);
+            if (qr1 < S)
+                *reinterpret_cast<uint32_t*>(dqo + (size_t)qr1 * D + c) =
+                    pack_f32(q4[2] * p.scale, q4[3] * p.scale);
+        }
     }
 }
 
@@ -580,6 +923,43 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const Params& p,
     return cudaGetLastError();
 }
 
+// Launch a bf16 kernel with tensor maps of q, dO (boxes of `q_rows` rows)
+// and k, v (boxes of `kv_rows` rows).
+template <int D, typename Kernel>
+cudaError_t launch_bf16(Kernel kernel, dim3 grid, int smem, int B,
+                        int q_rows, int kv_rows, const Params& p,
+                        cudaStream_t stream) {
+    CUtensorMap tq, tk, tv, tdo;
+    cudaError_t e;
+    if ((e = hopper::tensor_map_bf16(&tq, p.q, B * p.H, p.S, D, q_rows))
+        || (e = hopper::tensor_map_bf16(&tdo, p.dout, B * p.H, p.S, D,
+                                        q_rows))
+        || (e = hopper::tensor_map_bf16(&tk, p.k, B * p.Hkv, p.S, D,
+                                        kv_rows))
+        || (e = hopper::tensor_map_bf16(&tv, p.v, B * p.Hkv, p.S, D,
+                                        kv_rows))
+        || (e = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
+        return e;
+    kernel<<<grid, THREADS_WG, smem, stream>>>(tq, tk, tv, tdo, p);
+    return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_bf16(int B, const Params& p, cudaStream_t stream) {
+    const dim3 grid((unsigned)(B * p.Hkv), (unsigned)((p.S + BKV - 1) / BKV));
+    return launch_bf16<D>(fa_bwd_dkv_bf16<D>, grid, DkvSmem<D>::BYTES, B,
+                          DkvSmem<D>::BQ, BKV, p, stream);
+}
+
+template <int D>
+cudaError_t launch_dq_bf16(int B, const Params& p, cudaStream_t stream) {
+    const dim3 grid((unsigned)(B * p.H),
+                    (unsigned)((p.S + BQ_DQ - 1) / BQ_DQ));
+    return launch_bf16<D>(fa_bwd_dq_bf16<D>, grid, DqSmem<D>::BYTES, B,
+                          BQ_DQ, BK_DQ, p, stream);
+}
+
 bool bad_shape(int B, int H, int Hkv, int S) {
     return B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || S < 1
         || (long long)B * H > 0x7fffffffLL
@@ -605,11 +985,10 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
              scale, causal, window, softcap};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 1) {
-        const dim3 grid((unsigned)(B * Hkv), (unsigned)((S + BKV - 1) / BKV));
         switch (D) {
-            case 32: return (int)launch(fa_bwd_dkv_bf16<32>, grid, dkv_smem<32>(), p, s);
-            case 64: return (int)launch(fa_bwd_dkv_bf16<64>, grid, dkv_smem<64>(), p, s);
-            case 128: return (int)launch(fa_bwd_dkv_bf16<128>, grid, dkv_smem<128>(), p, s);
+            case 32: return (int)launch_dkv_bf16<32>(B, p, s);
+            case 64: return (int)launch_dkv_bf16<64>(B, p, s);
+            case 128: return (int)launch_dkv_bf16<128>(B, p, s);
             default: return (int)cudaErrorInvalidValue;
         }
     }
@@ -640,11 +1019,10 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
              S, scale, causal, window, softcap};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 1) {
-        const dim3 grid((unsigned)(B * H), (unsigned)((S + BQ_DQ - 1) / BQ_DQ));
         switch (D) {
-            case 32: return (int)launch(fa_bwd_dq_bf16<32>, grid, 0, p, s);
-            case 64: return (int)launch(fa_bwd_dq_bf16<64>, grid, 0, p, s);
-            case 128: return (int)launch(fa_bwd_dq_bf16<128>, grid, 0, p, s);
+            case 32: return (int)launch_dq_bf16<32>(B, p, s);
+            case 64: return (int)launch_dq_bf16<64>(B, p, s);
+            case 128: return (int)launch_dq_bf16<128>(B, p, s);
             default: return (int)cudaErrorInvalidValue;
         }
     }
@@ -659,4 +1037,15 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
         }
     }
     return (int)cudaErrorInvalidValue;
+}
+
+// Bytes of dynamic shared memory a bf16 launch of pass 0 (dK/dV) or 1 (dQ)
+// requests at head dim D; 0 where none is built.
+extern "C" int flash_attention_bwd_smem_bytes(int pass, int D) {
+    switch (D) {
+        case 32: return pass ? DqSmem<32>::BYTES : DkvSmem<32>::BYTES;
+        case 64: return pass ? DqSmem<64>::BYTES : DkvSmem<64>::BYTES;
+        case 128: return pass ? DqSmem<128>::BYTES : DkvSmem<128>::BYTES;
+        default: return 0;
+    }
 }

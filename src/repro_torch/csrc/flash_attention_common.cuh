@@ -1,7 +1,8 @@
 // Helpers shared by the flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): the mask, quad reductions, the bf16 fragments
-// of mma.sync m16n8k16 (row-major A, column-major B, f32 accumulation),
-// and the staging of row tiles into shared memory.
+// flash_attention_bwd.cu): the mask, quad reductions, bf16 packing, the
+// mma.sync m16n8k16 product of the forward (row-major A, column-major B,
+// f32 accumulation) and the staging of f32 row tiles into shared memory.
+// The bf16 backward's wgmma, TMA and mbarrier helpers are in hopper.cuh.
 //
 // Fragment layout of one m16n8k16 product, per lane (g = lane / 4,
 // t = lane % 4; pairs pack the lower column into the low 16 bits):
@@ -70,60 +71,9 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A fragment of rows [r, r+16) and columns [c, c+16) of a row-major bf16
-// tile in shared memory with row stride `ld` elements.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int ld,
-                                       int r, int c, int g, int t) {
-    const __nv_bfloat16* p = tile + (r + g) * ld + c + 2 * t;
-    a[0] = ld32(p);
-    a[1] = ld32(p + 8 * ld);
-    a[2] = ld32(p + 8);
-    a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragment whose k runs along a tile's row (B[k][n] = tile[n][k]):
-// rows [n, n+8) give the 8 columns, columns [c, c+16) the depth.
-__device__ __forceinline__ void load_b_rows(uint32_t& b0, uint32_t& b1,
-                                            const __nv_bfloat16* tile,
-                                            int ld, int n, int c, int g,
-                                            int t) {
-    const __nv_bfloat16* p = tile + (n + g) * ld + c + 2 * t;
-    b0 = ld32(p);
-    b1 = ld32(p + 8);
-}
-
-// B fragment whose k runs down a tile's column (B[k][n] = tile[k][n]):
-// rows [k, k+16) give the depth, columns [n, n+8) the 8 columns.
-__device__ __forceinline__ void load_b_cols(uint32_t& b0, uint32_t& b1,
-                                            const __nv_bfloat16* tile,
-                                            int ld, int k, int n, int g,
-                                            int t) {
-    const __nv_bfloat16* p = tile + (k + 2 * t) * ld + n + g;
-    b0 = pack_bf16(p[0], p[ld]);
-    b1 = pack_bf16(p[8 * ld], p[9 * ld]);
-}
-
-// Copy rows [r0, r0 + rows) of a row-major [S, D] bf16 matrix into a
-// shared tile with row stride D + 8, 16 bytes a thread; rows at or past S
+// Copy rows [r0, r0 + rows) of a row-major [S, D] f32 matrix into a shared
+// tile with row stride D + 4 floats, 16 bytes a thread; rows at or past S
 // are zero.
-template <int D, int THREADS>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* tile,
-                                           const __nv_bfloat16* src, int r0,
-                                           int rows, int S) {
-    constexpr int CPR = D / 8;                        // 16-byte chunks a row
-    constexpr int LD = D + 8;
-    for (int i = threadIdx.x; i < rows * CPR; i += THREADS) {
-        const int row = i / CPR, ch = i % CPR;
-        uint4 x = make_uint4(0u, 0u, 0u, 0u);
-        if (r0 + row < S)
-            x = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + row) * D
-                                                + ch * 8);
-        *reinterpret_cast<uint4*>(&tile[row * LD + ch * 8]) = x;
-    }
-}
-
-// The same for f32, with row stride D + 4 floats.
 template <int D, int THREADS>
 __device__ __forceinline__ void stage_f32(float* tile, const float* src,
                                           int r0, int rows, int S) {

@@ -115,7 +115,8 @@ def test_exec_runs_on_card(cuda):
 
 
 # the JAX kernel tests' sweep (tests/test_kernels.py), then D = 32 and 128
-# in bf16, a ragged non-causal f32 case and a window wide of the tile
+# in bf16, a ragged non-causal f32 case, a window wide of the tile, and the
+# bf16 backward's edges
 FLASH_SWEEP = [
     # B, H, Hkv, S,   D,  causal, window, softcap, dtype
     (1, 2, 2, 128, 64, True, None, None, torch.float32),
@@ -128,6 +129,13 @@ FLASH_SWEEP = [
     (2, 4, 2, 100, 32, True, None, None, torch.bfloat16),
     (1, 4, 4, 300, 128, True, 70, 20.0, torch.bfloat16),
     (1, 4, 2, 77, 32, False, None, None, torch.float32),
+    # the bf16 backward's edges: GQA group 4 with B*H > 1 and S ragged
+    # across the heads of one tensor map, non-causal, S below one tile, and
+    # D 128 with group 8
+    (2, 8, 2, 200, 64, True, None, None, torch.bfloat16),
+    (1, 4, 2, 256, 64, False, None, None, torch.bfloat16),
+    (1, 2, 1, 40, 64, True, None, None, torch.bfloat16),
+    (1, 8, 1, 384, 128, True, None, None, torch.bfloat16),
 ]
 
 
@@ -287,16 +295,13 @@ def test_flash_bwd_kernels_match_plain_version(cuda, B, H, Hkv, S, D,
             assert grad_row_err(a, b) <= BWD_ROW_BAR, name
 
 
-def test_flash_bwd_row_bar_catches_a_dropped_ds_tile(cuda, tmp_path,
-                                                     monkeypatch):
-    """The bf16 row bar has power at the training shape: a copy of the
-    dK/dV kernel that leaves the diagonal query tile of each group's first
-    head out of dK fails it, and the kernel passes."""
+def broken_bwd(tmp_path, line, cond):
+    """A copy of the backward library whose source line ``line`` (found
+    once) runs only where ``cond`` holds."""
     src = (build.CSRC / "flash_attention_bwd.cu").read_text()
-    dk_mma = "mma_bf16(dk[dt], da, b0, b1);"
-    assert src.count(dk_mma) == 1
-    (tmp_path / "fa_bwd.cu").write_text(src.replace(
-        dk_mma, "if (qt != lo || hh != 0) " + dk_mma))
+    assert src.count(line) == 1
+    (tmp_path / "fa_bwd.cu").write_text(src.replace(line,
+                                                    f"if ({cond}) {line}"))
     so = tmp_path / "libfa_bwd.so"
     subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I",
                     str(build.CSRC), "-o", str(so),
@@ -306,7 +311,16 @@ def test_flash_bwd_row_bar_catches_a_dropped_ds_tile(cuda, tmp_path,
     for name, argtypes in fa_kernel._BWD_ARGTYPES.items():
         getattr(broken, name).argtypes = argtypes
         getattr(broken, name).restype = ctypes.c_int
+    return broken
 
+
+def test_flash_bwd_row_bar_catches_a_dropped_ds_tile(cuda, tmp_path,
+                                                     monkeypatch):
+    """The bf16 row bar has power at the training shape: a copy of the
+    dK/dV kernel that skips the dS^T Q product of the diagonal query tile
+    of each group's first head fails it, and the kernel passes."""
+    broken = broken_bwd(tmp_path, "hopper::wgmma_rs(dk[pn], da[kk], bq, 1);",
+                        "qt != lo || hh != 0")
     q, k, v, o, do, lse = bwd_inputs(7, 4, 32, 8, 2048, 64, torch.bfloat16,
                                      cuda)
     want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, lse)
@@ -318,6 +332,26 @@ def test_flash_bwd_row_bar_catches_a_dropped_ds_tile(cuda, tmp_path,
     print(f"dk row_err: kernel {good_dk}, dropped dS tile {bad_dk}")
     assert good_dk <= BWD_ROW_BAR < bad_dk
     assert torch.equal(bad[0], got[0]) and torch.equal(bad[2], got[2])
+
+
+def test_flash_bwd_row_bar_catches_a_dropped_dq_product(cuda, tmp_path,
+                                                        monkeypatch):
+    """The dQ twin: a copy of the dQ kernel that skips the dS K product of
+    the first 16 keys of each block's last key tile fails the row bar, and
+    the kernel passes."""
+    broken = broken_bwd(tmp_path, "hopper::wgmma_rs(dq[pn], da[kk], bk, 1);",
+                        "kt != hi - 1 || kk != 0")
+    q, k, v, o, do, lse = bwd_inputs(7, 4, 32, 8, 2048, 64, torch.bfloat16,
+                                     cuda)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, lse)
+    got = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse)
+    monkeypatch.setattr(fa_kernel, "_bwd_lib", lambda name: broken)
+    bad = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse)
+    good_dq = grad_row_err(got[0], want[0])
+    bad_dq = grad_row_err(bad[0], want[0])
+    print(f"dq row_err: kernel {good_dq}, dropped dS K product {bad_dq}")
+    assert good_dq <= BWD_ROW_BAR < bad_dq
+    assert torch.equal(bad[1], got[1]) and torch.equal(bad[2], got[2])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
