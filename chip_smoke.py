@@ -33,16 +33,21 @@ The llama3.2-1b serving path (random weights from ``SEED``, compute in
 bf16) adds, between phases 6 and 7:
 
 (a) the build of phase 2 covers ``flash_attention_fwd`` too (both sources
-    compile in parallel, each with its ``-Xptxas -v`` report);
+    compile in parallel, each with its ``-Xptxas -v`` report); each bf16
+    forward's registers, spills, shared memory and whether ptxas
+    serialised its wgmma (``build`` in (b)'s rows and the ``kernels`` line);
 (b) ``flash_attention_fwd`` against its plain version on the card at the
-    JAX kernel tests' seven shapes and the prefill's main shape
-    [4, 32, 2048, 64] bf16, causal, Hkv 8: o within 2e-5 (f32) / 2e-2
-    (bf16), and in bf16 also each row's error within 2^-6 of the row's
-    largest |o_plain| (two bf16 ulps); lse within 1e-4; in bf16 the kernel
-    against
-    a plain version that rounds P to bf16 as the kernel does, beside the
-    f32-P one; kernel, plain and SDPA milliseconds and the bound (SDPA is
-    timed beside the kernel only; the port never calls it);
+    JAX kernel tests' seven shapes, the prefill's main shape
+    [4, 32, 2048, 64] bf16, causal, Hkv 8, and gemma2-9b's attention at
+    head dim 256, [1, 16, 8, 8192, 256] bf16 causal, as a local layer
+    (window 4096, soft-cap 50) and as a global layer without them: o within
+    2e-5 (f32) / 2e-2 (bf16), and in bf16 also each row's error within
+    2^-6 of the row's largest |o_plain| (two bf16 ulps); lse within 1e-4;
+    in bf16 the kernel against a plain version that rounds P to bf16 as
+    the kernel does, beside the f32-P one (the kernel's exp is
+    ``ex2.approx``: these errors include it); kernel, plain and SDPA
+    milliseconds and the bound (SDPA is timed beside the kernel only; the
+    port never calls it);
 (c) prefill at full width (B 4, S 2048, ``attn_impl="flash"``): 16 kernel
     launches, last-position logits within 2e-2 (relative) of the same
     prefill with ``attn_impl="reference"``; host milliseconds and tokens/s;
@@ -65,8 +70,9 @@ The llama3.2-1b training path (f32 masters, bf16 compute, ``remat="full"``,
 (g) the build of phase 2 covers ``flash_attention_bwd`` too; its two
     kernels (``flash_attention_bwd_dkv``, ``flash_attention_bwd_dq``)
     against the plain ``flash_attention_bwd_ref`` on the card at the same
-    eight shapes, the training path's [4, 32, 2048, 64] bf16 causal, Hkv 8
-    last: in f32 each gradient within 5e-4 of the largest plain one (the
+    eight shapes (the training path's [4, 32, 2048, 64] bf16 causal, Hkv 8
+    among them) and at head dim 256, [1, 16, 8, 4096, 256] bf16 causal: in
+    f32 each gradient within 5e-4 of the largest plain one (the
     JAX backward test's bar); in bf16 each row of dq, dk, dv within 2^-6 of
     the row's largest |plain| (``grad_row_err``), also against the plain
     version with ``round_p=True``; each kernel's milliseconds, the pair's
@@ -170,12 +176,26 @@ FLASH_SHAPES = [
     (1, 2, 2, 128, 64, True, None, None, "bfloat16"),
     (PREFILL_B, 32, 8, PREFILL_S, 64, True, None, None, "bfloat16"),
 ]
+# gemma2-9b's attention at head dim 256 (src/repro/configs/gemma2_9b.py:
+# 16 heads over 8 kv, window 4096 on local layers, attention soft-cap 50),
+# one sequence of 8192: a local layer, and a global layer without window
+# and soft-cap so that SDPA computes the same function beside it
+GEMMA_FWD_SHAPES = [
+    (1, 16, 8, 8192, 256, True, 4096, 50.0, "bfloat16"),
+    (1, 16, 8, 8192, 256, True, None, None, "bfloat16"),
+]
+# (g) adds a head-dim-256 backward shape, without window and soft-cap so
+# that SDPA's backward computes the same gradients beside it
+GEMMA_BWD_SHAPES = [(1, 16, 8, 4096, 256, True, None, None, "bfloat16")]
+# the main path's shapes: the prefill (b) and the training step (g)
+MAIN_FWD_SHAPE = [PREFILL_B, 32, 8, PREFILL_S, 64]
 # bf16 o row by row: |o - o_plain| within 2^-6 of the row's largest
 # |o_plain|, two bf16 ulps of it (rounding o gives one, rounding P less)
 BF16_ROW_BAR = 2.0 ** -6
 # the training path (h): B 4 x S 2048, TRAIN_STEPS steps, the first
 # TRAIN_WARMUP left out of the step time
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP = 4, 2048, 8, 2
+MAIN_BWD_SHAPE = [TRAIN_B, 32, 8, TRAIN_S, 64]
 # (h) at B 1 x S 2048: the flash model's gradients against the
 # reference-attention model's, bf16 compute.  On the CPU at the smoke
 # config (2 layers, S 256 and 1024, seeds 0 and 1) the largest per-leaf
@@ -290,12 +310,16 @@ def row_err(o, o_p) -> float:
     return ((o - o_p).abs() / rmax).max().item()
 
 
-def flash_phase(rng, dev, shapes=FLASH_SHAPES) -> list:
+def flash_phase(rng, dev, build_log: str,
+                shapes=FLASH_SHAPES + GEMMA_FWD_SHAPES) -> list:
     """(b): the CUDA kernel against its plain version at every shape."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    smem = build.load("flash_attention_fwd").flash_attention_fwd_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     rows = []
     for B, H, Hkv, S, D, causal, window, softcap, dt in shapes:
         dtype = getattr(torch, dt)
@@ -339,6 +363,9 @@ def flash_phase(rng, dev, shapes=FLASH_SHAPES) -> list:
                        q, k, v, **kw), reps=5, warmup=1),
                    library_ms=library_ms, bound_ms=bound_ms,
                    bound_by=bound_by)
+        if dt == "bfloat16":
+            row["build"] = kernel_build_report(
+                build_log, f"fa_fwd_bf16ILi{D}E", smem(D))
         rows.append(row)
         print("flash_attention_fwd " + json.dumps(row), flush=True)
         check(err < bar, f"flash_attention_fwd {row['shape']} {dt}: o err "
@@ -423,6 +450,10 @@ def kernel_build_report(log: str, marker: str, smem_dynamic: int) -> dict:
             out["smem_static_bytes"] = int(m.group(1)) if m else 0
     check("registers" in out, f"no ptxas report for {marker}")
     out["smem_dynamic_bytes"] = smem_dynamic
+    # ptxas's "wgmma.mma_async instructions are serialized" warning names
+    # the function it found that in
+    out["wgmma_serialized"] = any(
+        "serialized" in line and marker in line for line in log.splitlines())
     return out
 
 
@@ -439,7 +470,7 @@ def device_kernels(run) -> list:
 
 
 def flash_bwd_phase(rng, dev, build_log: str,
-                    shapes=FLASH_SHAPES) -> list:
+                    shapes=FLASH_SHAPES + GEMMA_BWD_SHAPES) -> list:
     """(g): the two backward kernels against their plain version."""
     import torch
     from repro_torch.kernels import build
@@ -513,7 +544,7 @@ def flash_bwd_phase(rng, dev, build_log: str,
             sdpa_bwd = lambda: torch.autograd.grad(o_lib, xs, do,
                                                    retain_graph=True)
             row["library_ms"] = cuda_ms(sdpa_bwd)
-            if (B, H, Hkv, S, D) == shapes[-1][:5]:
+            if [B, H, Hkv, S, D] == MAIN_BWD_SHAPE:
                 # the yardstick's backend: the kernels one call launched
                 row["library_kernels"] = device_kernels(sdpa_bwd)
             del xs, o_lib
@@ -1237,7 +1268,8 @@ def main() -> int:
             check(rel < bar, f"fft_planes {batch}x{n} inverse={inverse}: "
                              f"rel err {rel} >= {bar}")
             del y_k, y_p
-    flash_rows = flash_phase(np.random.default_rng([SEED, 1]), dev)
+    flash_rows = flash_phase(np.random.default_rng([SEED, 1]), dev,
+                             built["flash_attention_fwd"].log)
 
     # 4. README quickstart through exec_ on the card -------------------------
     def quickstart(ctx, s, p, args):
@@ -1363,8 +1395,12 @@ def main() -> int:
     big = [r for r in rows if r["n"] == N_MAIN // P_MAIN and not r["inverse"]][0]
     bound_ms, bound_by = fft_bound_ms(big["batch"], big["n"])
     # "replaces" names each TPU kernel's pallas_call line; "launches" is
-    # the count from this slice's main path, the training loop (h)
-    main_bwd = bwd_rows[-1]
+    # the count from this slice's main path, the training loop (h); the
+    # flash rows are the main path's shapes, chosen by shape
+    main_fwd = [r for r in flash_rows if r["shape"] == MAIN_FWD_SHAPE
+                and r["dtype"] == "bfloat16"][0]
+    main_bwd = [r for r in bwd_rows if r["shape"] == MAIN_BWD_SHAPE
+                and r["dtype"] == "bfloat16"][0]
     train_launches = training["train"]["launches"]
     kernels = {"kernels": [dict(
         name="fft_planes", route="cuda",
@@ -1378,11 +1414,10 @@ def main() -> int:
         replaces="src/repro/kernels/flash_attention/kernel.py:111",
         launches=train_launches["flash_attention_fwd"],
         launches_prefill=serving["prefill"]["flash_launches"],
-        max_abs_err=flash_rows[-1]["max_abs_err"], ms=flash_rows[-1]["ms"],
-        plain_ms=flash_rows[-1]["plain_ms"],
-        bound_ms=flash_rows[-1]["bound_ms"],
-        bound_by=flash_rows[-1]["bound_by"],
-        library_ms=flash_rows[-1]["library_ms"])] + [dict(
+        max_abs_err=main_fwd["max_abs_err"], ms=main_fwd["ms"],
+        plain_ms=main_fwd["plain_ms"], bound_ms=main_fwd["bound_ms"],
+        bound_by=main_fwd["bound_by"], library_ms=main_fwd["library_ms"],
+        row_err=main_fwd["row_err"], build=main_fwd["build"])] + [dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/flash_attention_bwd.cu",
             replaces=f"src/repro/kernels/flash_attention/kernel.py:{line}",

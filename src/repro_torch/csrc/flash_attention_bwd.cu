@@ -64,9 +64,19 @@
 //   in dK/dV (dK and dV 2 x 32 registers a thread, S^T and dP^T 2 x 32);
 //   at D = 128 dK and dV take 128 registers a thread, so the dK/dV stages
 //   hold 32 queries (S^T and dP^T 2 x 16), and the kernel still spills
-//   about 500 bytes there.  dK/dV spills 56 bytes at D 32 and 64 alike:
-//   the producer warp's, in its 24 registers, off the products' path.
-//   Products over D = 128 run as two N = 64 wgmmas, one per panel.
+//   about 500 bytes there.  dK/dV spills 24-56 bytes at D 32 and 64: the
+//   producer warp's, in its 24 registers, off the products' path.  ptxas
+//   serialises the dK/dV kernel's wgmma at every D (its C7514 note: a
+//   non-wgmma instruction reads an accumulator inside a pipeline stage).
+//   Products over D >= 128 run as N = 64 wgmmas, one per panel.
+// * D = 256 (gemma2-9b): dK and dV of 64 keys at full D would take 256
+//   registers a thread, and K, V and three stages of Q, dO 290 KB.  So the
+//   D of dK/dV splits over two blocks (blockIdx.z): each recomputes S^T and
+//   dP^T at full D and accumulates one 128-column half of dK and dV (128
+//   registers), with K and V (128 KB) and two stages of 32 queries (64
+//   KB).  The dQ kernel keeps dQ whole (128 registers) and streams two
+//   stages of 32 keys.  A simple tiling that is right: no ported
+//   configuration trains at D 256 on one card.
 // * Rounding: the re-packed P^T and dS^T are rounded to bf16 before their
 //   products, as FlashAttention-2 does; the TPU kernel keeps them in f32.
 //   The plain version's `round_p=True` does the same, so chip_smoke.py
@@ -77,7 +87,8 @@
 //   and dQ blocks last-query-tile first, the longest first under the
 //   causal mask.
 // * f32: FMA on the CUDA cores, four threads per key (dK/dV) or query row
-//   (dQ), each holding a quarter of D; tiles of 32 rows.  The JAX bar in f32
+//   (dQ), each holding a quarter of D, tiles of 32 rows; at D 256 eight
+//   threads a row and tiles of 16 rows.  The JAX bar in f32
 //   (relative gradient error below 5e-4, tests/test_kernels.py:53-71) rules
 //   out TF32 and bf16 tensor cores.
 //
@@ -89,12 +100,20 @@
 namespace {
 
 using fa::kept;
+using fa::key_tiles;
 using fa::pack_f32;
+using fa::pairs_full;
 using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 128;    // f32: 4 warps
-constexpr int TPR = 4;          // f32: threads per key or query row
-constexpr int ROWS_F32 = THREADS / TPR;   // f32: rows per block and tile
+
+// f32: threads per key or query row, and rows per block and tile
+template <int D>
+struct F32Rows {
+    static constexpr int TPR = D > 128 ? 8 : 4;
+    static constexpr int ROWS = THREADS / TPR;
+};
+constexpr int MIN_ROWS_F32 = THREADS / 8;
 
 // bf16: a producer warpgroup and NC consumer warpgroups of 64 rows each
 constexpr int WG = 128;
@@ -103,8 +122,6 @@ constexpr int THREADS_WG = WG * (NC + 1);
 constexpr int ROWS_WG = 64;                // a consumer's rows, wgmma's M
 constexpr int BKV = NC * ROWS_WG;          // keys per dK/dV block
 constexpr int BQ_DQ = NC * ROWS_WG;        // queries per dQ block
-constexpr int BK_DQ = 64;                  // keys per dQ stage
-constexpr int STAGES = 3;
 constexpr int REGS_PRODUCER = 24, REGS_CONSUMER = 240;
 
 struct Params {
@@ -152,104 +169,31 @@ __device__ __forceinline__ void query_tiles(const Params& p, int k0, int bk,
     if (p.window > 0) hi = min(hi, (k_last + p.window - 1) / bq + 1);
 }
 
-// Key tiles [lo, hi) of `bk` keys that hold a key some query of
-// [q0, q0 + bq) sees.
-__device__ __forceinline__ void key_tiles(const Params& p, int q0, int bq,
-                                          int bk, int& lo, int& hi) {
-    hi = (p.S + bk - 1) / bk;
-    if (p.causal) hi = min(hi, (min(q0 + bq, p.S) - 1) / bk + 1);
-    lo = 0;
-    if (p.window > 0) {
-        const int k_min = q0 - p.window + 1;   // smallest key q0 sees
-        if (k_min > 0) lo = k_min / bk;
-    }
-}
-
 // Whether no pair of queries [q0, q0 + nq) and keys [k0, k0 + nk) is kept
-// (`dead`), or every pair is (`full`: no mask needed).
+// (fa::pairs_full: whether every pair is).
 __device__ __forceinline__ bool pairs_dead(const Params& p, int q0, int nq,
                                            int k0, int nk) {
     return q0 >= p.S || k0 >= p.S || (p.causal && q0 + nq - 1 < k0)
         || (p.window > 0 && q0 - (k0 + nk - 1) >= p.window);
 }
 
-__device__ __forceinline__ bool pairs_full(const Params& p, int q0, int nq,
-                                           int k0, int nk) {
-    return q0 + nq <= p.S && k0 + nk <= p.S
-        && (!p.causal || q0 >= k0 + nk - 1)
-        && (p.window <= 0 || q0 + nq - 1 - k0 < p.window);
-}
-
 // ---------------------------------------------------------------------------
 // bf16: wgmma, TMA, an mbarrier ring
 // ---------------------------------------------------------------------------
 
-// A bf16 tile of R rows and D columns in shared memory (hopper.cuh's note):
-// D / PW panels of R rows of PW columns, each one TMA box.
-template <int D>
-struct Panels {
-    static constexpr int PW = D < 64 ? D : 64;   // columns a panel
-    static constexpr int NP = D / PW;            // panels
-    static constexpr int SWIZZLE = PW * 2;       // bytes: one row of a panel
-    static constexpr int SBO = 8 * SWIZZLE;      // 8 rows of a panel
-};
-
-// K-major descriptor of rows [r0, r0 + 64) of a tile of R rows at k-step
-// ks (columns [16 ks, 16 ks + 16)).
-template <int D, int R>
-__device__ __forceinline__ uint64_t kmajor(const bf16* tile, int r0,
-                                           int ks) {
-    using P = Panels<D>;
-    const int col = ks * 16;
-    const bf16* at = tile + (col / P::PW) * R * P::PW + r0 * P::PW
-        + col % P::PW;
-    return hopper::smem_desc(at, 16, P::SBO, P::SWIZZLE);
-}
-
-// MN-major descriptor of rows [16 kk, 16 kk + 16) (the depth) and panel pn
-// (N = PW columns) of a tile of R rows.
-template <int D, int R>
-__device__ __forceinline__ uint64_t mnmajor(const bf16* tile, int kk,
-                                            int pn) {
-    using P = Panels<D>;
-    const bf16* at = tile + pn * R * P::PW + kk * 16 * P::PW;
-    return hopper::smem_desc(at, P::SBO, P::SBO, P::SWIZZLE);
-}
-
-// TMA of rows [r0, r0 + R) of matrix `m` of `map` into a tile of R rows.
-template <int D, int R>
-__device__ __forceinline__ void load_tile(bf16* tile, const CUtensorMap* map,
-                                          uint64_t* bar, int r0, int m) {
-    using P = Panels<D>;
-#pragma unroll
-    for (int pn = 0; pn < P::NP; ++pn)
-        hopper::tma_load_3d(tile + pn * R * P::PW, map, bar, pn * P::PW, r0,
-                            m);
-}
-
-// The bf16 A fragments of k-steps [0, NR / 8) from an m64nN accumulator
-// (NR = N / 2 registers): columns [16k, 16k + 16) are k-step k.
-template <int NR>
-__device__ __forceinline__ void to_frags(const float (&c)[NR],
-                                         uint32_t (&a)[NR / 8][4]) {
-#pragma unroll
-    for (int k = 0; k < NR / 8; ++k) {
-        a[k][0] = pack_f32(c[8 * k], c[8 * k + 1]);
-        a[k][1] = pack_f32(c[8 * k + 2], c[8 * k + 3]);
-        a[k][2] = pack_f32(c[8 * k + 4], c[8 * k + 5]);
-        a[k][3] = pack_f32(c[8 * k + 6], c[8 * k + 7]);
-    }
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-    return p + ((1024 - (hopper::smem_addr(p) & 1023)) & 1023);
-}
+using hopper::kmajor;
+using hopper::load_tile;
+using hopper::mnmajor;
+using fa::to_frags;
 
 // Shared memory of the dK/dV kernel: K, V, STAGES x (Q, dO), STAGES x (lse,
-// delta), the barriers; 1024 bytes of slack for the alignment.
+// delta), the barriers; 1024 bytes of slack for the alignment.  A block
+// writes DO of the D columns of dK and dV (D / DO blocks share a key tile).
 template <int D>
 struct DkvSmem {
     static constexpr int BQ = D > 64 ? 32 : 64;    // queries a stage
+    static constexpr int STAGES = D > 128 ? 2 : 3;
+    static constexpr int DO = D > 128 ? 128 : D;   // dK/dV columns a block
     static constexpr int KV = BKV * D * 2;         // bytes of K (and of V)
     static constexpr int QT = BQ * D * 2;          // bytes of Q (and of dO)
     static constexpr int STAGE = 2 * QT;
@@ -318,10 +262,11 @@ fa_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_v,
                 const __grid_constant__ CUtensorMap tm_do, Params p) {
     using L = DkvSmem<D>;
-    using P = Panels<D>;
-    constexpr int BQ = L::BQ;
+    using P = hopper::Panels<D>;
+    constexpr int BQ = L::BQ, STAGES = L::STAGES;
+    constexpr int NPO = L::DO / P::PW;                // panels of dK/dV a block
     extern __shared__ unsigned char smem_raw[];
-    unsigned char* smem = align1024(smem_raw);
+    unsigned char* smem = hopper::align1024(smem_raw);
     bf16* Ks = reinterpret_cast<bf16*>(smem);
     bf16* Vs = reinterpret_cast<bf16*>(smem + L::KV);
     float* stats = reinterpret_cast<float*>(smem + L::OFF_STATS);
@@ -334,6 +279,7 @@ fa_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
     const int b = bkv / p.Hkv, kvh = bkv % p.Hkv;
     const int group = p.H / p.Hkv;
     const int k0 = blockIdx.y * BKV;
+    const int c0 = blockIdx.z * NPO;                  // first panel of dK/dV
     int lo, hi;
     query_tiles(p, k0, BKV, BQ, lo, hi);
 
@@ -400,9 +346,9 @@ fa_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
     const int kr0 = kw0 + (tid >> 5) * 16 + g;        // this thread's rows
     const int kr1 = kr0 + 8;
 
-    float dk[P::NP][P::PW / 2], dv[P::NP][P::PW / 2];
+    float dk[NPO][P::PW / 2], dv[NPO][P::PW / 2];
 #pragma unroll
-    for (int pn = 0; pn < P::NP; ++pn)
+    for (int pn = 0; pn < NPO; ++pn)
 #pragma unroll
         for (int i = 0; i < P::PW / 2; ++i) dk[pn][i] = dv[pn][i] = 0.f;
 
@@ -460,8 +406,8 @@ fa_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
                 for (int kk = 0; kk < BQ / 16; ++kk) {
 #pragma unroll
-                    for (int pn = 0; pn < P::NP; ++pn) {
-                        const uint64_t bo = mnmajor<D, BQ>(dOs, kk, pn);
+                    for (int pn = 0; pn < NPO; ++pn) {
+                        const uint64_t bo = mnmajor<D, BQ>(dOs, kk, c0 + pn);
                         hopper::wgmma_rs(dv[pn], pa[kk], bo, 1);
                     }
                 }
@@ -476,15 +422,15 @@ fa_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
                 for (int kk = 0; kk < BQ / 16; ++kk) {
 #pragma unroll
-                    for (int pn = 0; pn < P::NP; ++pn) {
-                        const uint64_t bq = mnmajor<D, BQ>(Qs, kk, pn);
+                    for (int pn = 0; pn < NPO; ++pn) {
+                        const uint64_t bq = mnmajor<D, BQ>(Qs, kk, c0 + pn);
                         hopper::wgmma_rs(dk[pn], da[kk], bq, 1);
                     }
                 }
                 hopper::wgmma_commit();
                 hopper::wgmma_wait<0>();
 #pragma unroll
-                for (int pn = 0; pn < P::NP; ++pn) {
+                for (int pn = 0; pn < NPO; ++pn) {
                     hopper::fence_regs(dk[pn]);
                     hopper::fence_regs(dv[pn]);
                 }
@@ -501,10 +447,10 @@ fa_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
     bf16* dko = static_cast<bf16*>(p.dk) + kv_off;
     bf16* dvo = static_cast<bf16*>(p.dv) + kv_off;
 #pragma unroll
-    for (int pn = 0; pn < P::NP; ++pn) {
+    for (int pn = 0; pn < NPO; ++pn) {
 #pragma unroll
         for (int j = 0; j < P::PW / 8; ++j) {
-            const int c = pn * P::PW + 8 * j + 2 * t;
+            const int c = (c0 + pn) * P::PW + 8 * j + 2 * t;
             const float* k4 = &dk[pn][4 * j];
             const float* v4 = &dv[pn][4 * j];
             if (kr0 < S) {
@@ -526,8 +472,10 @@ fa_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
 // Shared memory of the dQ kernel: Q, dO, STAGES x (K, V), the barriers.
 template <int D>
 struct DqSmem {
+    static constexpr int BK = D > 128 ? 32 : 64;   // keys a stage
+    static constexpr int STAGES = D > 128 ? 2 : 3;
     static constexpr int QT = BQ_DQ * D * 2;       // bytes of Q (and of dO)
-    static constexpr int KV = BK_DQ * D * 2;       // bytes of K (and of V)
+    static constexpr int KV = BK * D * 2;          // bytes of K (and of V)
     static constexpr int STAGE = 2 * KV;
     static constexpr int OFF_STAGES = 2 * QT;
     static constexpr int OFF_BARS = OFF_STAGES + STAGES * STAGE;
@@ -587,10 +535,10 @@ fa_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_v,
                const __grid_constant__ CUtensorMap tm_do, Params p) {
     using L = DqSmem<D>;
-    using P = Panels<D>;
-    constexpr int BK = BK_DQ;
+    using P = hopper::Panels<D>;
+    constexpr int BK = L::BK, STAGES = L::STAGES;
     extern __shared__ unsigned char smem_raw[];
-    unsigned char* smem = align1024(smem_raw);
+    unsigned char* smem = hopper::align1024(smem_raw);
     bf16* Qs = reinterpret_cast<bf16*>(smem);
     bf16* dOs = reinterpret_cast<bf16*>(smem + L::QT);
     uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::OFF_BARS);
@@ -753,17 +701,21 @@ fa_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
 // f32: FMA on the CUDA cores
 // ---------------------------------------------------------------------------
 
-// The sum over the TPR = 4 neighbouring lanes that share a row.
+// The sum over the TPR neighbouring lanes that share a row.
+template <int TPR>
 __device__ __forceinline__ float row_sum(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    return x + __shfl_xor_sync(0xffffffffu, x, 2);
+#pragma unroll
+    for (int m = 1; m < TPR; m <<= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
+    return x;
 }
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 fa_bwd_dkv_f32(Params p) {
-    constexpr int BQ = ROWS_F32;    // queries per tile
-    constexpr int HD = D / TPR;     // the quarter of D each thread holds
+    constexpr int TPR = F32Rows<D>::TPR;
+    constexpr int ROWS = F32Rows<D>::ROWS;
+    constexpr int BQ = ROWS;        // queries per tile
+    constexpr int HD = D / TPR;     // the part of D each thread holds
     constexpr int LD = D + 4;       // shared row stride, floats (+16 B)
     __shared__ __align__(16) float Qs[BQ * LD];
     __shared__ __align__(16) float dOs[BQ * LD];
@@ -774,7 +726,7 @@ fa_bwd_dkv_f32(Params p) {
     const int bkv = blockIdx.x;
     const int b = bkv / p.Hkv, kvh = bkv % p.Hkv;
     const int group = p.H / p.Hkv;
-    const int k0 = blockIdx.y * ROWS_F32;
+    const int k0 = blockIdx.y * ROWS;
     const size_t kv_off = (size_t)bkv * S * D;
     const int key = k0 + threadIdx.x / TPR;
     const int part = (threadIdx.x % TPR) * HD;
@@ -792,7 +744,7 @@ fa_bwd_dkv_f32(Params p) {
     }
 
     int lo, hi;
-    query_tiles(p, k0, ROWS_F32, BQ, lo, hi);
+    query_tiles(p, k0, ROWS, BQ, lo, hi);
     for (int hh = 0; hh < group; ++hh) {
         const size_t bh = (size_t)b * p.H + kvh * group + hh;
         const float* q = static_cast<const float*>(p.q) + bh * S * D;
@@ -819,8 +771,8 @@ fa_bwd_dkv_f32(Params p) {
                     s = fmaf(kq[i], qr[i], s);
                     dpv = fmaf(vq[i], gr[i], dpv);
                 }
-                s = row_sum(s);
-                dpv = row_sum(dpv);
+                s = row_sum<TPR>(s);
+                dpv = row_sum<TPR>(dpv);
                 float dcap;
                 const float pr = prob(p, s, lse_s[j], q0 + j, key, dcap);
                 const float ds = pr * (dpv - delta_s[j]) * dcap;
@@ -846,7 +798,9 @@ fa_bwd_dkv_f32(Params p) {
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 fa_bwd_dq_f32(Params p) {
-    constexpr int BK = ROWS_F32;    // keys per tile
+    constexpr int TPR = F32Rows<D>::TPR;
+    constexpr int ROWS = F32Rows<D>::ROWS;
+    constexpr int BK = ROWS;        // keys per tile
     constexpr int HD = D / TPR;
     constexpr int LD = D + 4;
     __shared__ __align__(16) float Ks[BK * LD];
@@ -856,7 +810,7 @@ fa_bwd_dq_f32(Params p) {
     const int bh = blockIdx.x;
     const int b = bh / p.H, h = bh % p.H;
     const int kvh = h / (p.H / p.Hkv);
-    const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS_F32;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
     const size_t kv_off = ((size_t)b * p.Hkv + kvh) * S * D;
     const float* k = static_cast<const float*>(p.k) + kv_off;
     const float* v = static_cast<const float*>(p.v) + kv_off;
@@ -878,7 +832,7 @@ fa_bwd_dq_f32(Params p) {
     const float dl = row < S ? p.delta[(size_t)bh * S + row] : 0.f;
 
     int lo, hi;
-    key_tiles(p, q0, ROWS_F32, BK, lo, hi);
+    key_tiles(p, q0, ROWS, BK, lo, hi);
     for (int kt = lo; kt < hi; ++kt) {
         const int k0 = kt * BK;
         __syncthreads();
@@ -894,8 +848,8 @@ fa_bwd_dq_f32(Params p) {
                 s = fmaf(qh[i], kr[i], s);
                 dpv = fmaf(oh[i], vr[i], dpv);
             }
-            s = row_sum(s);
-            dpv = row_sum(dpv);
+            s = row_sum<TPR>(s);
+            dpv = row_sum<TPR>(dpv);
             float dcap;
             const float pr = prob(p, s, lse, row, k0 + j, dcap);
             const float ds = pr * (dpv - dl) * dcap;
@@ -947,23 +901,35 @@ cudaError_t launch_bf16(Kernel kernel, dim3 grid, int smem, int B,
 
 template <int D>
 cudaError_t launch_dkv_bf16(int B, const Params& p, cudaStream_t stream) {
-    const dim3 grid((unsigned)(B * p.Hkv), (unsigned)((p.S + BKV - 1) / BKV));
-    return launch_bf16<D>(fa_bwd_dkv_bf16<D>, grid, DkvSmem<D>::BYTES, B,
-                          DkvSmem<D>::BQ, BKV, p, stream);
+    using L = DkvSmem<D>;
+    const dim3 grid((unsigned)(B * p.Hkv), (unsigned)((p.S + BKV - 1) / BKV),
+                    (unsigned)(D / L::DO));
+    return launch_bf16<D>(fa_bwd_dkv_bf16<D>, grid, L::BYTES, B, L::BQ, BKV,
+                          p, stream);
 }
 
 template <int D>
 cudaError_t launch_dq_bf16(int B, const Params& p, cudaStream_t stream) {
+    using L = DqSmem<D>;
     const dim3 grid((unsigned)(B * p.H),
                     (unsigned)((p.S + BQ_DQ - 1) / BQ_DQ));
-    return launch_bf16<D>(fa_bwd_dq_bf16<D>, grid, DqSmem<D>::BYTES, B,
-                          BQ_DQ, BK_DQ, p, stream);
+    return launch_bf16<D>(fa_bwd_dq_bf16<D>, grid, L::BYTES, B, BQ_DQ, L::BK,
+                          p, stream);
+}
+
+// An f32 kernel over grid (B * heads, row tiles of F32Rows<D>::ROWS).
+template <int D, typename Kernel>
+cudaError_t launch_f32(Kernel kernel, int B, int heads, const Params& p,
+                       cudaStream_t stream) {
+    constexpr int ROWS = F32Rows<D>::ROWS;
+    const dim3 grid((unsigned)(B * heads), (unsigned)((p.S + ROWS - 1) / ROWS));
+    return launch(kernel, grid, 0, p, stream);
 }
 
 bool bad_shape(int B, int H, int Hkv, int S) {
     return B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || S < 1
         || (long long)B * H > 0x7fffffffLL
-        || (S + ROWS_F32 - 1) / ROWS_F32 > 65535;
+        || (S + MIN_ROWS_F32 - 1) / MIN_ROWS_F32 > 65535;
 }
 
 }  // namespace
@@ -989,16 +955,18 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
             case 32: return (int)launch_dkv_bf16<32>(B, p, s);
             case 64: return (int)launch_dkv_bf16<64>(B, p, s);
             case 128: return (int)launch_dkv_bf16<128>(B, p, s);
+            case 256: return (int)launch_dkv_bf16<256>(B, p, s);
             default: return (int)cudaErrorInvalidValue;
         }
     }
     if (dtype == 0) {
-        const dim3 grid((unsigned)(B * Hkv),
-                        (unsigned)((S + ROWS_F32 - 1) / ROWS_F32));
         switch (D) {
-            case 32: return (int)launch(fa_bwd_dkv_f32<32>, grid, 0, p, s);
-            case 64: return (int)launch(fa_bwd_dkv_f32<64>, grid, 0, p, s);
-            case 128: return (int)launch(fa_bwd_dkv_f32<128>, grid, 0, p, s);
+            case 32: return (int)launch_f32<32>(fa_bwd_dkv_f32<32>, B, Hkv, p, s);
+            case 64: return (int)launch_f32<64>(fa_bwd_dkv_f32<64>, B, Hkv, p, s);
+            case 128:
+                return (int)launch_f32<128>(fa_bwd_dkv_f32<128>, B, Hkv, p, s);
+            case 256:
+                return (int)launch_f32<256>(fa_bwd_dkv_f32<256>, B, Hkv, p, s);
             default: return (int)cudaErrorInvalidValue;
         }
     }
@@ -1023,16 +991,16 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
             case 32: return (int)launch_dq_bf16<32>(B, p, s);
             case 64: return (int)launch_dq_bf16<64>(B, p, s);
             case 128: return (int)launch_dq_bf16<128>(B, p, s);
+            case 256: return (int)launch_dq_bf16<256>(B, p, s);
             default: return (int)cudaErrorInvalidValue;
         }
     }
     if (dtype == 0) {
-        const dim3 grid((unsigned)(B * H),
-                        (unsigned)((S + ROWS_F32 - 1) / ROWS_F32));
         switch (D) {
-            case 32: return (int)launch(fa_bwd_dq_f32<32>, grid, 0, p, s);
-            case 64: return (int)launch(fa_bwd_dq_f32<64>, grid, 0, p, s);
-            case 128: return (int)launch(fa_bwd_dq_f32<128>, grid, 0, p, s);
+            case 32: return (int)launch_f32<32>(fa_bwd_dq_f32<32>, B, H, p, s);
+            case 64: return (int)launch_f32<64>(fa_bwd_dq_f32<64>, B, H, p, s);
+            case 128: return (int)launch_f32<128>(fa_bwd_dq_f32<128>, B, H, p, s);
+            case 256: return (int)launch_f32<256>(fa_bwd_dq_f32<256>, B, H, p, s);
             default: return (int)cudaErrorInvalidValue;
         }
     }
@@ -1046,6 +1014,7 @@ extern "C" int flash_attention_bwd_smem_bytes(int pass, int D) {
         case 32: return pass ? DqSmem<32>::BYTES : DkvSmem<32>::BYTES;
         case 64: return pass ? DqSmem<64>::BYTES : DkvSmem<64>::BYTES;
         case 128: return pass ? DqSmem<128>::BYTES : DkvSmem<128>::BYTES;
+        case 256: return pass ? DqSmem<256>::BYTES : DkvSmem<256>::BYTES;
         default: return 0;
     }
 }

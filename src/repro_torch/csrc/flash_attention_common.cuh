@@ -1,18 +1,8 @@
 // Helpers shared by the flash-attention kernels (flash_attention_fwd.cu,
 // flash_attention_bwd.cu): the mask, quad reductions, bf16 packing, the
-// mma.sync m16n8k16 product of the forward (row-major A, column-major B,
-// f32 accumulation) and the staging of f32 row tiles into shared memory.
-// The bf16 backward's wgmma, TMA and mbarrier helpers are in hopper.cuh.
-//
-// Fragment layout of one m16n8k16 product, per lane (g = lane / 4,
-// t = lane % 4; pairs pack the lower column into the low 16 bits):
-//   A 16x16: a0 (row g, cols 2t..2t+1), a1 (row g+8, same cols),
-//            a2 (row g, cols 2t+8..2t+9), a3 (row g+8, cols 2t+8..2t+9);
-//   B 16x8:  b0 (rows 2t..2t+1, col g), b1 (rows 2t+8..2t+9, col g);
-//   C 16x8:  c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8, same cols).
-// So the C tiles of two neighbouring 8-column tiles are, packed pairwise,
-// the A fragment of one 16-deep step: a product's output feeds the next
-// product from registers.
+// re-packing of wgmma accumulators into A fragments, and the staging of
+// f32 row tiles into shared memory.  The bf16 kernels' wgmma, TMA and
+// mbarrier helpers are in hopper.cuh.
 
 #pragma once
 
@@ -36,6 +26,30 @@ __device__ __forceinline__ bool kept(int q, int k, int S, int causal,
     return ok;
 }
 
+// Key tiles [lo, hi) of `bk` keys that hold a key some query of
+// [q0, q0 + nq) sees.  Params: a kernel's parameters (S, causal, window).
+template <class Params>
+__device__ __forceinline__ void key_tiles(const Params& p, int q0, int nq,
+                                          int bk, int& lo, int& hi) {
+    hi = (p.S + bk - 1) / bk;
+    if (p.causal) hi = min(hi, (min(q0 + nq, p.S) - 1) / bk + 1);
+    lo = 0;
+    if (p.window > 0) {
+        const int k_min = q0 - p.window + 1;   // smallest key q0 sees
+        if (k_min > 0) lo = k_min / bk;
+    }
+}
+
+// Whether every pair of queries [q0, q0 + nq) and keys [k0, k0 + nk) is
+// kept (no mask needed).
+template <class Params>
+__device__ __forceinline__ bool pairs_full(const Params& p, int q0, int nq,
+                                           int k0, int nk) {
+    return q0 + nq <= p.S && k0 + nk <= p.S
+        && (!p.causal || q0 >= k0 + nk - 1)
+        && (p.window <= 0 || q0 + nq - 1 - k0 < p.window);
+}
+
 __device__ __forceinline__ float quad_max(float x) {
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
     return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -51,24 +65,19 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-    return (uint32_t)__bfloat16_as_ushort(lo)
-        | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a * b for one 16x8x16 tile (row-major A, column-major B).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The bf16 A fragments of k-steps [0, NR / 8) from an m64nN accumulator
+// (NR = N / 2 registers): columns [16k, 16k + 16) are k-step k (the layout
+// note of hopper.cuh's wgmma wrappers).
+template <int NR>
+__device__ __forceinline__ void to_frags(const float (&c)[NR],
+                                         uint32_t (&a)[NR / 8][4]) {
+#pragma unroll
+    for (int k = 0; k < NR / 8; ++k) {
+        a[k][0] = pack_f32(c[8 * k], c[8 * k + 1]);
+        a[k][1] = pack_f32(c[8 * k + 2], c[8 * k + 3]);
+        a[k][2] = pack_f32(c[8 * k + 4], c[8 * k + 5]);
+        a[k][3] = pack_f32(c[8 * k + 6], c[8 * k + 7]);
+    }
 }
 
 // Copy rows [r0, r0 + rows) of a row-major [S, D] f32 matrix into a shared

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // mbarriers, TMA tile loads through a tensor map, wgmma with its shared-
-// memory descriptors and fences, and setmaxnreg.  Raw PTX through inline
+// memory descriptors and fences, setmaxnreg, ex2.approx, and the panel
+// layout of bf16 tiles with their descriptors.  Raw PTX through inline
 // asm; the host side encodes tensor maps through the driver entry point
 // that the CUDA runtime hands out, so nothing links against libcuda.
 //
@@ -20,6 +21,7 @@
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums; no driver library
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -219,6 +221,41 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
         : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (+)= A B, m64n128k16, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (+)= A B, m64n64k16, A from registers (the m64k16 fragment), B
 // from shared memory, MN-major (transposed).
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
@@ -243,6 +280,70 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
           "r"(accumulate));
+}
+
+// ---------------------------------------------------------------------------
+// bf16 tiles in panels (the note at the top)
+// ---------------------------------------------------------------------------
+
+// A bf16 tile of R rows and D columns: D / PW panels of R rows of PW
+// columns, each one TMA box.
+template <int D>
+struct Panels {
+    static constexpr int PW = D < 64 ? D : 64;   // columns a panel
+    static constexpr int NP = D / PW;            // panels
+    static constexpr int SWIZZLE = PW * 2;       // bytes: one row of a panel
+    static constexpr int SBO = 8 * SWIZZLE;      // 8 rows of a panel
+};
+
+// K-major descriptor of rows [r0, r0 + 64) of a tile of R rows at k-step
+// ks (columns [16 ks, 16 ks + 16)).
+template <int D, int R>
+__device__ __forceinline__ uint64_t kmajor(const __nv_bfloat16* tile, int r0,
+                                           int ks) {
+    using P = Panels<D>;
+    const int col = ks * 16;
+    const __nv_bfloat16* at = tile + (col / P::PW) * R * P::PW + r0 * P::PW
+        + col % P::PW;
+    return smem_desc(at, 16, P::SBO, P::SWIZZLE);
+}
+
+// MN-major descriptor of rows [16 kk, 16 kk + 16) (the depth) and panel pn
+// (N = PW columns) of a tile of R rows.
+template <int D, int R>
+__device__ __forceinline__ uint64_t mnmajor(const __nv_bfloat16* tile, int kk,
+                                            int pn) {
+    using P = Panels<D>;
+    const __nv_bfloat16* at = tile + pn * R * P::PW + kk * 16 * P::PW;
+    return smem_desc(at, P::SBO, P::SBO, P::SWIZZLE);
+}
+
+// TMA of rows [r0, r0 + R) of matrix `m` of `map` into a tile of R rows.
+template <int D, int R>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
+                                          const CUtensorMap* map,
+                                          uint64_t* bar, int r0, int m) {
+    using P = Panels<D>;
+#pragma unroll
+    for (int pn = 0; pn < P::NP; ++pn)
+        tma_load_3d(tile + pn * R * P::PW, map, bar, pn * P::PW, r0, m);
+}
+
+// The first 1024-byte aligned address at or after p (panels start there).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+    return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// ---------------------------------------------------------------------------
+// the special-function unit
+// ---------------------------------------------------------------------------
+
+// 2^x on the special-function unit: at most 2 ulp of f32 off (PTX ISA,
+// ex2.approx); subnormal results flush to 0, and -1e30 gives 0.
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
 }
 
 // ---------------------------------------------------------------------------
@@ -286,7 +387,7 @@ inline EncodeTiled lookup_encode_tiled() {
 }
 
 // A 3-D tensor map over a contiguous bf16 [n, rows, cols] array (cols 32,
-// 64 or 128) whose box is one panel of `box_rows` rows of one matrix:
+// 64, 128 or 256) whose box is one panel of `box_rows` rows of one matrix:
 // [min(cols, 64), box_rows, 1], swizzled as the note at the top says.
 // Rows past `rows` fall outside the map and load as zeros, never as the
 // next matrix's rows.

@@ -4,7 +4,8 @@
 (``repro/kernels/flash_attention/kernel.py:90`` and ``:250``).
 
 * :func:`flash_attention_fwd` takes q ``[B,H,S,D]`` and k, v
-  ``[B,Hkv,S,D]`` (f32 or bf16, contiguous CUDA tensors, D in 32/64/128)
+  ``[B,Hkv,S,D]`` (f32 or bf16, contiguous CUDA tensors, D in
+  :data:`HEAD_DIMS`)
   and returns ``(o, lse)``: o in q's dtype and lse ``[B,H,S,1]`` in f32,
   the residual the backward kernels read;
 * :func:`flash_attention_bwd` takes the same q, k, v, the forward's o and
@@ -35,8 +36,8 @@ from .. import build
 __all__ = ["flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "HEAD_DIMS"]
 
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128)
+#: head dims the kernels are instantiated for, forward and backward
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])

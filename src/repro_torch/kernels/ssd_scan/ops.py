@@ -5,9 +5,13 @@ JAX package's ``custom_vjp`` (``repro/kernels/ssd_scan/ops.py:23-40``).
 Its forward is the chunked scan: a CUDA tensor goes to the CUDA kernel
 (:func:`.kernel.ssd_scan`), which launches or raises and never falls back;
 a CPU tensor goes to the plain version (:func:`.ref.ssd_scan_plain`) and
-launches nothing.  Its backward is the VJP of the sequential oracle
-:func:`.ref.ssd_ref` through autograd, as in JAX: the TPU package has no
-backward kernel for the scan.
+launches nothing.  Its backward is the VJP of
+:func:`.ref.ssd_scan_plain` through autograd, at the forward's chunk: the
+same function as the sequential oracle :func:`.ref.ssd_ref` (the JAX
+``custom_vjp`` differentiates the oracle), in chunk algebra, so it takes
+a few torch ops a chunk instead of a few a position.  It is plain PyTorch
+on CPU and CUDA tensors alike: the TPU package has no backward kernel for
+the scan.
 """
 
 from __future__ import annotations
@@ -33,13 +37,14 @@ class _SSD(torch.autograd.Function):
                                 f"{x.device}")
         y, _ = fwd(x, dt, a, b, c, chunk=chunk)
         ctx.save_for_backward(x, dt, a, b, c)
+        ctx.chunk = chunk
         return y
 
     @staticmethod
     def backward(ctx, dy):
         ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            y, _ = _ref.ssd_ref(*ins)
+            y, _ = _ref.ssd_scan_plain(*ins, chunk=ctx.chunk)
             grads = torch.autograd.grad(y, ins, dy, allow_unused=True)
         return (*grads, None)
 

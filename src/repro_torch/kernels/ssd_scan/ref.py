@@ -3,13 +3,13 @@
 * :func:`ssd_step` / :func:`ssd_ref` — the port of the JAX package's
   sequential oracle (``repro/kernels/ssd_scan/ref.py``): one recurrence
   step, and the scan over the sequence, which returns y in x's dtype and
-  the final state in f32.  :mod:`.ops` differentiates :func:`ssd_ref` for
-  the backward, as the JAX ``custom_vjp`` does;
+  the final state in f32: the tests' reference;
 * :func:`ssd_scan_plain` — the chunk algebra of the TPU kernel
   (``repro/kernels/ssd_scan/kernel.py:10-16, 43-67``) as a loop over
   chunks of torch ops: the same function as the CUDA kernel
   ``csrc/ssd_scan.cu``.  :mod:`.ops` runs it for CPU tensors and
-  ``chip_smoke.py`` holds the kernel against it on the card.
+  differentiates it for the backward, and ``chip_smoke.py`` holds the
+  kernel against it on the card.
 
 Per chunk of L rows (head h, f32)::
 

@@ -4,7 +4,9 @@
   tensor, and what ``chip_smoke.py`` holds the CUDA kernel against on the
   card) against the JAX kernel ``flash_attention_fwd`` in Pallas interpret
   mode, o and lse, at the JAX kernel tests' sweep (``tests/test_kernels.py``)
-  and their bars: o within 2e-5 in f32 and 2e-2 in bf16, lse within 1e-5;
+  and two head-dim-256 entries (gemma2-9b's D; the second with a window
+  and gemma2-9b's soft-cap 50, at a ragged S), at the JAX bars: o within
+  2e-5 in f32 and 2e-2 in bf16, lse within 1e-5;
 * ``attention_ref`` against the JAX ``attention_ref``;
 * the dispatch: a CPU tensor takes the plain version and launches nothing;
   the CUDA wrapper refuses a CPU tensor, a strided view, an unsupported
@@ -36,6 +38,8 @@ SWEEP = [
     (1, 2, 2, 256, 64, True, 64, None, "float32"),
     (1, 2, 2, 128, 64, True, None, 30.0, "float32"),
     (1, 2, 1, 192, 64, True, None, None, "float32"),   # ragged S vs block
+    (1, 2, 1, 128, 256, True, None, None, "float32"),  # gemma2-9b's D
+    (1, 2, 2, 192, 256, True, 64, 50.0, "float32"),   # ... local layer
     (1, 2, 2, 128, 64, True, None, None, "bfloat16"),
 ]
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

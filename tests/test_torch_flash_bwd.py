@@ -5,8 +5,9 @@ the CPU.
   for a CPU tensor, and what ``chip_smoke.py`` holds the CUDA kernels
   against on the card) against the JAX kernels ``flash_attention_bwd`` in
   Pallas interpret mode, at the JAX backward test's sweep
-  (``tests/test_kernels.py``: ``SWEEP[:5]``), the ragged S = 192 entry and
-  a bf16 entry.  Bars, as max |port - jax| / max |jax| per gradient: the
+  (``tests/test_kernels.py``: ``SWEEP[:5]``), the ragged S = 192 entry, a
+  bf16 entry and two head-dim-256 entries in f32 (the second with a window,
+  a soft-cap and a ragged S).  Bars, as max |port - jax| / max |jax| per gradient: the
   JAX test's 5e-4 in f32; 2^-6 in bf16, two bf16 ulps of the largest
   gradient (both sides round their f32 sums to bf16 once, so a value at a
   rounding boundary may land one ulp apart);
@@ -45,6 +46,8 @@ SWEEP = [
     (1, 2, 2, 256, 64, True, 64, None, "float32"),
     (1, 2, 2, 128, 64, True, None, 30.0, "float32"),
     (1, 2, 1, 192, 64, True, None, None, "float32"),   # ragged S vs block
+    (1, 2, 1, 128, 256, True, None, None, "float32"),  # gemma2-9b's D
+    (1, 2, 2, 192, 256, True, 64, 50.0, "float32"),   # ... local layer
     (2, 4, 2, 128, 64, True, None, None, "bfloat16"),
 ]
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -115,8 +115,8 @@ def test_exec_runs_on_card(cuda):
 
 
 # the JAX kernel tests' sweep (tests/test_kernels.py), then D = 32 and 128
-# in bf16, a ragged non-causal f32 case, a window wide of the tile, and the
-# bf16 backward's edges
+# in bf16, a ragged non-causal f32 case, a window wide of the tile, the
+# bf16 backward's edges, and head dim 256 (gemma2-9b's)
 FLASH_SWEEP = [
     # B, H, Hkv, S,   D,  causal, window, softcap, dtype
     (1, 2, 2, 128, 64, True, None, None, torch.float32),
@@ -136,6 +136,13 @@ FLASH_SWEEP = [
     (1, 4, 2, 256, 64, False, None, None, torch.bfloat16),
     (1, 2, 1, 40, 64, True, None, None, torch.bfloat16),
     (1, 8, 1, 384, 128, True, None, None, torch.bfloat16),
+    # D 256: ragged S with GQA, a window with gemma2-9b's soft-cap 50,
+    # non-causal with B 2, in bf16 and in f32
+    (1, 4, 2, 300, 256, True, None, None, torch.bfloat16),
+    (1, 2, 1, 200, 256, True, 64, 50.0, torch.bfloat16),
+    (2, 2, 2, 160, 256, False, None, None, torch.bfloat16),
+    (1, 2, 2, 130, 256, True, None, None, torch.float32),
+    (1, 4, 2, 190, 256, True, 48, 50.0, torch.float32),
 ]
 
 
@@ -175,15 +182,14 @@ def test_flash_kernel_matches_plain_version(cuda, B, H, Hkv, S, D, causal,
     assert (o.float() - want.float()).abs().max().item() < tol
 
 
-def test_flash_row_bar_catches_a_dropped_pv_tile(cuda, tmp_path, monkeypatch):
-    """The bf16 row bar has power at the prefill's shape: a copy of the
-    kernel whose last query tile of each head leaves the second-to-last key
-    tile out of P V (but not out of l) fails it, and the kernel passes."""
+def broken_fwd(tmp_path, cond):
+    """A copy of the forward library whose P V product (the line found
+    once) runs only where ``cond`` holds; ``kt - 1`` is the key tile whose
+    P it multiplies."""
     src = (build.CSRC / "flash_attention_fwd.cu").read_text()
-    loop = "for (int j = 0; j < BK / 16; ++j) {"
-    assert src.count(loop) == 1
-    (tmp_path / "fa.cu").write_text(src.replace(
-        loop, "if (kt != hi - 2 || blockIdx.y != 0) " + loop))
+    line = "hopper::wgmma_rs(o[pn], pa[kk], bv, 1);"
+    assert src.count(line) == 1
+    (tmp_path / "fa.cu").write_text(src.replace(line, f"if ({cond}) {line}"))
     so = tmp_path / "libfa.so"
     subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I",
                     str(build.CSRC), "-o", str(so), str(tmp_path / "fa.cu")],
@@ -191,16 +197,43 @@ def test_flash_row_bar_catches_a_dropped_pv_tile(cuda, tmp_path, monkeypatch):
     broken = ctypes.CDLL(str(so))
     broken.flash_attention_fwd.argtypes = fa_kernel._ARGTYPES
     broken.flash_attention_fwd.restype = ctypes.c_int
+    return broken
 
-    q, k, v = qkv(7, 4, 32, 8, 2048, 64, torch.bfloat16, cuda)
-    o_p, _ = fa_ref.flash_attention_fwd_ref(q, k, v)
-    o, _ = fa_kernel.flash_attention_fwd(q, k, v)
+
+def dropped_pv_tile_row_errs(cuda, tmp_path, monkeypatch, shape, **kw):
+    """Row errors of the kernel and of a copy whose last query tile of each
+    head leaves the second-to-last key tile of the block out of P V (but
+    not out of l), against the plain version at ``shape``."""
+    broken = broken_fwd(tmp_path, "kt - 1 != hi - 2 || blockIdx.y != 0")
+    q, k, v = qkv(7, *shape, torch.bfloat16, cuda)
+    o_p, _ = fa_ref.flash_attention_fwd_ref(q, k, v, **kw)
+    o, _ = fa_kernel.flash_attention_fwd(q, k, v, **kw)
     monkeypatch.setattr(fa_kernel, "_lib", lambda: broken)
-    o_bad, _ = fa_kernel.flash_attention_fwd(q, k, v)
+    o_bad, _ = fa_kernel.flash_attention_fwd(q, k, v, **kw)
     good, bad = row_err(o, o_p), row_err(o_bad, o_p)
-    print(f"row_err: kernel {good}, dropped P V tile {bad}; max abs err: "
-          f"kernel {(o.float() - o_p.float()).abs().max().item()}, dropped "
-          f"tile {(o_bad.float() - o_p.float()).abs().max().item()}")
+    print(f"{shape} row_err: kernel {good}, dropped P V tile {bad}; max abs "
+          f"err: kernel {(o.float() - o_p.float()).abs().max().item()}, "
+          f"dropped tile {(o_bad.float() - o_p.float()).abs().max().item()}")
+    return good, bad
+
+
+def test_flash_row_bar_catches_a_dropped_pv_tile(cuda, tmp_path, monkeypatch):
+    """The bf16 row bar has power at the prefill's shape: a copy of the
+    kernel whose last query tile of each head leaves the second-to-last key
+    tile out of P V (but not out of l) fails it, and the kernel passes."""
+    good, bad = dropped_pv_tile_row_errs(cuda, tmp_path, monkeypatch,
+                                         (4, 32, 8, 2048, 64))
+    assert good <= 2.0 ** -6 < bad
+
+
+def test_flash_row_bar_catches_a_dropped_pv_tile_at_d256(cuda, tmp_path,
+                                                         monkeypatch):
+    """The same planted fault at head dim 256 (four N-64 products of P V a
+    key tile), gemma2-9b's local layer cut to S 1024: the copy fails the
+    row bar, and the kernel passes."""
+    good, bad = dropped_pv_tile_row_errs(
+        cuda, tmp_path, monkeypatch, (1, 16, 8, 1024, 256), window=512,
+        softcap=50.0)
     assert good <= 2.0 ** -6 < bad
 
 

@@ -9,7 +9,9 @@
 * chunk invariance, and the ragged tail (S 200, chunk 64) against the JAX
   oracle;
 * ``ops.ssd`` gradients against ``jax.vjp`` of the JAX ``ops.ssd`` (5e-4,
-  the reference's gradient bar);
+  the reference's gradient bar), also at a ragged S against the JAX
+  oracle's VJP, and a check that the backward runs the chunked plain
+  version and never the sequential oracle;
 * the dispatch and the CUDA wrapper's refusals, and a planted fault that
   shows the 1e-4 bar has teeth.
 
@@ -138,8 +140,9 @@ def test_bf16_inputs_keep_f32_arithmetic():
     (2, 48, 4, 16, 2, 8, 16),
 ])
 def test_gradients_match_jax(B, S, H, P, G, N, chunk):
-    """ops.ssd's backward (autograd of the oracle) against jax.vjp of the
-    JAX custom_vjp (the oracle's VJP), for a random cotangent."""
+    """ops.ssd's backward (autograd of the chunked plain version) against
+    jax.vjp of the JAX custom_vjp (the oracle's VJP), for a random
+    cotangent."""
     arrays = inputs(11, B, S, H, P, G, N)
     dy = np.random.default_rng(12).standard_normal(
         (B, S, H, P)).astype(np.float32)
@@ -153,6 +156,51 @@ def test_gradients_match_jax(B, S, H, P, G, N, chunk):
     for name, g, w in zip(("x", "dt", "a", "b", "c"), got, want):
         assert g.shape == w.shape, name
         assert rel(g, w) < 5e-4, name
+
+
+@pytest.mark.parametrize("S,chunk", [(200, 64), (72, 32)])
+def test_gradients_match_jax_at_ragged_s(S, chunk):
+    """At an S that is not a multiple of the chunk, ops.ssd's backward (the
+    chunked plain version, its tail masked) against jax.vjp of the JAX
+    oracle at 5e-4.  The oracle and not the JAX kernel's custom_vjp: the
+    TPU kernel's forward reads past the end there (ROADMAP C)."""
+    arrays = inputs(21 + S, 2, S, 4, 16, 2, 16)
+    dy = np.random.default_rng(22).standard_normal(
+        (2, S, 4, 16)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *ops: jax_ssd_ref(*ops)[0],
+                     *map(jnp.asarray, arrays))
+    want = vjp(jnp.asarray(dy))
+    args = [t.requires_grad_() for t in torch_args(arrays)]
+    y = ssd_ops.ssd(*args, chunk=chunk)
+    got = torch.autograd.grad(y, args, torch.from_numpy(dy))
+    for name, g, w in zip(("x", "dt", "a", "b", "c"), got, want):
+        assert g.shape == w.shape, name
+        assert rel(g, w) < 5e-4, name
+
+
+def test_backward_does_not_run_the_oracle(monkeypatch):
+    """The backward differentiates ssd_scan_plain at the forward's chunk:
+    with ssd_ref patched to raise, forward and backward still run, and
+    they call the plain version twice (forward, then the recomputation the
+    backward differentiates), the second time with the same chunk."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("ops.ssd reached the sequential oracle")
+
+    calls = []
+    plain = ssd_ref.ssd_scan_plain
+
+    def spy(*args, chunk=128):
+        calls.append(chunk)
+        return plain(*args, chunk=chunk)
+
+    monkeypatch.setattr(ssd_ref, "ssd_ref", refuse)
+    monkeypatch.setattr(ssd_ref, "ssd_scan_plain", spy)
+    args = [t.requires_grad_()
+            for t in torch_args(inputs(23, 1, 80, 2, 16, 1, 16))]
+    y = ssd_ops.ssd(*args, chunk=32)
+    grads = torch.autograd.grad(y.square().sum(), args)
+    assert calls == [32, 32]
+    assert all(torch.isfinite(g).all() for g in grads)
 
 
 def test_cpu_tensor_takes_the_plain_version():
