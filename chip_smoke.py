@@ -153,8 +153,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 N_MAIN = 1 << 24          # BSP FFT length on the main path
 P_MAIN = 8                # virtual processes
-KERNEL_SHAPES = [(1, 64), (4, 256), (8, 1024), (3, 4096),
-                 (P_MAIN, N_MAIN // P_MAIN)]
+# the JAX kernel tests' shapes, the last one-pass row (2^12), the first
+# two-pass row (2^13), the main path's rows, the first three-pass row (2^23)
+KERNEL_SHAPES = [(1, 64), (4, 256), (8, 1024), (3, 4096), (2, 1 << 12),
+                 (2, 1 << 13), (P_MAIN, N_MAIN // P_MAIN), (1, 1 << 23)]
 # data-sheet peaks of one H100 SXM (at its 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -1247,26 +1249,42 @@ def main() -> int:
     # 3. kernel against its plain version ------------------------------------
     rng = np.random.default_rng(SEED)
     rows = []
+    fft_log = built["fft_stage"].log
     for batch, n in KERNEL_SHAPES:
         x = torch.from_numpy(complex_input(rng, (batch, n))).to(dev)
+        plan = fft_kernel.pass_plan(n)
         for inverse in (False, True):
+            before = fft_kernel.fft_planes.cuda_launches
             y_k = fft_kernel.fft_planes(x, inverse=inverse)
+            launches = fft_kernel.fft_planes.cuda_launches - before
             y_p = fft_ref.stockham(x, inverse=inverse)
             torch.cuda.synchronize()
             err = (y_k - y_p).abs().max().item()
             rel = err / y_p.abs().max().item()
-            bar = 2e-5 if n == N_MAIN // P_MAIN else 1e-5
+            bar = 2e-5 if n >= N_MAIN // P_MAIN else 1e-5
             lib = torch.fft.ifft if inverse else torch.fft.fft
             row = dict(
                 batch=batch, n=n, inverse=inverse, max_abs_err=err,
-                rel_err=rel, bar=bar,
+                rel_err=rel, bar=bar, cuda_launches=launches,
+                passes=[dict(kind=q.kind, t=q.t, c=q.c) for q in plan],
+                bytes=2 * launches * batch * n * 8,
                 ms=cuda_ms(lambda: fft_kernel.fft_planes(x, inverse=inverse)),
                 plain_ms=cuda_ms(lambda: fft_ref.stockham(x, inverse=inverse)),
                 library_ms=cuda_ms(lambda: lib(x)))
+            row["tb_per_s"] = row["bytes"] / (row["ms"] * 1e-3) / 1e12
+            # one kernel a pass kind and T (csrc/fft_stage.cu)
+            row["build"] = [kernel_build_report(
+                fft_log, f"four_step_passILb{int(q.kind == 'col')}"
+                f"ELi{q.t.bit_length() - 1}E", q.smem_bytes) for q in plan]
             rows.append(row)
             print("fft_planes " + json.dumps(row), flush=True)
             check(rel < bar, f"fft_planes {batch}x{n} inverse={inverse}: "
                              f"rel err {rel} >= {bar}")
+            check(launches == len(plan), f"fft_planes {batch}x{n}: "
+                  f"{launches} CUDA launches, plan {len(plan)}")
+            if n == N_MAIN // P_MAIN:
+                check(launches <= 2, f"fft_planes {batch}x{n}: {launches} "
+                                     f"CUDA launches a call, more than 2")
             del y_k, y_p
     flash_rows = flash_phase(np.random.default_rng([SEED, 1]), dev,
                              built["flash_attention_fwd"].log)
@@ -1406,9 +1424,11 @@ def main() -> int:
         name="fft_planes", route="cuda",
         source="src/repro_torch/csrc/fft_stage.cu",
         replaces="src/repro/kernels/fft_stage/kernel.py:72",
-        launches=launches, max_abs_err=big["max_abs_err"], ms=big["ms"],
+        launches=launches, cuda_launches=cuda_launches,
+        max_abs_err=big["max_abs_err"], ms=big["ms"],
         plain_ms=big["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=big["library_ms"]), dict(
+        library_ms=big["library_ms"], tb_per_s=big["tb_per_s"],
+        passes=big["passes"], build=big["build"]), dict(
         name="flash_attention_fwd", route="cuda",
         source="src/repro_torch/csrc/flash_attention_fwd.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:111",

@@ -114,6 +114,12 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
         : "memory");
 }
 
+// Order this thread's earlier generic-proxy accesses to shared memory before
+// its later async-proxy ones (a TMA copy into a buffer that was just read).
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -407,6 +413,25 @@ inline cudaError_t tensor_map_bf16(CUtensorMap* map, const void* base, int n,
         dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
         box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 3-D tensor map over 8-byte elements (complex64 moved as 64-bit words):
+// extents dims[0] (contiguous), dims[1], dims[2], byte strides strides[0]
+// of dim 1 and strides[1] of dim 2, box `box`, no swizzle.  Boxes land in
+// shared memory dense, dim 0 fastest; elements out of bounds load as zeros.
+inline cudaError_t tensor_map_c64(CUtensorMap* map, const void* base,
+                                  const cuuint64_t (&dims)[3],
+                                  const cuuint64_t (&strides)[2],
+                                  const cuuint32_t (&box)[3]) {
+    static const EncodeTiled encode = lookup_encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint32_t steps[3] = {1, 1, 1};
+    const CUresult r = encode(
+        map, CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 3, const_cast<void*>(base),
+        dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

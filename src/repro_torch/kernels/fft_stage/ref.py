@@ -8,6 +8,10 @@ Stage invariant: after the stage that reaches sub-transform length ``L``
 the row viewed as ``[n/L, L]`` holds, in row ``r``, the L-point DFT of
 the stride-``n/L`` subsequence ``x[r::n/L]``.  Twiddles are computed in
 float64 and rounded to the input's precision.
+
+:func:`four_step` is the CUDA kernel's decomposition in plain torch ops,
+pass by pass as ``kernel.pass_plan`` gives it; the tests hold it against
+the JAX kernel and ``np.fft`` (the port's ``ops`` never calls it).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import math
 
 import torch
 
-__all__ = ["fft_ref", "ifft_ref", "stockham"]
+__all__ = ["fft_ref", "four_step", "ifft_ref", "stockham"]
 
 
 def stockham(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
@@ -41,6 +45,42 @@ def stockham(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
         L *= 2
     y = y.reshape(shape)
     return y / n if inverse else y
+
+
+def _dft(v: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """Unscaled DFT along the last axis (``stockham``'s 1/t undone: a
+    power of two, so exactly)."""
+    y = stockham(v, inverse=inverse)
+    return y * v.shape[-1] if inverse else y
+
+
+def four_step(x: torch.Tensor, plan, inverse: bool = False) -> torch.Tensor:
+    """FFT along the last axis through the passes of ``plan`` (a list of
+    ``kernel.FFTPass``), as the CUDA kernel computes it: sub-transforms by
+    :func:`stockham`, a col pass's twiddles w_{t a}^{i k} from the exact
+    integer i * k in float64, the row pass's output order
+    ``d1 + r1 * dm + s * k``, and the inverse's 1/n in the last store."""
+    shape = x.shape
+    n = shape[-1]
+    y = x.reshape(-1, n)
+    rows = y.shape[0]
+    sign = 1.0 if inverse else -1.0
+    for i, p in enumerate(plan):
+        if p.kind == "col":
+            v = y.reshape(rows * p.s, p.t, p.a).transpose(1, 2)  # [., a, j]
+            f = _dft(v, inverse)                                 # [., a, k]
+            e = torch.outer(torch.arange(p.a, dtype=torch.int64),
+                            torch.arange(p.t, dtype=torch.int64))
+            ang = e.to(torch.float64) * (sign * 2.0 * math.pi / (p.t * p.a))
+            w = torch.polar(torch.ones_like(ang), ang).to(x.dtype)
+            y = (f * w.to(x.device)).transpose(1, 2).reshape(rows, n)
+        else:
+            f = _dft(y.reshape(rows, p.r1, p.m, p.t), inverse)
+            # [row, d1, dm, k] to d1 + r1 * dm + s * k
+            y = f.permute(0, 3, 2, 1).reshape(rows, n)
+            if inverse and i == len(plan) - 1:
+                y = y / n
+    return y.reshape(shape)
 
 
 def fft_ref(x: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,10 @@
 
 * ``fft_stage``: the port's plain PyTorch version (what ``ops.fft`` runs
   for a CPU tensor) against the JAX kernel in Pallas interpret mode and
-  ``np.fft``, at the JAX kernel tests' shapes and bars;
+  ``np.fft``, at the JAX kernel tests' shapes and bars; the CUDA kernel's
+  four-step decomposition (``ref.four_step`` over ``kernel.pass_plan``)
+  the same way for n = 2^1 ... 2^16, its three-pass algebra at small n,
+  and the pass plan against the card's shared memory;
 * ``bsp_fft``: the port over p = 8 virtual processes (``device="cpu"``)
   against JAX ``bsp_fft`` on the 8-device CPU mesh, ordered and
   unordered, ``use_kernel`` True and False, forward and inverse — values
@@ -14,6 +17,7 @@ The CUDA kernel itself is held against the plain version on the card by
 """
 
 import dataclasses
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +31,9 @@ from repro_torch import core as tlpf
 from repro_torch.algorithms import bsp_fft, bsp_fft_spmd, fft_h_bytes
 from repro_torch.interop import (cyclic_gather, cyclic_scatter,
                                  hardware_from_fields, unordered_to_natural)
+from repro_torch.kernels.fft_stage import kernel as fft_kernel
 from repro_torch.kernels.fft_stage import ops as fft_ops
+from repro_torch.kernels.fft_stage import ref as fft_ref
 
 #: both ledgers are priced on the reference's machine model
 TPU_FIELDS = dataclasses.asdict(jlpf.TPU_V5E)
@@ -57,6 +63,72 @@ def test_fft_stage_plain_matches_jax_kernel(batch, n):
     xj = np.asarray(jax_fft_ops.ifft(jnp.asarray(ref), interpret=True))
     assert np.abs(xi - x).max() < 1e-4
     assert np.abs(xi - xj).max() < 1e-4
+
+
+@pytest.mark.parametrize("bits", range(1, 17))
+def test_four_step_matches_jax_kernel(bits):
+    """The CUDA kernel's decomposition (``ref.four_step`` over
+    ``pass_plan(n)``: one pass up to 2^12, two beyond) against the JAX
+    kernel in interpret mode and ``np.fft`` in complex128, at the JAX
+    kernel tests' bars."""
+    n = 1 << bits
+    plan = fft_kernel.pass_plan(n)
+    assert len(plan) == (1 if n <= 1 << 12 else 2)
+    batch = 2
+    x = cinput(bits, (batch, n))
+    ref = np.fft.fft(x.astype(np.complex128))
+    y = fft_ref.four_step(torch.from_numpy(x), plan).numpy()
+    yj = np.asarray(jax_fft_ops.fft(jnp.asarray(x), interpret=True))
+    assert y.dtype == np.complex64
+    assert rel(y, ref) < 1e-5
+    assert rel(y, yj.astype(np.complex128)) < 1e-5
+    xi = fft_ref.four_step(torch.from_numpy(ref.astype(np.complex64)), plan,
+                           inverse=True).numpy()
+    xj = np.asarray(jax_fft_ops.ifft(jnp.asarray(ref), interpret=True))
+    assert np.abs(xi - x).max() < 1e-4
+    assert np.abs(xi - xj).max() < 1e-4
+
+
+@pytest.mark.parametrize("bits", range(5, 13))
+def test_four_step_three_passes_at_small_n(bits):
+    """The same algebra with sub-transforms of at most 16 points, so that
+    n = 2^9 ... 2^12 takes three passes (a middle col pass and the row
+    pass's digit-reversed store) as n > 2^22 does on the card."""
+    n = 1 << bits
+    plan = fft_kernel.pass_plan(n, max_t=16)
+    assert len(plan) == 1 + (n > fft_kernel.ONE_PASS * 16) + (n > 256)
+    x = cinput(bits + 100, (3, n))
+    ref = np.fft.fft(x.astype(np.complex128))
+    y = fft_ref.four_step(torch.from_numpy(x), plan).numpy()
+    assert rel(y, ref) < 1e-5
+    xi = fft_ref.four_step(torch.from_numpy(ref.astype(np.complex64)), plan,
+                           inverse=True).numpy()
+    assert np.abs(xi - x).max() < 1e-4
+
+
+def test_pass_plan_fits_the_card():
+    """Two passes at the main path's 2^21 with C >= 4; no plan from 2^1 to
+    2^33 asks a block for more than 227 KB of shared memory, and every
+    plan keeps 8192-point tiles, factors whose product is n and, with more
+    than one pass, runs of C >= 4."""
+    main = fft_kernel.pass_plan(1 << 21)
+    assert [(p.kind, p.t) for p in main] == [("col", 1 << 10),
+                                             ("row", 1 << 11)]
+    for bits in range(1, 34):
+        n = 1 << bits
+        plan = fft_kernel.pass_plan(n)
+        assert len(plan) == 1 + (n > 1 << 12) + (n > 1 << 22)
+        assert math.prod(p.t for p in plan) == n
+        for p in plan:
+            assert p.smem_bytes <= fft_kernel.SMEM_LIMIT
+            assert p.c * p.t == fft_kernel.TILE
+            assert p.seq == 0 or p.seq >= p.t + p.t // 16
+            if len(plan) > 1:
+                assert p.c >= 4
+    with pytest.raises(tlpf.LPFFatalError, match="power-of-two"):
+        fft_kernel.pass_plan(3 << 10)
+    with pytest.raises(tlpf.LPFFatalError, match="3 passes"):
+        fft_kernel.pass_plan(1 << 34)
 
 
 def _ledger_rows(ledger):

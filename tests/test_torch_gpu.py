@@ -6,9 +6,10 @@ so it runs on a machine that has only PyTorch and the CUDA toolkit:
 
 The CUDA kernels are held against their plain PyTorch versions on the
 same inputs, at the JAX kernel tests' bars: ``fft_stage`` (relative error
-< 1e-5), ``flash_attention_fwd`` (o within 2e-5 in f32 and 2e-2 in bf16,
-and in bf16 also each row's error within 2^-6 of the row's largest
-|o_plain|; lse within 1e-4) and the two ``flash_attention_bwd`` kernels
+< 1e-5, and < 2e-5 from n = 2^21 on, the bar ``chip_smoke.py`` holds the
+main path's rows to), ``flash_attention_fwd`` (o within 2e-5 in f32 and
+2e-2 in bf16, and in bf16 also each row's error within 2^-6 of the row's
+largest |o_plain|; lse within 1e-4) and the two ``flash_attention_bwd`` kernels
 (each gradient within 5e-4 of the largest plain one in f32; in bf16 each
 row within 2^-6 of the row's largest |plain|) and ``ssd_scan`` (y and the
 final state within 1e-4 of the plain version's largest |value|).  The FFT
@@ -56,18 +57,64 @@ def cinput(seed, shape):
             + 1j * rng.standard_normal(shape)).astype(np.complex64)
 
 
-@pytest.mark.parametrize("batch,n", [(1, 2), (1, 64), (4, 256), (8, 1024),
-                                     (3, 4096), (2, 1 << 15), (8, 1 << 16)])
+# the JAX kernel tests' shapes, then both sides of each threshold of
+# ``pass_plan`` (one pass or two: 2^12 | 2^13; two or three: 2^22 | 2^23),
+# the main path's (8, 2^21) and a three-pass row well beyond (2^25)
+@pytest.mark.parametrize("batch,n", [
+    (1, 2), (1, 64), (4, 256), (8, 1024), (3, 4096), (2, 1 << 12),
+    (2, 1 << 13), (2, 1 << 15), (8, 1 << 16), (2, 1 << 21), (8, 1 << 21),
+    (1, 1 << 22), (1, 1 << 23), (1, 1 << 25)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_kernel_matches_plain_version(cuda, batch, n, inverse):
     x = torch.from_numpy(cinput(n, (batch, n))).to(cuda)
     before = fft_kernel.fft_planes.launches
+    launches = fft_kernel.fft_planes.cuda_launches
     y = fft_kernel.fft_planes(x, inverse=inverse)
     y_p = fft_ref.stockham(x, inverse=inverse)
     torch.cuda.synchronize()
     assert fft_kernel.fft_planes.launches == before + 1
+    passes = fft_kernel.fft_planes.cuda_launches - launches
+    assert passes == len(fft_kernel.pass_plan(n))
+    if n == 1 << 21:
+        assert passes == 2
     err = (y - y_p).abs().max() / y_p.abs().max()
-    assert err.item() < 1e-5
+    assert err.item() < (2e-5 if n >= 1 << 21 else 1e-5)
+
+
+def broken_fft(tmp_path):
+    """A copy of the FFT library whose first pass's epilogue twiddle
+    w_n^{j1 k2} has its sign flipped for the last column j1 = A - 1 (the
+    line found once)."""
+    src = (build.CSRC / "fft_stage.cu").read_text()
+    line = "const float2 w0 = twiddle(a * g, lq, p.sgn);"
+    assert src.count(line) == 1
+    (tmp_path / "fft.cu").write_text(src.replace(
+        line, line.replace("p.sgn)", "a == p.a - 1 ? -p.sgn : p.sgn)")))
+    so = tmp_path / "libfft.so"
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I",
+                    str(build.CSRC), "-o", str(so), str(tmp_path / "fft.cu")],
+                   check=True, capture_output=True)
+    broken = ctypes.CDLL(str(so))
+    broken.fft_stage_pass.argtypes = fft_kernel._ARGTYPES
+    broken.fft_stage_pass.restype = ctypes.c_int
+    return broken
+
+
+def test_fft_bar_catches_a_wrong_epilogue_twiddle(cuda, tmp_path,
+                                                  monkeypatch):
+    """The 2e-5 bar has power at the main path's pass plan: a copy of the
+    kernel with one column's pass-1 twiddle conjugated fails it at
+    (2, 2^21), and the kernel passes."""
+    broken = broken_fft(tmp_path)
+    x = torch.from_numpy(cinput(21, (2, 1 << 21))).to(cuda)
+    y_p = fft_ref.stockham(x)
+    y = fft_kernel.fft_planes(x)
+    monkeypatch.setattr(fft_kernel, "_lib", lambda: broken)
+    y_bad = fft_kernel.fft_planes(x)
+    good = ((y - y_p).abs().max() / y_p.abs().max()).item()
+    bad = ((y_bad - y_p).abs().max() / y_p.abs().max()).item()
+    print(f"(2, 2^21) rel err: kernel {good}, wrong twiddle {bad}")
+    assert good < 2e-5 < bad
 
 
 def test_ops_materialises_lazy_conjugates(cuda):
