@@ -107,25 +107,32 @@ The llama3.2-1b training path (f32 masters, bf16 compute, ``remat="full"``,
 The mamba2-130m serving path (the published width, uncut, random weights
 from ``SEED``, f32 parameters cast once to bf16 compute) adds, after (i):
 
-(j) the build of phase 2 covers ``ssd_scan`` too; the kernel against its
-    plain version ``ssd_scan_plain`` on the card at the JAX kernel tests'
-    four shapes, a ragged S (200, chunk 64) and the prefill's main shape
-    [4, 2048, 24, 64], G 1, N 128, chunk 128, in bf16 and in f32 (the
-    model hands the kernel f32): y and the final state within 1e-4 of the
+(j) the build of phase 2 covers ``ssd_scan`` too (its four passes, each
+    with its ``-Xptxas -v`` registers, spills and shared memory); the
+    kernel against its plain version ``ssd_scan_plain`` on the card at the
+    JAX kernel tests' four shapes, a ragged S (200, chunk 64), the
+    prefill's main shape [4, 2048, 24, 64], G 1, N 128, chunk 128, in bf16
+    and in f32 (the model hands the kernel f32), and the long prefill's
+    [1, 16384, 24, 64] in f32: y and the final state within 1e-4 of the
     plain version's largest |value| (the JAX bar); in bf16 y is held
     against the plain version's f32 y within 1e-4 of its largest |value|
-    plus half a bf16 ulp of each value (the output's rounding); kernel,
-    plain and ``_ssd_chunked`` (the JAX model's default path, batched
-    einsums) milliseconds and the bound;
-(k) prefill at full width, B 4 x S 2048: exactly 24 ``ssd_scan`` launches
-    and no flash-attention launch; last-position logits against the same
-    prefill through ``impl="chunked"`` (run on the card as a check only):
-    within 2e-2 (relative) in f32 compute, and in bf16 within 2e-2 or,
-    where the chunked path's own spread (chunk 64 against 128) is wider,
-    twice that spread: the random model amplifies bf16 rounding through
-    its 24 layers; host milliseconds and tokens/s, the profile by kernel
-    family with the device's idle share; then a B 1 x S 16384 prefill (128
-    chunks a launch), timed, with its 24 launches;
+    plus half a bf16 ulp of each value (the output's rounding); each
+    pass's scratch (cum, C B^T, the state entering each chunk) within 1e-4
+    of ``ssd_scan_passes``; 4 CUDA launches a call; kernel, plain and
+    ``_ssd_chunked`` (the JAX model's default path, batched einsums)
+    milliseconds, the bound at the fastest split known to hold the bar
+    (bf16 tensor cores), and for the record at the kernel's own split-TF32
+    rate and at the f32 FMA rate;
+(k) prefill at full width, B 4 x S 2048: exactly 24 ``ssd_scan`` calls (96
+    CUDA launches) and no flash-attention launch; last-position logits
+    against the same prefill through ``impl="chunked"`` (run on the card
+    as a check only): within 2e-2 (relative) in f32 compute, and in bf16
+    within 2e-2 or, where the chunked path's own spread (chunk 64 against
+    128) is wider, twice that spread: the random model amplifies bf16
+    rounding through its 24 layers; host milliseconds and tokens/s, the
+    profile by kernel family with the device's idle share; then a B 1 x
+    S 16384 prefill (128 chunks a call), timed and profiled, with its 24
+    calls;
 (l) teacher-forced decode over 64 tokens at B 1 against prefill: within
     0.08 in f32 compute, and in bf16 within 0.08 or, where the chunked
     path's own spread (chunk 16 against 64) is wider, twice that spread;
@@ -161,6 +168,7 @@ KERNEL_SHAPES = [(1, 64), (4, 256), (8, 1024), (3, 4096), (2, 1 << 12),
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 
 ARCH = "llama3.2-1b"
 PREFILL_B, PREFILL_S = 4, 2048          # the serving path's prefill
@@ -207,9 +215,11 @@ MAIN_BWD_SHAPE = [TRAIN_B, 32, 8, TRAIN_S, 64]
 # difference 0.05
 GRAD_BARS = dict(leaf=0.08, norm=1e-2, diff=0.05)
 # the mamba2-130m path (j)-(l): the JAX kernel tests' sweep, a ragged S,
-# then the prefill's main shape in bf16 and (last) in f32, the dtype the
-# bf16 model hands the kernel; B, S, H, P, G, N, chunk, dtype
+# then the prefill's main shape in bf16 and in f32, the dtype the bf16
+# model hands the kernel, and the long prefill's; B, S, H, P, G, N, chunk,
+# dtype
 MAMBA_ARCH = "mamba2-130m"
+LONG_S = 16384                          # (k)'s B 1 long-sequence prefill
 SSD_SHAPES = [
     (1, 64, 2, 16, 1, 16, 16, "float32"),
     (2, 128, 4, 32, 2, 32, 32, "float32"),
@@ -218,9 +228,16 @@ SSD_SHAPES = [
     (1, 200, 2, 16, 1, 16, 64, "float32"),
     (PREFILL_B, PREFILL_S, 24, 64, 1, 128, 128, "bfloat16"),
     (PREFILL_B, PREFILL_S, 24, 64, 1, 128, 128, "float32"),
+    (1, LONG_S, 24, 64, 1, 128, 128, "float32"),
 ]
+MAIN_SSD_SHAPE = [PREFILL_B, PREFILL_S, 24, 64, 1, 128]
 SSD_BAR = 1e-4
-LONG_S = 16384                          # (k)'s B 1 long-sequence prefill
+# the fastest arithmetic known to hold SSD_BAR for the SSD scan's products:
+# bf16 tensor cores (BF16_FLOPS) over the products a split of each f32
+# operand into two bf16 parts needs (f32 operands 3, one bf16 operand 2, C
+# B^T of bf16 1); ``ref.split_bf16_mm`` through the passes holds the bar
+# (tests/test_torch_ssd.py)
+SSD_SPLIT_PRODUCTS = {4: (3, 3), 2: (1, 2)}   # itemsize: (C B^T, the rest)
 # (h)'s loss witness: WITNESS_STEPS steps at B 1 x S 2048 of the flash and
 # the reference-attention model under (h)'s schedule; each step's losses
 # within WITNESS_BAR (relative) of each other, the step-0 bar's 1e-2
@@ -781,7 +798,7 @@ def kernel_family(name: str) -> str:
         return "flash_attention_bwd_dkv"
     if "fa_bwd_dq" in n:
         return "flash_attention_bwd_dq"
-    if "ssd_kernel" in n:
+    if "ssd_" in n:
         return "ssd_scan"
     if any(t in n for t in ("gemm", "cutlass", "xmma", "nvjet", "cublas",
                             "sm90_")):
@@ -934,33 +951,68 @@ def serving_phases(rng, dev) -> dict:
     return out
 
 
-def ssd_bound_ms(B, S, H, P, G, N, L, itemsize) -> tuple:
-    """Least time for the SSD scan on these inputs: x, dt, a, b, c read
-    and y, the state written once, or the products at the f32 peak (the
-    1e-4 bar rules out bf16 and TF32 operands).  Per chunk of Lv rows:
-    C B^T over the causal triangle's Lv (Lv + 1) / 2 pairs once per
-    (b, group), M x over the same pairs and the inter (C state) and state
-    (B^T x) products, Lv N P each, per (b, h); 2 flops per multiply-add."""
+def ssd_flops(B, S, H, P, G, N, L) -> tuple:
+    """The SSD scan's arithmetic on these inputs, (C B^T, the rest): per
+    chunk of Lv rows, C B^T over the causal triangle's Lv (Lv + 1) / 2
+    pairs once per (b, group), M x over the same pairs and the inter
+    (C state) and state (B^T x) products, Lv N P each, per (b, h); 2 flops
+    a multiply-add."""
     lengths = [L] * (S // L) + ([S % L] if S % L else [])
-    flops = 0.0
+    cb = rest = 0.0
     for lv in lengths:
         pairs = lv * (lv + 1) / 2
-        flops += 2.0 * B * G * pairs * N + 2.0 * B * H * (
-            pairs * P + 2 * lv * N * P)
+        cb += 2.0 * B * G * pairs * N
+        rest += 2.0 * B * H * (pairs * P + 2 * lv * N * P)
+    return cb, rest
+
+
+def ssd_bound_ms(B, S, H, P, G, N, L, itemsize) -> tuple:
+    """Least time for the SSD scan on these inputs: x, dt, a, b, c read
+    and y, the state written once, or the products at the fastest rate
+    that holds the 1e-4 bar: bf16 tensor cores over the products each
+    operand pair's split needs (:data:`SSD_SPLIT_PRODUCTS`).
+    Returns (ms, "bytes" or "operations", the rate it assumed)."""
+    cb, rest = ssd_flops(B, S, H, P, G, N, L)
+    n_cb, n_rest = SSD_SPLIT_PRODUCTS[itemsize]
+    t_ops = (cb * n_cb + rest * n_rest) / BF16_FLOPS
+    rate = (f"bf16 989 TFLOP/s over {n_cb} product(s) (C B^T) and {n_rest}"
+            f" (the rest): f32 operands split into two bf16 parts")
     nbytes = (2 * B * S * H * P + 2 * B * S * G * N) * itemsize \
         + B * S * H * 4 + H * 4 + B * H * N * P * 4
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", rate)
 
 
-def ssd_phase(rng, dev, shapes=SSD_SHAPES) -> list:
+def ssd_fma_bound_ms(B, S, H, P, G, N, L) -> float:
+    """The same arithmetic at the f32 FMA rate (67 TFLOP/s), the bound of
+    a kernel that runs the products as f32 FMAs on the CUDA cores."""
+    return sum(ssd_flops(B, S, H, P, G, N, L)) / FP32_FLOPS * 1e3
+
+
+def ssd_tf32_bound_ms(B, S, H, P, G, N, L, itemsize) -> float:
+    """The same arithmetic at the kernel's own split-TF32 rate (495 TFLOP/s
+    over the same number of products a pair), or the bytes if slower."""
+    cb, rest = ssd_flops(B, S, H, P, G, N, L)
+    n_cb, n_rest = SSD_SPLIT_PRODUCTS[itemsize]
+    return max((cb * n_cb + rest * n_rest) / TF32_FLOPS * 1e3,
+               ssd_bound_ms(B, S, H, P, G, N, L, itemsize)[0])
+
+
+# the kernels of ``csrc/ssd_scan.cu`` by pass, as their mangled names
+# begin (``ILb0E`` / ``ILb1E``: the f32 / bf16 instance)
+SSD_PASS_KERNELS = {"ssd_cb": "ssd_cb_kernel",
+                    "ssd_chunk_state": "ssd_chunk_state_kernel",
+                    "ssd_state_pass": "ssd_state_pass_kernel",
+                    "ssd_chunk_scan": "ssd_chunk_scan_kernel"}
+
+
+def ssd_phase(rng, dev, build_log: str, shapes=SSD_SHAPES) -> list:
     """(j): the CUDA ssd_scan kernel against its plain version."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.models.mamba import MambaConfig, _ssd_chunked
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for B, S, H, P, G, N, chunk, dt_name in shapes:
         dtype = getattr(torch, dt_name)
@@ -973,49 +1025,72 @@ def ssd_phase(rng, dev, shapes=SSD_SHAPES) -> list:
         b, c = (torch.from_numpy(rng.standard_normal(
             (B, S, G, N), dtype=np.float32)).to(dev, dtype)
             for _ in range(2))
-        before = ssd_kernel.ssd_scan.launches
-        y, st = ssd_kernel.ssd_scan(x, dt, a, b, c, chunk=chunk)
+        L = min(chunk, S)
+        before = (ssd_kernel.ssd_scan.launches,
+                  ssd_kernel.ssd_scan.cuda_launches)
+        out = ssd_kernel._run(x, dt, a, b, c, chunk)
+        y, st = out["y"], out["state"]
         torch.cuda.synchronize()
-        check(ssd_kernel.ssd_scan.launches == before + 1,
-              "ssd_scan launch count")
+        cuda_launches = ssd_kernel.ssd_scan.cuda_launches - before[1]
+        check(ssd_kernel.ssd_scan.launches == before[0] + 1
+              and cuda_launches == len(ssd_kernel.PASSES),
+              f"ssd_scan launch count, {cuda_launches} CUDA launches")
         y_p, st_p = ssd_ref.ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
         err = (y.float() - y_p.float()).abs().max().item()
+        plan = ssd_kernel.grid_plan(B, S, H, P, G, N, chunk)
         row = dict(shape=[B, S, H, P, G, N], chunk=chunk, dtype=dt_name,
-                   columns_per_block=ssd_kernel.pick_columns(
-                       B, H, P, min(chunk, S), N, sms),
+                   cuda_launches=cuda_launches, blocks=plan.blocks,
                    max_abs_err=err, rel_err=err / y_p.float().abs().max()
                    .item(), state_rel_err=rel_err(st, st_p), bar=SSD_BAR)
+        # each pass's scratch against the plain passes (f32 inputs: the
+        # kernel's arithmetic is f32 in either dtype)
+        want = ssd_ref.ssd_scan_passes(x.float(), dt, a, b.float(),
+                                       c.float(), chunk=chunk)
+        row["pass_rel_err"] = dict(
+            cum=rel_err(out["cum"][..., :L], want.cum),
+            cb=rel_err(out["cb"][..., :L, :L].tril(), want.cb),
+            states=rel_err(out["states"], want.states)
+            if want.states.shape[1] > 1 else 0.0)
+        ok = max(row["pass_rel_err"].values()) < SSD_BAR
         if dtype == torch.bfloat16:
-            # y is rounded to bf16: hold it against the plain version's
-            # f32 y, within the bar plus half a bf16 ulp of each value
-            # (at most 2^-8 of it)
-            y32, _ = ssd_ref.ssd_scan_plain(x.float(), dt, a, b.float(),
-                                            c.float(), chunk=chunk)
-            over = (y.float() - y32).abs() - 2.0 ** -8 * y32.abs()
+            # y is rounded to bf16: hold it against the f32 y, within the
+            # bar plus half a bf16 ulp of each value (at most 2^-8 of it)
+            over = (y.float() - want.y).abs() - 2.0 ** -8 * want.y.abs()
             row["rel_err_vs_f32_less_rounding"] = \
-                over.max().item() / y32.abs().max().item()
-            ok = row["rel_err_vs_f32_less_rounding"] < SSD_BAR
-            del y32, over
+                over.max().item() / want.y.abs().max().item()
+            ok = ok and row["rel_err_vs_f32_less_rounding"] < SSD_BAR
+            del over
         else:
-            ok = row["rel_err"] < SSD_BAR
+            ok = ok and row["rel_err"] < SSD_BAR
+        del want, out
         row["ms"] = cuda_ms(lambda: ssd_kernel.ssd_scan(x, dt, a, b, c,
                                                         chunk=chunk))
         row["plain_ms"] = cuda_ms(lambda: ssd_ref.ssd_scan_plain(
             x, dt, a, b, c, chunk=chunk), reps=5, warmup=1)
         row["chunked_ms"] = None
-        if S % min(chunk, S) == 0:
+        if S % L == 0:
             mcfg = MambaConfig(d_model=H * P // 2, d_state=N, head_dim=P,
                                n_groups=G, chunk=chunk)
             row["chunked_ms"] = cuda_ms(lambda: _ssd_chunked(
                 x, dt, a, b, c, mcfg), reps=5, warmup=1)
-        row["bound_ms"], row["bound_by"] = ssd_bound_ms(
-            B, S, H, P, G, N, min(chunk, S), x.element_size())
+        row["bound_ms"], row["bound_by"], row["bound_rate"] = ssd_bound_ms(
+            B, S, H, P, G, N, L, x.element_size())
+        row["fma_bound_ms"] = ssd_fma_bound_ms(B, S, H, P, G, N, L)
+        row["tf32_bound_ms"] = ssd_tf32_bound_ms(B, S, H, P, G, N, L,
+                                                 x.element_size())
+        bf16 = int(dtype == torch.bfloat16)
+        smem = ssd_kernel._lib().ssd_smem_bytes
+        row["build"] = {name: kernel_build_report(
+            build_log,
+            kern + ("" if name == "ssd_state_pass" else f"ILb{bf16}E"),
+            smem(i, bf16, plan.Lp, plan.Np, P))
+            for i, (name, kern) in enumerate(SSD_PASS_KERNELS.items())}
         rows.append(row)
         print("ssd_scan " + json.dumps(row), flush=True)
         check(ok and row["state_rel_err"] < SSD_BAR,
               f"ssd_scan {row['shape']} chunk {chunk} {dt_name}: {row}")
         del x, dt, a, b, c, y, st, y_p, st_p
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1065,10 +1140,12 @@ def mamba_phases(rng, dev) -> dict:
     batch = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab, (PREFILL_B, PREFILL_S))).to(dev)}
     ssd_kernel.ssd_scan.launches = 0
+    ssd_kernel.ssd_scan.cuda_launches = 0
     fa_kernel.flash_attention_fwd.launches = 0
     logits = prefill(params, batch, cfg, rt)
     torch.cuda.synchronize()
     launches = ssd_kernel.ssd_scan.launches
+    cuda_launches = ssd_kernel.ssd_scan.cuda_launches
     flash = fa_kernel.flash_attention_fwd.launches
     check(logits.shape == (PREFILL_B, cfg.vocab_padded)
           and bool(torch.isfinite(logits[:, :V]).all()),
@@ -1076,6 +1153,8 @@ def mamba_phases(rng, dev) -> dict:
     check(launches == cfg.n_layers and flash == 0,
           f"mamba2 prefill launched ssd_scan {launches} times (not "
           f"{cfg.n_layers}) and flash attention {flash} times")
+    check(cuda_launches == launches * len(ssd_kernel.PASSES),
+          f"mamba2 prefill: {cuda_launches} ssd_scan CUDA launches")
     # in bf16 the random-weight model amplifies rounding through its 24
     # layers: the chunked path at chunk 64 against itself at 128 (the same
     # algebra summed in another order) already differs by ~0.09.  Each
@@ -1116,8 +1195,9 @@ def mamba_phases(rng, dev) -> dict:
                       warmup=1)
     out["prefill"] = dict(
         batch=PREFILL_B, seq=PREFILL_S, ssd_launches=launches,
-        flash_launches=flash, rel_err_vs_chunked=rel,
-        chunked_64_vs_128_rel=spread, f32_rel_err_vs_chunked=rel32, e2e_ms=ms,
+        ssd_cuda_launches=cuda_launches, flash_launches=flash,
+        rel_err_vs_chunked=rel, chunked_64_vs_128_rel=spread,
+        f32_rel_err_vs_chunked=rel32, e2e_ms=ms,
         tokens_per_s=PREFILL_B * PREFILL_S / (ms * 1e-3),
         e2e_ms_chunked=chunked_ms, long_seq=LONG_S,
         long_ssd_launches=long_launches, long_e2e_ms=long_ms,
@@ -1177,6 +1257,9 @@ def mamba_phases(rng, dev) -> dict:
     # profiles last, as in (f)
     out["profile"] = profile_families(
         "mamba2 prefill", lambda: prefill(params, batch, cfg, rt), ms)
+    out["long_profile"] = profile_families(
+        f"mamba2 prefill B 1 x S {LONG_S}",
+        lambda: prefill(params, long, cfg, rt), long_ms)
     B, C = SERVE_BUCKETS[-1]
     caches = init_caches(cfg, B, C, device=dev)
     tok = torch.zeros(B, dtype=torch.long, device=dev)
@@ -1406,7 +1489,8 @@ def main() -> int:
     training = train_phases(dev)
 
     # (j)-(l) the mamba2-130m serving path -----------------------------------
-    ssd_rows = ssd_phase(np.random.default_rng([SEED, 4]), dev)
+    ssd_rows = ssd_phase(np.random.default_rng([SEED, 4]), dev,
+                         built["ssd_scan"].log)
     mamba = mamba_phases(np.random.default_rng([SEED, 5]), dev)
 
     # 7. result lines ----------------------------------------------------------
@@ -1420,6 +1504,8 @@ def main() -> int:
     main_bwd = [r for r in bwd_rows if r["shape"] == MAIN_BWD_SHAPE
                 and r["dtype"] == "bfloat16"][0]
     train_launches = training["train"]["launches"]
+    main_ssd = [r for r in ssd_rows if r["shape"] == MAIN_SSD_SHAPE
+                and r["dtype"] == "float32"][0]
     kernels = {"kernels": [dict(
         name="fft_planes", route="cuda",
         source="src/repro_torch/csrc/fft_stage.cu",
@@ -1456,11 +1542,12 @@ def main() -> int:
         source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:101",
         launches=mamba["prefill"]["ssd_launches"],
-        max_abs_err=ssd_rows[-1]["max_abs_err"], ms=ssd_rows[-1]["ms"],
-        plain_ms=ssd_rows[-1]["plain_ms"],
-        chunked_ms=ssd_rows[-1]["chunked_ms"],
-        bound_ms=ssd_rows[-1]["bound_ms"],
-        bound_by=ssd_rows[-1]["bound_by"], library_ms=None)]}
+        cuda_launches=mamba["prefill"]["ssd_cuda_launches"],
+        max_abs_err=main_ssd["max_abs_err"], ms=main_ssd["ms"],
+        plain_ms=main_ssd["plain_ms"], chunked_ms=main_ssd["chunked_ms"],
+        bound_ms=main_ssd["bound_ms"], bound_by=main_ssd["bound_by"],
+        bound_rate=main_ssd["bound_rate"], library_ms=None,
+        build=main_ssd["build"])]}
     print(json.dumps(kernels), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

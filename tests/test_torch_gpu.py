@@ -12,7 +12,8 @@ main path's rows to), ``flash_attention_fwd`` (o within 2e-5 in f32 and
 largest |o_plain|; lse within 1e-4) and the two ``flash_attention_bwd`` kernels
 (each gradient within 5e-4 of the largest plain one in f32; in bf16 each
 row within 2^-6 of the row's largest |plain|) and ``ssd_scan`` (y and the
-final state within 1e-4 of the plain version's largest |value|).  The FFT
+final state within 1e-4 of the plain version's largest |value|, and each
+of its passes' scratch within 1e-4 of ``ssd_scan_passes``).  The FFT
 path, the llama3.2-1b serving and training paths (smoke config: prefill,
 the ``LPFServer`` loop, train steps) and the mamba2-130m serving path
 (smoke config) are driven through their entry points on the card.
@@ -591,19 +592,82 @@ def rel_max(a, ref):
             / ref.float().abs().max()).item()
 
 
+def check_passes(out, args, chunk):
+    """The scratch each CUDA pass leaves against the plain passes: cum,
+    C B^T on and below the diagonal (the kernel writes only its causal
+    8-column tiles), and the state entering each chunk."""
+    B, S = args[0].shape[:2]
+    L = min(chunk, S)
+    want = ssd_ref.ssd_scan_passes(*args, chunk=chunk)
+    assert rel_max(out["cum"][..., :L], want.cum) < 1e-4
+    assert rel_max(out["cb"][..., :L, :L].tril(), want.cb) < 1e-4
+    assert not out["states"][:, 0].any()
+    if want.states.shape[1] > 1:
+        assert rel_max(out["states"][:, 1:], want.states[:, 1:]) < 1e-4
+
+
 @pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_SWEEP)
 def test_ssd_kernel_matches_plain_version(cuda, B, S, H, P, G, N, chunk):
     args = ssd_inputs(S + N, B, S, H, P, G, N, torch.float32, cuda)
-    before = ssd_kernel.ssd_scan.launches
-    y, st = ssd_kernel.ssd_scan(*args, chunk=chunk)
+    before = (ssd_kernel.ssd_scan.launches, ssd_kernel.ssd_scan.cuda_launches)
+    out = ssd_kernel._run(*args, chunk=chunk)
+    y, st = out["y"], out["state"]
     y_p, st_p = ssd_ref.ssd_scan_plain(*args, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_kernel.ssd_scan.launches == before + 1
+    assert (ssd_kernel.ssd_scan.launches, ssd_kernel.ssd_scan.cuda_launches
+            ) == (before[0] + 1, before[1] + len(ssd_kernel.PASSES))
     assert y.shape == (B, S, H, P) and st.shape == (B, H, N, P)
     assert rel_max(y, y_p) < 1e-4 and rel_max(st, st_p) < 1e-4
+    check_passes(out, args, chunk)
     # ... and against the sequential oracle, ragged tails included
     y_r, st_r = ssd_ref.ssd_ref(*args)
     assert rel_max(y, y_r) < 1e-4 and rel_max(st, st_r) < 1e-4
+
+
+# shapes off the main path's tiles: L not a multiple of 16 (77, 40), N not
+# a multiple of 16 (20; in bf16 its rows are not 16-byte copies), P in two
+# slices (128) or one of 48, G 2; B, S, H, P, G, N, chunk
+SSD_ODD = [
+    (2, 77, 4, 48, 2, 20, 128),
+    (1, 200, 2, 128, 1, 36, 40),
+    (2, 96, 4, 16, 2, 128, 96),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_ODD)
+def test_ssd_kernel_pads_odd_shapes(cuda, B, S, H, P, G, N, chunk, dtype):
+    """The kernel pads L, N and P to its tiles and masks the padding: y
+    and the state within the bar of the f32 plain version (in bf16 plus
+    half a bf16 ulp of each y), and each pass's scratch."""
+    args = ssd_inputs(B + S + P + N, B, S, H, P, G, N, dtype, cuda)
+    out = ssd_kernel._run(*args, chunk=chunk)
+    f32 = [t.float() for t in args]
+    y32, st32 = ssd_ref.ssd_scan_plain(*f32, chunk=chunk)
+    over = ((out["y"].float() - y32).abs()
+            - (2.0 ** -8 if dtype == torch.bfloat16 else 0.0) * y32.abs())
+    assert out["y"].dtype == dtype
+    assert over.max().item() / y32.abs().max().item() < 1e-4
+    assert rel_max(out["state"], st32) < 1e-4
+    check_passes(out, f32, chunk)
+
+
+def test_ssd_kernel_holds_at_strong_decay(cuda):
+    """The decay rates a trained Mamba-2 reaches (a_h down to -16, dt up to
+    1: a chunk's cum spans hundreds, so exp(cum_i - cum_j) underflows
+    across the chunk and a factorised decay would meet inf times 0): y and
+    the state finite and within the bar of the plain version."""
+    rng = np.random.default_rng(9)
+    B, S, H, P, G, N = 2, 384, 4, 64, 1, 128
+    x, _, _, b, c = ssd_inputs(9, B, S, H, P, G, N, torch.float32, cuda)
+    dt = torch.from_numpy(rng.uniform(0.001, 1.0, (B, S, H)).astype(
+        np.float32)).to(cuda)
+    a = torch.from_numpy(-rng.uniform(1.0, 16.0, (H,)).astype(
+        np.float32)).to(cuda)
+    y, st = ssd_kernel.ssd_scan(x, dt, a, b, c)
+    y_p, st_p = ssd_ref.ssd_scan_plain(x, dt, a, b, c)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    assert rel_max(y, y_p) < 1e-4 and rel_max(st, st_p) < 1e-4
 
 
 def test_ssd_kernel_bf16_and_strided_views(cuda):
@@ -627,24 +691,47 @@ def test_ssd_kernel_bf16_and_strided_views(cuda):
     assert not xs.is_contiguous()
     y_v, st_v = ssd_kernel.ssd_scan(xs, dt, a, bs, cs)
     assert rel_max(y_v, y32) < 1e-4 and rel_max(st_v, st32) < 1e-4
+    # a view whose rows are not 16-byte aligned takes the element copies
+    odd = torch.cat([wide[..., :1], wide], dim=-1)[..., 1:]
+    y_o, st_o = ssd_kernel.ssd_scan(odd[..., :256].reshape(2, 256, 4, 64),
+                                    dt, a,
+                                    odd[..., 256:384].reshape(2, 256, 1, 128),
+                                    odd[..., 384:].reshape(2, 256, 1, 128))
+    assert torch.equal(y_o, y_v) and torch.equal(st_o, st_v)
+
+
+def test_ssd_passes_fit_two_blocks_an_sm(cuda):
+    """Passes A and C ask for little enough shared memory that two of
+    their blocks share an H100 SM (233,472 bytes, 1 KB of it reserved a
+    block) at the prefill's main shape, in f32 and bf16; C B^T fits one
+    block's 227 KB."""
+    lib = ssd_kernel._lib()
+    plan = ssd_kernel.grid_plan(4, 2048, 24, 64, 1, 128, 128)
+    for bf16 in (0, 1):
+        def smem(name):
+            return lib.ssd_smem_bytes(ssd_kernel.PASSES.index(name), bf16,
+                                      plan.Lp, plan.Np, 64)
+        for name in ("ssd_chunk_state", "ssd_chunk_scan"):
+            assert 2 * (smem(name) + 1024) <= 233_472, (name, bf16)
+        assert 0 < smem("ssd_cb") <= 232_448
+        assert smem("ssd_state_pass") == 0
 
 
 def test_ssd_bar_catches_a_missing_state_decay(cuda, tmp_path, monkeypatch):
-    """The 1e-4 bar has teeth on the card: a copy of the kernel that
-    carries the state across chunks without its exp(cum_L) decay misses
-    the plain version by orders of magnitude, where the kernel passes."""
+    """The 1e-4 bar has teeth on the card: a copy of the kernel whose chain
+    over chunks (pass B) carries the state without its exp(cum_L) decay
+    misses the plain version by orders of magnitude, where the kernel
+    passes."""
     src = (build.CSRC / "ssd_scan.cu").read_text()
     decay = "const float decay = expf(cum_L);"
     assert src.count(decay) == 1
     (tmp_path / "ssd.cu").write_text(src.replace(
         decay, "const float decay = 1.f;"))
     so = tmp_path / "libssd.so"
-    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(so),
-                    str(tmp_path / "ssd.cu")], check=True,
-                   capture_output=True)
-    broken = ctypes.CDLL(str(so))
-    broken.ssd_scan.argtypes = ssd_kernel._ARGTYPES
-    broken.ssd_scan.restype = ctypes.c_int
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I",
+                    str(build.CSRC), "-o", str(so), str(tmp_path / "ssd.cu")],
+                   check=True, capture_output=True)
+    broken = ssd_kernel._bind(ctypes.CDLL(str(so)))
     args = ssd_inputs(6, 2, 512, 4, 64, 1, 128, torch.float32, cuda)
     y_p, st_p = ssd_ref.ssd_scan_plain(*args)
     y, st = ssd_kernel.ssd_scan(*args)

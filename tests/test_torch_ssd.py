@@ -12,13 +12,23 @@
   the reference's gradient bar), also at a ragged S against the JAX
   oracle's VJP, and a check that the backward runs the chunked plain
   version and never the sequential oracle;
-* the dispatch and the CUDA wrapper's refusals, and a planted fault that
-  shows the 1e-4 bar has teeth.
+* the dispatch and the CUDA wrapper's refusals and grid plan, and a
+  planted fault that shows the 1e-4 bar has teeth;
+* ``ssd_scan_passes`` (the CUDA kernel's chunk-parallel passes) against
+  the JAX kernel on the sweep (1e-4), at a ragged S against the JAX
+  oracle, and its entering states against the oracle's state at each
+  chunk boundary; the same passes with every product split into three
+  TF32 products (``split_tf32_mm``, as the kernel's tensor cores take
+  them) within 1e-4 of the JAX kernel, where one TF32 product misses; the
+  same split into bf16 parts (``split_bf16_mm``, the arithmetic the
+  bound of ``chip_smoke.py`` assumes) within 1e-4 too, for f32 and bf16
+  inputs, where one bf16 product misses.
 
 The CUDA kernel itself is held against the plain version on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
 
+import functools
 import inspect
 
 import jax
@@ -238,11 +248,143 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
         ssd_kernel.ssd_scan(*torch_args(inputs(18, 1, 64, 3, 16, 2, 16)))
 
 
-def test_pick_columns_fills_the_card():
-    """P splits over blocks only when B x H leaves multiprocessors idle."""
-    assert ssd_kernel.pick_columns(4, 24, 64, 128, 128, 132) == 64
-    assert ssd_kernel.pick_columns(1, 24, 64, 128, 128, 132) == 16
-    assert ssd_kernel.pick_columns(1, 2, 16, 64, 16, 132) == 16
+def test_grid_plan_fills_the_card():
+    """Passes A and C take one block per (b, chunk, head, 64 columns of P):
+    1,536 blocks at the prefill's main shape (96 before the passes) and
+    3,072 at B 1 x S 16384; C B^T takes one block per (b, chunk, group,
+    pair of row tiles q and Lp/16 - 1 - q)."""
+    plan = ssd_kernel.grid_plan(4, 2048, 24, 64, 1, 128, 128)
+    assert (plan.L, plan.Lp, plan.Np, plan.nc, plan.p_slices) == (
+        128, 128, 128, 16, 1)
+    assert plan.blocks == {"ssd_cb": 256, "ssd_chunk_state": 1536,
+                           "ssd_state_pass": 768, "ssd_chunk_scan": 1536}
+    # cum, cb and the states: 12.6 MB of states, 4.2 MB of cb
+    assert plan.scratch_bytes == 4 * (4 * 24 * 16 * 128
+                                      + 4 * 16 * 128 * 128
+                                      + 4 * 16 * 24 * 128 * 64)
+    long = ssd_kernel.grid_plan(1, 16384, 24, 64, 1, 128, 128)
+    assert long.blocks["ssd_chunk_scan"] == 3072 and long.nc == 128
+    # padding: L 77 to 80 rows, N 20 to 32, P 128 in two slices of 64
+    odd = ssd_kernel.grid_plan(2, 77, 4, 128, 2, 20, 128)
+    assert (odd.Lp, odd.Np, odd.nc, odd.p_slices) == (80, 32, 1, 2)
+    assert odd.blocks["ssd_chunk_scan"] == 2 * 1 * 4 * 2
+    assert odd.blocks["ssd_cb"] == 2 * 1 * 2 * 3     # row-tile pairs
+    assert ssd_kernel.PASSES == ("ssd_cb", "ssd_chunk_state",
+                                 "ssd_state_pass", "ssd_chunk_scan")
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_SWEEP)
+def test_passes_match_jax_kernel(B, S, H, P, G, N, chunk):
+    """The kernel's passes compute the TPU kernel's function."""
+    arrays = inputs(S + N + chunk, B, S, H, P, G, N)
+    want_y, want_st = jax_ssd_scan(*map(jnp.asarray, arrays), chunk=chunk,
+                                   interpret=True)
+    got = ssd_ref.ssd_scan_passes(*torch_args(arrays), chunk=chunk)
+    L = min(chunk, S)
+    assert got.y.shape == (B, S, H, P) and got.y.dtype == torch.float32
+    assert got.cum.shape == (B, H, S // L, L)
+    assert got.cb.shape == (B, S // L, G, L, L)
+    assert got.states.shape == (B, S // L, H, N, P)
+    assert rel(got.y, want_y) < BAR
+    assert rel(got.final_state, want_st) < BAR
+
+
+def test_passes_at_ragged_s_match_jax_oracle():
+    arrays = inputs(24, 2, 200, 4, 16, 2, 16)
+    want_y, want_st = jax_ssd_ref(*map(jnp.asarray, arrays))
+    got = ssd_ref.ssd_scan_passes(*torch_args(arrays), chunk=64)
+    assert got.y.shape == (2, 200, 4, 16)
+    assert rel(got.y, want_y) < BAR
+    assert rel(got.final_state, want_st) < BAR
+
+
+@pytest.mark.parametrize("S,chunk", [(128, 32), (200, 64)])
+def test_passes_entering_states_match_oracle(S, chunk):
+    """Pass B's output, the state entering chunk k, is the sequential
+    oracle's state after the first k L positions; its cb is C B^T on and
+    below the diagonal and zero above."""
+    arrays = inputs(25 + S, 1, S, 4, 16, 2, 16)
+    got = ssd_ref.ssd_scan_passes(*torch_args(arrays), chunk=chunk)
+    assert not got.states[:, 0].any()
+    for k in range(1, got.states.shape[1]):
+        _, want = jax_ssd_ref(*(jnp.asarray(a[:, :k * chunk]) if a.ndim > 1
+                                else jnp.asarray(a) for a in arrays))
+        assert rel(got.states[:, k], want) < BAR, k
+    b, c = torch_args(arrays[3:])
+    cb = torch.einsum("bign,bjgn->bgij", c[:, :chunk], b[:, :chunk])
+    assert torch.allclose(got.cb[:, 0], cb.tril(), atol=1e-5)
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """cvt.rna.tf32.f32 keeps 10 mantissa bits, rounding ties away from
+    zero; the low 13 bits of the result are 0."""
+    ulp = 2.0 ** -10
+    v = torch.tensor([1.0, 1 + ulp / 2, 1 + 3 * ulp / 2, -(1 + ulp / 2),
+                      1 + ulp / 4, 1 + 3 * ulp / 4, -7.5])
+    want = torch.tensor([1.0, 1 + ulp, 1 + 2 * ulp, -(1 + ulp), 1.0,
+                         1 + ulp, -7.5])
+    got = ssd_ref.tf32_round(v)
+    assert torch.equal(got, want)
+    rng = np.random.default_rng(26)
+    x = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    hi = ssd_ref.tf32_round(x)
+    lo = ssd_ref.tf32_round(x - hi)
+    assert (hi.view(torch.int32) & 0x1FFF == 0).all()
+    assert ((x - hi).abs() <= x.abs() * 2.0 ** -11).all()
+    assert ((x - hi - lo).abs() <= x.abs() * 2.0 ** -21).all()
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_SWEEP + [
+    (1, 2048, 1, 64, 1, 128, 128)])
+def test_split_tf32_passes_hold_the_bar(B, S, H, P, G, N, chunk):
+    """The kernel's products split into three TF32 products each hold the
+    1e-4 bar against the JAX kernel: on the sweep, and on one (b, h) of
+    the prefill's main shape (S 2048, N 128, P 64), where one TF32
+    product a pair misses it (about 4e-4), which shows the bar's teeth."""
+    arrays = inputs(27 + S, B, S, H, P, G, N)
+    want_y, want_st = jax_ssd_scan(*map(jnp.asarray, arrays), chunk=chunk,
+                                   interpret=True)
+    split3 = ssd_ref.ssd_scan_passes(
+        *torch_args(arrays), chunk=chunk,
+        mm=functools.partial(ssd_ref.split_tf32_mm, products=3))
+    assert rel(split3.y, want_y) < BAR
+    assert rel(split3.final_state, want_st) < BAR
+    if S == 2048:
+        one = ssd_ref.ssd_scan_passes(
+            *torch_args(arrays), chunk=chunk,
+            mm=functools.partial(ssd_ref.split_tf32_mm, products=1))
+        assert rel(one.y, want_y) > 2 * BAR
+        assert rel(split3.y, want_y) < BAR / 50
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_SWEEP + [
+    (1, 2048, 1, 64, 1, 128, 128)])
+@pytest.mark.parametrize("bf16_inputs", [False, True])
+def test_split_bf16_passes_hold_the_bar(B, S, H, P, G, N, chunk,
+                                        bf16_inputs):
+    """Every product split into bf16 parts (three bf16 products for two
+    f32 operands, two where one operand is bf16, one for C B^T of bf16
+    inputs) holds the 1e-4 bar against the JAX kernel: the fastest
+    arithmetic known to hold it, whose rate ``chip_smoke.py``'s bound
+    takes.  On one (b, h) of the prefill's main shape one bf16 product a
+    pair misses the bar by far."""
+    arrays = list(inputs(28 + S, B, S, H, P, G, N))
+    if bf16_inputs:
+        for i in (0, 3, 4):
+            arrays[i] = np.asarray(torch.from_numpy(arrays[i]).to(
+                torch.bfloat16).float())
+    want_y, want_st = jax_ssd_scan(*map(jnp.asarray, arrays), chunk=chunk,
+                                   interpret=True)
+    split3 = ssd_ref.ssd_scan_passes(
+        *torch_args(arrays), chunk=chunk,
+        mm=functools.partial(ssd_ref.split_bf16_mm, products=3))
+    assert rel(split3.y, want_y) < BAR
+    assert rel(split3.final_state, want_st) < BAR
+    if S == 2048:
+        one = ssd_ref.ssd_scan_passes(
+            *torch_args(arrays), chunk=chunk,
+            mm=functools.partial(ssd_ref.split_bf16_mm, products=1))
+        assert rel(one.y, want_y) > 10 * BAR
 
 
 def test_bar_catches_a_missing_state_decay():
