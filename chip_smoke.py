@@ -140,6 +140,39 @@ from ``SEED``, f32 parameters cast once to bf16 compute) adds, after (i):
     requests): no deadline miss, an empty queue, streams bit-identical to
     solo re-decodes; ms per token per bucket, tokens/s, and the idle share
     of one decode step.
+
+The BSP layer and the paper's second evaluation add, after (l), under
+phase 6's fitted (g, l) of the ``"vp"`` link:
+
+(m) every BSP collective through ``exec_`` at p = 8 on f32 data of
+    2^22 elements a process (128 MiB stacked): allgather, alltoall,
+    broadcast, reduce, allreduce (also with ``method="direct"``,
+    ``"bruck"`` and ``"valiant"`` with a provisioned scratch, and on the
+    int8 wire), exscan, and max/min allreduces of int32 data; then the
+    allreduce at 2^25 (1 GiB stacked).  Each against a plain torch
+    computation on the card (bit-equal for int32 and for the collectives
+    that move data without summing it, 1e-6 relative for f32 sums, 0.05
+    on the int8 wire), each ledger's methods and rounds (Bruck 3 rounds,
+    Valiant 15, twice); CUDA-event and host milliseconds, the ledger's
+    ``h_bytes``, wire bytes and predicted milliseconds, and measured over
+    predicted (the paper's model compliance, on this card);
+(n) PageRank (paper §4.3) on ``rmat_graph(2^22, 16 * 2^22, seed=1)``
+    (Graph500's R-MAT parameters and edge factor) over p = 8 through
+    ``lpf_pagerank`` at the JAX package's defaults (alpha 0.85, tol 1e-7,
+    max_iter 200), and again through ``hook`` from a host function that
+    holds the shards on the card (the paper's Algorithm 3): ranks within
+    1e-3 (relative to the largest) of the float64 oracle, rank mass 1
+    within 1e-4, the hooked run's ranks and iterations equal to the first
+    run's bit for bit (the segment sum is deterministic), the ledger
+    ``pr.init.rs``/``.ag``, ``pr.halo`` (``direct``,
+    ``h_bytes == g.h_bytes()``), ``pr.reduce.rs``/``.ag``; the host build
+    time of the graph, iterations and residual, the hooked run's
+    milliseconds, one iteration's (median of 10) against its predicted
+    communication, its ``torch.profiler`` breakdown and idle share, and
+    ``dataflow_pagerank``'s ms an iteration on the same card (CUDA
+    events, 25 iterations less 5, the edges on the card).  Neither
+    phase launches a kernel of ``csrc/``: the ``kernels`` line keeps its
+    five rows.
 """
 
 from __future__ import annotations
@@ -1271,6 +1304,293 @@ def mamba_phases(rng, dev) -> dict:
     return out
 
 
+# (m) the BSP collectives at p = 8 over f32: 16 MiB a process (2^22
+# elements, the JAX package's benchmarks/allreduce.py's largest size and
+# the order of a DDP gradient bucket), and the allreduce at 2^25 (1 GiB
+# stacked, about half of one llama3.2-1b layer's gradient)
+COLL_N, COLL_N_BIG = 1 << 22, 1 << 25
+COLL_F32_BAR, COLL_INT8_BAR = 1e-6, 0.05
+
+# (n) PageRank, the paper's §4.3, on Graph500's R-MAT (a, b, c = 0.57,
+# 0.19, 0.19, rmat_graph's defaults) at scale 22 and edge factor 16
+PR_SCALE, PR_EDGE_FACTOR, PR_SEED = 22, 16, 1
+PR_BAR, PR_MASS_BAR = 1e-3, 1e-4
+
+
+def fit_link(dev) -> dict:
+    """6: (g, l) of the virtual-process link from timed total exchanges of
+    growing h at p = 8, each superstep synchronised on its own, staging
+    and planning included (T(h) = g*h + l, the paper's Table-3
+    estimators: g from the two ends of the sweep, l as the time of the
+    smallest exchange less its g*h)."""
+    import torch
+    from repro_torch import core as lpf
+    ctx = lpf.LPFContext(P_MAIN, device=dev)
+    p = P_MAIN
+    hs, ts = [], []
+    for w in (1, 64, 1024, 16384, 1 << 18, 1 << 21):
+        ctx.resize_memory_register(2)
+        ctx.resize_message_queue(p * p)
+        a = ctx.register_global("a", torch.ones(p, p * w, device=dev))
+        b = ctx.register_global("b", torch.zeros(p, p * w, device=dev))
+        table = [(s, d, a, d * w, b, s * w, w)
+                 for s in range(p) for d in range(p)]
+
+        def exchange():
+            ctx.put_msgs(table)
+            ctx.sync(label="probe")
+
+        ms = host_ms(exchange, reps=25)
+        h = (p - 1) * w * 4
+        hs.append(h)
+        ts.append(ms * 1e-3)
+        print(f"total exchange h={h} B: {ms * 1e3:.2f} us", flush=True)
+        ctx.deregister(a)
+        ctx.deregister(b)
+    g = (ts[-1] - ts[0]) / (hs[-1] - hs[0])
+    l = ts[0] - g * hs[0]
+    frac = (p - 1) / p
+    fit = dict(g_s_per_byte=float(g), l_s=float(l), p=p,
+               link_bw=float(frac / g), link_latency=float(l / math.log2(p)),
+               points=list(zip(hs, ts)))
+    print("link fit " + json.dumps(fit), flush=True)
+    check(g > 0 and l > 0, f"link fit g={g} l={l}")
+    return fit
+
+
+def fitted_machine(lpf, fit: dict):
+    """Phase 6's (g, l) of the ``"vp"`` link as the BSP machine."""
+    return lpf.LPFMachine(p=fit["p"], g=fit["g_s_per_byte"], l=fit["l_s"],
+                          r=1.0 / FP32_FLOPS)
+
+
+def collectives_phase(dev, fit: dict, n: int = COLL_N,
+                      n_big: int = COLL_N_BIG) -> list:
+    """(m): every collective at p = 8 against a plain torch computation on
+    the card, its ledger's methods and rounds, device and host ms, and
+    measured over the fitted machine's predicted seconds."""
+    import torch
+    from repro_torch import bsp
+    from repro_torch import core as lpf
+    p = P_MAIN
+    machine = fitted_machine(lpf, fit)
+    rng = np.random.default_rng([SEED, 6])
+    x = torch.from_numpy(rng.standard_normal((p, n), dtype=np.float32)).to(dev)
+    xi = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, (p, n),
+                                       dtype=np.int32)).to(dev)
+    attrs = lpf.SyncAttributes
+    total = x.sum(0, keepdim=True)
+
+    def rows(v):
+        return v.expand(p, -1)
+
+    # name, input, call, plain result, bar (None: bit-equal), ledger
+    fused_pair = [("fused_rs", 1), ("fused_ag", 1)]
+    cases = [
+        ("allgather", x, lambda ctx, a: bsp.allgather(ctx, a),
+         lambda: rows(x.reshape(1, -1)), None, [("fused_ag", 1)]),
+        ("alltoall", x, lambda ctx, a: bsp.alltoall(ctx, a),
+         lambda: x.view(p, p, -1).transpose(0, 1).reshape(p, -1), None,
+         [("fused", 1)]),
+        ("broadcast", x, lambda ctx, a: bsp.broadcast(ctx, a, root=3),
+         lambda: rows(x[3:4]), None, [("fused_scatter", 1), ("fused_ag", 1)]),
+        ("reduce", x, lambda ctx, a: bsp.reduce(ctx, a, root=2),
+         lambda: torch.where(torch.arange(p, device=dev)[:, None] == 2,
+                             total, torch.zeros_like(x)), COLL_F32_BAR,
+         [("fused_rs", 1), ("fused_gather", 1)]),
+        ("allreduce", x, lambda ctx, a: bsp.allreduce(ctx, a),
+         lambda: rows(total), COLL_F32_BAR, fused_pair),
+        ("allreduce_direct", x, lambda ctx, a: bsp.allreduce(
+            ctx, a, attrs=attrs(method="direct")), lambda: rows(total),
+         COLL_F32_BAR, [("direct", 7), ("direct", 7)]),
+        ("allreduce_bruck", x, lambda ctx, a: bsp.allreduce(
+            ctx, a, attrs=attrs(method="bruck")), lambda: rows(total),
+         COLL_F32_BAR, [("bruck", 3), ("bruck", 3)]),
+        ("allreduce_valiant", x, lambda ctx, a: bsp.allreduce(
+            ctx, a, attrs=attrs(method="valiant")), lambda: rows(total),
+         COLL_F32_BAR, [("valiant", 15), ("valiant", 15)]),
+        ("allreduce_int8", x, lambda ctx, a: bsp.allreduce(
+            ctx, a, attrs=attrs(compress=lpf.CompressSpec(bits=8))),
+         lambda: rows(total), COLL_INT8_BAR, [("fused", 1), ("fused_ag", 1)]),
+        ("allreduce_max_int32", xi, lambda ctx, a: bsp.allreduce(
+            ctx, a, op=torch.maximum), lambda: rows(xi.amax(0, keepdim=True)),
+         None, fused_pair),
+        ("allreduce_min_int32", xi, lambda ctx, a: bsp.allreduce(
+            ctx, a, op=torch.minimum), lambda: rows(xi.amin(0, keepdim=True)),
+         None, fused_pair),
+        ("exscan", x, lambda ctx, a: bsp.exscan(ctx, a),
+         lambda: torch.cat([torch.zeros_like(x[:1]), x.cumsum(0)[:-1]]),
+         COLL_F32_BAR, [("fused_ag", 1)]),
+    ]
+    out = [collective_row(lpf, machine, *case) for case in cases]
+    del x, xi, total
+    torch.cuda.empty_cache()
+    xb = torch.from_numpy(rng.standard_normal((p, n_big),
+                                              dtype=np.float32)).to(dev)
+    out.append(collective_row(
+        lpf, machine, "allreduce", xb, lambda ctx, a: bsp.allreduce(ctx, a),
+        lambda: rows(xb.sum(0, keepdim=True)), COLL_F32_BAR, fused_pair))
+    del xb
+    torch.cuda.empty_cache()
+    return out
+
+
+def collective_row(lpf, machine, name, a, call, plain, bar, want) -> dict:
+    """One (m) case: run through ``exec_`` on the card, check values and
+    ledger, time it."""
+    import torch
+    p = P_MAIN
+
+    def spmd(ctx, s, p_, arg):
+        # Valiant's intermediates hold at most p chunks of n/p (phase 1
+        # of the exchange and the allgather alike): n elements a process
+        ctx.resize_message_queue(p * p, valiant_payload=arg.shape[1])
+        return call(ctx, arg)
+
+    def run():
+        return lpf.exec_(p, spmd, a, device=a.device)
+
+    got, led = lpf.exec_(p, spmd, a, device=a.device, return_ledger=True)
+    ref = plain()
+    torch.cuda.synchronize()
+    if bar is None:
+        err = 0.0 if torch.equal(got, ref) else float("inf")
+    else:
+        err = ((got.double() - ref.double()).abs().max()
+               / ref.double().abs().max()).item()
+    recs = [(r.method, r.rounds) for r in led.records]
+    pred_s = led.predicted_seconds(machine)
+    row = dict(name=name, n=int(a.shape[1]), dtype=str(a.dtype)[6:],
+               rel_err=err, bar=bar, ledger=recs, h_bytes=led.h_bytes,
+               wire_bytes=led.wire_bytes, predicted_ms=pred_s * 1e3)
+    del got, ref
+    row["device_ms"] = cuda_ms(run, reps=10, warmup=2)
+    row["host_ms"] = host_ms(run, reps=5, warmup=1)
+    row["measured_over_predicted"] = row["host_ms"] / row["predicted_ms"]
+    row["device_over_predicted"] = row["device_ms"] / row["predicted_ms"]
+    print("collective " + json.dumps(row), flush=True)
+    check(err <= (bar or 0.0), f"{name} n={row['n']}: error {err} > {bar}")
+    check(recs == want, f"{name}: ledger {recs}, want {want}")
+    return row
+
+
+def pagerank_phase(dev, fit: dict, scale: int = PR_SCALE) -> dict:
+    """(n): PageRank on R-MAT at ``scale`` over p = 8 through
+    ``lpf_pagerank`` and again through ``hook`` from a host function that
+    holds the shards on the card, against the float64 oracle."""
+    import torch
+    from repro_torch import core as lpf
+    from repro_torch.algorithms import (dataflow_pagerank, lpf_pagerank,
+                                        pagerank_spmd, partition_graph,
+                                        rmat_graph, shard_tensors,
+                                        sparse_reference_pagerank)
+    from repro_torch.algorithms import pagerank as pr
+    p, n = P_MAIN, 1 << scale
+    machine = fitted_machine(lpf, fit)
+    t0 = time.perf_counter()
+    edges = rmat_graph(n, PR_EDGE_FACTOR * n, seed=PR_SEED)
+    t1 = time.perf_counter()
+    g = partition_graph(edges, n, p)
+    t2 = time.perf_counter()
+    out = dict(scale=scale, n=n, edges=int(edges.shape[0]), p=p,
+               nnz_max=g.nnz_max, halo_max=g.halo_max, msgs=len(g.msgs),
+               h_bytes=g.h_bytes(), rmat_s=t1 - t0, partition_s=t2 - t1,
+               build_s=t2 - t0)
+    print("pagerank graph " + json.dumps(out), flush=True)
+
+    # the run through exec_, the JAX package's defaults
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r, iters, res, led = lpf_pagerank(p, g, device=dev, return_ledger=True)
+    torch.cuda.synchronize()
+    out.update(iters=iters, residual=res,
+               exec_s=time.perf_counter() - t0)
+    ref, ref_iters = sparse_reference_pagerank(edges, n, device=dev)
+    err = ((r.double() - ref).abs().max() / ref.max()).item()
+    mass = abs(r.double().sum().item() - 1.0)
+    labels = [(x.label, x.method) for x in led.records]
+    halo = [x for x in led.records if x.label == "pr.halo"]
+    out.update(rel_err=err, mass_err=mass, oracle_iters=ref_iters,
+               ledger=[(x.label, x.method, x.rounds, x.h_bytes)
+                       for x in led.records])
+    check(bool(torch.isfinite(r).all()) and r.shape == (n,),
+          "pagerank ranks shape/finite")
+    check(err < PR_BAR, f"pagerank rel err {err} >= {PR_BAR}")
+    check(mass < PR_MASS_BAR, f"pagerank rank mass off by {mass}")
+    check([l for l, _ in labels] == ["pr.init.rs", "pr.init.ag", "pr.halo",
+                                     "pr.reduce.rs", "pr.reduce.ag"],
+          f"pagerank ledger {labels}")
+    check(halo[0].method == "direct" and halo[0].h_bytes == g.h_bytes(),
+          f"pr.halo {halo[0]}")
+    del ref
+
+    # Algorithm 3: a host function already holding the shards on the
+    # card hooks the unmodified PageRank
+    shards = shard_tensors(g, device=dev)
+
+    def host_analytics():
+        local_nnz = (shards["vals"] > 0).sum(1)
+        rh, ih, resh = lpf.hook(p, lambda ctx, s, p_, a: pagerank_spmd(
+            ctx, g, a), shards, device=dev)
+        return rh.reshape(-1), ih, float(resh[0]), local_nnz
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rh, ih, resh, nnz = host_analytics()
+    torch.cuda.synchronize()
+    hook_s = time.perf_counter() - t0
+    diff = ((rh - r).abs().max() / r.max()).item()
+    out.update(hook_iters=ih, hook_residual=resh, hook_s=hook_s,
+               hook_rel_diff=diff, run_ms_per_iter=hook_s * 1e3 / ih)
+    check(int(nnz.sum()) == edges.shape[0], "hooked run's nonzeros")
+    # the segment sum is deterministic: the same ranks, bit for bit
+    check(torch.equal(rh, r) and ih == iters,
+          f"hooked run: {ih} iterations, ranks differ by {diff}")
+
+    # one iteration alone: wall time, predicted communication, profile
+    spmv = pr._SpMV(g, shards)
+    sh = dict(shards, pack_idx=shards["pack_idx"].long())
+    r2 = rh.view(p, -1)
+    dmass = torch.zeros(p, device=dev)
+
+    def one_iteration():
+        sub = lpf.LPFContext(p, device=dev)
+        with sub.program("pr.iter"):
+            pr._iteration(sub, g, spmv, sh, r2, dmass, 0.85,
+                          lpf.LPF_SYNC_DEFAULT)
+        return sub.ledger
+
+    it_led = one_iteration()
+    iter_ms = host_ms(one_iteration, reps=10, warmup=2)
+    pred_s = it_led.predicted_seconds(machine)
+    out.update(iteration_ms=iter_ms, iteration_predicted_ms=pred_s * 1e3,
+               iteration_measured_over_predicted=iter_ms / (pred_s * 1e3))
+    out["iteration_profile"] = profile_families("pagerank iteration",
+                                                one_iteration, iter_ms)
+
+    # the paper's "pure Spark" baseline on the same card, the edges on
+    # the card: the difference of 25 and 5 iterations leaves out its
+    # set-up (out-degrees)
+    e_dev = torch.from_numpy(edges).to(dev)
+    t_few = cuda_ms(lambda: dataflow_pagerank(e_dev, n, 5, device=dev),
+                    reps=5, warmup=1)
+    t_many = cuda_ms(lambda: dataflow_pagerank(e_dev, n, 25, device=dev),
+                     reps=5, warmup=1)
+    out["dataflow_ms_per_iter"] = (t_many - t_few) / 20
+    del e_dev
+    print("pagerank " + json.dumps(out), flush=True)
+    print(f"pagerank scale {scale}: {iters} iterations (hooked {ih}), "
+          f"residual {res:.3e}, {iter_ms:.3f} ms an iteration (predicted "
+          f"communication {pred_s * 1e3:.3f}; the hooked run "
+          f"{hook_s * 1e3:.1f} ms, set-up included), dataflow "
+          f"{out['dataflow_ms_per_iter']:.3f} ms an iteration; graph "
+          f"{out['build_s']:.1f} s on the host", flush=True)
+    del shards, spmv, sh, r, rh
+    torch.cuda.empty_cache()
+    return out
+
+
+
 def profile_bsp_fft(bsp_fft, x, wall_ms: float) -> dict:
     """Where one ordered ``bsp_fft`` call's time goes: device time of each
     kernel (``torch.profiler``, device-side events only), and the device's
@@ -1446,39 +1766,7 @@ def main() -> int:
     profile_bsp_fft(bsp_fft, x, main_rows[0]["e2e_ms"])
 
     # 6. (g, l) of the virtual-process link ----------------------------------
-    ctx = lpf.LPFContext(P_MAIN, device="cuda")
-    p = P_MAIN
-    hs, ts = [], []
-    for w in (1, 64, 1024, 16384, 1 << 18, 1 << 21):
-        ctx.resize_memory_register(2)
-        ctx.resize_message_queue(p * p)
-        a = ctx.register_global("a", torch.ones(p, p * w, device=dev))
-        b = ctx.register_global("b", torch.zeros(p, p * w, device=dev))
-        table = [(s, d, a, d * w, b, s * w, w)
-                 for s in range(p) for d in range(p)]
-
-        def exchange():
-            ctx.put_msgs(table)
-            ctx.sync(label="probe")
-
-        # each superstep timed on its own, staging and barrier included
-        ms = host_ms(exchange, reps=25)
-        h = (p - 1) * w * 4
-        hs.append(h)
-        ts.append(ms * 1e-3)
-        print(f"total exchange h={h} B: {ms * 1e3:.2f} us", flush=True)
-        ctx.deregister(a)
-        ctx.deregister(b)
-    # the paper's Table-3 estimators: g from the two ends of the sweep,
-    # l as the time of the smallest exchange less its g*h
-    g = (ts[-1] - ts[0]) / (hs[-1] - hs[0])
-    l = ts[0] - g * hs[0]
-    frac = (p - 1) / p
-    fit = dict(g_s_per_byte=float(g), l_s=float(l), p=p,
-               link_bw=float(frac / g), link_latency=float(l / math.log2(p)),
-               points=list(zip(hs, ts)))
-    print("link fit " + json.dumps(fit), flush=True)
-    check(g > 0 and l > 0, f"link fit g={g} l={l}")
+    fit = fit_link(dev)
 
     # (c)-(f) the llama3.2-1b serving path ---------------------------------
     serving = serving_phases(np.random.default_rng([SEED, 2]), dev)
@@ -1492,6 +1780,10 @@ def main() -> int:
     ssd_rows = ssd_phase(np.random.default_rng([SEED, 4]), dev,
                          built["ssd_scan"].log)
     mamba = mamba_phases(np.random.default_rng([SEED, 5]), dev)
+
+    # (m) the BSP collectives, (n) PageRank ----------------------------------
+    collectives_phase(dev, fit)
+    pagerank_phase(dev, fit)
 
     # 7. result lines ----------------------------------------------------------
     big = [r for r in rows if r["n"] == N_MAIN // P_MAIN and not r["inverse"]][0]

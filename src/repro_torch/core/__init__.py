@@ -31,7 +31,7 @@ from .machine import H100_SXM, HardwareModel, LinkModel, LPFMachine, probe
 from .memslot import Slot, SlotRegistry, replicate
 from .program import ProgramStep, dependency_cone
 from .sync import (CacheStats, EXECUTED_METHODS, Msg, PlanCache, RoundPlan,
-                   SuperstepPlan, conflict_free, execute_plan,
+                   SuperstepPlan, conflict_free, execute_plan, execute_sync,
                    find_conflict, global_plan_cache, plan_cost,
                    plan_signature, plan_sync)
 
@@ -49,6 +49,7 @@ __all__ = [
     "Slot", "SlotRegistry", "replicate", "Msg",
     "PlanCache", "CacheStats", "RoundPlan", "SuperstepPlan",
     "plan_sync", "plan_signature", "plan_cost", "execute_plan",
+    "execute_sync",
     "EXECUTED_METHODS", "global_plan_cache",
     "ProgramStep",
 ]

@@ -10,9 +10,8 @@ guarantees for better effective (g, l):
 * ``reduce_op``   — accumulating-put supersteps: overlapping destination
                     writes *combine* elementwise (``sum``/``max``/``min``)
                     instead of CRCW-arbitrating.
-* ``compress``    — quantise payloads (int8) before the wire.  The
-                    planner prices it; this port's executor does not
-                    implement it yet and refuses such supersteps.
+* ``compress``    — quantise float payloads (int8) before the wire
+                    (``direct``, ``fused`` and ``fused_ag`` supersteps).
 * ``stale``       — tolerated staleness in supersteps; interpreted by an
                     outer loop, not by core sync.
 """

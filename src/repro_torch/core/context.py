@@ -86,6 +86,8 @@ class LPFContext:
         self.ledger = CostLedger()
         self._queue: List[Msg] = []
         self._queue_capacity = 0
+        #: the Valiant scratch slot (``resize_message_queue``)
+        self._scratch: Optional[Slot] = None
         self._on_hold = False
         self._rec_depth = 0
         self._rec_labels: List[str] = []
@@ -110,14 +112,35 @@ class LPFContext:
     # ------------------------------------------------------------------
     # capacity management: lpf_resize_message_queue / _memory_register
     # ------------------------------------------------------------------
-    def resize_message_queue(self, n_msgs: int) -> None:
-        """Reserve queue capacity (O(N) as per the paper)."""
+    def resize_message_queue(self, n_msgs: int, valiant_payload: int = 0,
+                             payload_dtype=torch.float32) -> None:
+        """Reserve queue capacity (O(N) as per the paper).  When
+        ``valiant_payload`` > 0 a scratch slot of that many elements per
+        process is provisioned for two-phase routing."""
         if n_msgs < 0:
             raise LPFFatalError("negative queue capacity")
         self._queue_capacity = n_msgs
+        if valiant_payload <= 0:
+            return
+        if self._rec_pending:
+            # re-provisioning replaces the scratch slot recorded supersteps
+            # may reference — execute them against the current one first
+            self._flush_program()
+        if self._scratch is not None:
+            # keeping the stale registration would leak register capacity
+            # on every resize call
+            self.registry.deregister(self._scratch)
+            self._scratch = None
+        if self.registry.capacity < self.registry.n_active + 1:
+            self.registry.resize(self.registry.n_active + 1)
+        self._scratch = self.registry.register(
+            "__lpf_valiant_scratch",
+            torch.zeros(self.p, valiant_payload, dtype=payload_dtype,
+                        device=self.device), "global")
 
     def resize_memory_register(self, n_slots: int) -> None:
-        self.registry.resize(n_slots)
+        reserve = 1 if self._scratch is not None else 0
+        self.registry.resize(n_slots + reserve)
 
     def with_capacity(self, fn: Callable[["LPFContext"], Any], *,
                       max_attempts: int = 3, grow: float = 2.0) -> Any:
@@ -263,8 +286,10 @@ class LPFContext:
 
     def _execute(self, msgs: Sequence[Msg], attrs: SyncAttributes,
                  label: str) -> SuperstepCost:
-        plan = self.plan_cache.get_or_plan(msgs, self.p, attrs)
-        cost = execute_plan(plan, self.registry, msgs, attrs, label)
+        plan = self.plan_cache.get_or_plan(msgs, self.p, attrs,
+                                           self._scratch)
+        cost = execute_plan(plan, self.registry, msgs, attrs, label,
+                            scratch=self._scratch)
         self.ledger.add(cost)
         return cost
 
@@ -371,6 +396,62 @@ class LPFContext:
                            for m in self._rec_marks]
         self._execute_steps(steps)
         self._drain_deferred_dereg()
+
+    # ------------------------------------------------------------------
+    # iterated programs
+    # ------------------------------------------------------------------
+    def compile_loop(self, body: Callable[["LPFContext", Any], Any],
+                     carry: Any, *, n_iters: Optional[int] = None,
+                     cond: Optional[Callable[[Any], Any]] = None,
+                     label: str = "loop",
+                     collect: Optional[Callable[[Any], Any]] = None) -> Any:
+        """Run an iterated LPF program: ``body(sub_ctx, carry) -> carry``
+        once an iteration, ``n_iters`` times or while ``cond(carry)`` is
+        true (read on the host once an iteration).  Exactly one of
+        ``n_iters``/``cond`` must be given.
+
+        Each iteration runs against a fresh sub-context on this context's
+        device, hardware and plan cache, whose supersteps record as one
+        program (``sub.program(label)``).  As in the JAX package, which
+        traces the body once, the first iteration's superstep costs are
+        appended to this context's ledger once (the BSP model prices one
+        iteration; a loop that runs no iteration appends none).  With
+        ``collect`` (counted loops only) each iteration's
+        ``collect(carry)``, a tensor, is stacked on a new leading axis and
+        ``(final_carry, stacked)`` is returned; otherwise the final
+        carry."""
+        if (n_iters is None) == (cond is None):
+            raise LPFFatalError(
+                "compile_loop needs exactly one of n_iters= or cond=")
+        if collect is not None and cond is not None:
+            raise LPFFatalError(
+                "collect= requires a counted loop (n_iters=): a "
+                "conditional loop has no fixed trip count to stack into")
+        self._require_active()
+        first: List[SuperstepCost] = []
+        ys: List[torch.Tensor] = []
+
+        def one(c):
+            sub = LPFContext(self.p, device=self.device,
+                             hardware=self.hardware,
+                             plan_cache=self.plan_cache)
+            with sub.program(label):
+                out = body(sub, c)
+            if not first:
+                first.extend(sub.ledger.records)
+                for cost in first:
+                    self.ledger.add(cost)
+            return out
+
+        if cond is not None:
+            while bool(cond(carry)):
+                carry = one(carry)
+        else:
+            for _ in range(n_iters):
+                carry = one(carry)
+                if collect is not None:
+                    ys.append(collect(carry))
+        return carry if collect is None else (carry, torch.stack(ys))
 
     # ------------------------------------------------------------------
     # introspection: lpf_probe

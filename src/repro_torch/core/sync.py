@@ -17,17 +17,20 @@ stages as in the JAX package:
   signature of ``(p, attributes, message table)`` with slot ids renamed to
   first-occurrence indices.
 * **execute** — :func:`execute_plan` lowers a :class:`SuperstepPlan` to
-  index gathers and scatters over the stacked ``[p, size]`` slot values
-  of the ``p`` virtual processes (:mod:`repro_torch.core.memslot`) and
-  returns the (already predicted) cost.
+  row and column copies, rolls and reductions over the stacked
+  ``[p, size]`` slot values of the ``p`` virtual processes
+  (:mod:`repro_torch.core.memslot`) and returns the (already predicted)
+  cost.
 
-Executor methods ported so far: ``noop``, ``seq`` (p == 1), ``direct``
-(coloured rounds, the uniform-permutation fast path, ``reduce_op``
-combines) and ``fused`` (the canonical total exchange: one permute of the
-``[p_src, p_dst, w]`` block).  The planner plans every method; executing
-``bruck``, ``valiant``, ``fused_ag``, ``fused_rs``, ``fused_scatter``,
-``fused_gather`` or a compressed wire raises :class:`LPFFatalError`
-naming what is missing.
+Every method the planner returns executes: ``noop``, ``seq`` (p == 1),
+``direct`` (coloured rounds, the uniform-permutation fast path,
+``reduce_op`` combines), ``bruck`` (log-p rounds, each a roll of row
+sets along the stacked process axis), ``valiant`` (two ``direct`` phases
+through the context's scratch slot), and the fused patterns ``fused``,
+``fused_ag``, ``fused_rs``, ``fused_scatter`` and ``fused_gather``, each
+one reshape, permute or reduction of the stacked ``[p, size]`` block.
+``attrs.compress`` quantises float payloads to int8 on ``direct``,
+``fused`` and ``fused_ag`` supersteps, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -47,8 +50,8 @@ from .memslot import Slot, SlotRegistry, as_torch_dtype, dtype_name
 
 __all__ = [
     "Msg", "RoundPlan", "SuperstepPlan", "PlanCache", "CacheStats",
-    "plan_sync", "plan_signature", "execute_plan", "plan_cost",
-    "conflict_free", "find_conflict", "global_plan_cache",
+    "plan_sync", "plan_signature", "execute_plan", "execute_sync",
+    "plan_cost", "conflict_free", "find_conflict", "global_plan_cache",
     "EXECUTED_METHODS",
 ]
 
@@ -104,8 +107,6 @@ def _is_floating(dtype) -> bool:
 
 #: elementwise combine functions for accumulating-put supersteps
 _REDUCE_FNS = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
-
-
 
 
 # ==========================================================================
@@ -831,31 +832,85 @@ def global_plan_cache() -> PlanCache:
 
 
 
+
+
 # ==========================================================================
-# Stage 3: EXECUTE — gathers and scatters over the stacked store
+# Stage 3: EXECUTE — row and column views of the stacked store
 # ==========================================================================
+#
+# Every method reads the pre-superstep values (LPF reads observe the state
+# before the superstep) and writes into fresh tensors: a destination is
+# cloned once, written, and set back, so a view taken of any slot value
+# before the writes stays the pre-superstep state.  Payloads move as row
+# and column views of the ``[p, size]`` values; index tensors have length
+# p (or p * p for Bruck's working rows), never the payload's length.
 
-#: plan methods :func:`execute_plan` implements on the stacked store
-EXECUTED_METHODS = frozenset({"noop", "seq", "direct", "fused"})
-
-
-def _segments(starts: Sequence[int], sizes: Sequence[int]) -> np.ndarray:
-    """Concatenated ranges ``[starts[i], starts[i] + sizes[i])``."""
-    starts = np.asarray(starts, np.int64)
-    sizes = np.asarray(sizes, np.int64)
-    begin = np.cumsum(sizes) - sizes            # segment start positions
-    return np.repeat(starts - begin, sizes) + np.arange(int(sizes.sum()))
-
-
-def _index(arr: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(arr).to(device)
+def _index(arr, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(arr, np.int64)).to(device)
 
 
-def _refuse_compress(attrs: SyncAttributes, method: str) -> None:
-    if attrs.compress is not None:
-        raise LPFFatalError(
-            f"compressed wire ({method} superstep with attrs.compress) is "
-            f"not implemented by the virtual-process executor yet")
+def _uniform(values: Sequence[int]) -> Optional[int]:
+    """The common value of ``values``, or None when they differ."""
+    first = values[0]
+    return first if all(v == first for v in values) else None
+
+
+def _fresh(registry: SlotRegistry, slot: Slot) -> torch.Tensor:
+    """A writable copy of the slot's value."""
+    return registry.value(slot).clone(memory_format=torch.contiguous_format)
+
+
+def _windows(val: torch.Tensor, rows: Sequence[int], offs: Sequence[int],
+             w: int) -> torch.Tensor:
+    """``[len(rows), w]``: window ``i`` is ``val[rows[i], offs[i]:+w]``,
+    zero past the end of the slot (the reference's fill mode)."""
+    size = val.shape[1]
+    o = _uniform(offs)
+    if o is not None and o + w <= size:
+        if list(rows) == list(range(val.shape[0])):
+            return val[:, o:o + w]                 # every row: a view
+        return val[_index(rows, val.device), o:o + w]
+    if max(offs) + w > size:
+        val = torch.nn.functional.pad(val, (0, max(offs) + w - size))
+    return val.unfold(1, w, 1)[_index(rows, val.device),
+                                _index(offs, val.device)]
+
+
+def _write_rows(out: torch.Tensor, rows: Sequence[int],
+                offs: Sequence[int], data: torch.Tensor,
+                sizes: Optional[Sequence[int]] = None) -> None:
+    """``out[rows[i], offs[i]:offs[i] + n_i] = data[i, :n_i]`` for distinct
+    rows, ``n_i = sizes[i]`` (default: the width of ``data``)."""
+    if not rows:
+        return
+    sizes = [data.shape[1]] * len(rows) if sizes is None else list(sizes)
+    o, n = _uniform(offs), _uniform(sizes)
+    if o is not None and n is not None:
+        out[_index(rows, out.device), o:o + n] = data[:, :n]
+        return
+    for i, (r, off, k) in enumerate(zip(rows, offs, sizes)):
+        out[r, off:off + k] = data[i, :k]
+
+
+def _quantize(x: torch.Tensor, spec) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 symmetric quantisation along the last axis, one scale a row:
+    ``max|x| / 127 + 1e-30``, round half to even, clip to +-127 (the
+    reference's order of operations, so CPU values agree bit for bit).
+    The division is the product with ``1/127`` that XLA compiles the
+    reference's ``/ 127.0`` into: the two differ in the last bit."""
+    if spec.bits != 8:
+        raise LPFFatalError(f"unsupported compression bits={spec.bits}")
+    scale = x.abs().amax(dim=-1) * (1.0 / 127.0) + 1e-30
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _squeeze_wire(x: torch.Tensor, spec) -> torch.Tensor:
+    """What a compressed wire delivers of ``x``'s rows: each row quantised
+    with its own scale (a float32 scale, as the reference ships it)."""
+    q, scale = _quantize(x, spec)
+    return (q.to(torch.float32) * scale.to(torch.float32)[..., None]).to(
+        x.dtype)
 
 
 def _execute_seq(plan: SuperstepPlan, registry: SlotRegistry,
@@ -872,15 +927,14 @@ def _execute_seq(plan: SuperstepPlan, registry: SlotRegistry,
         m = msgs[i]
         dst = new.get(m.dst_slot.sid)
         if dst is None:
-            dst = new[m.dst_slot.sid] = registry.value(m.dst_slot).clone(
-                memory_format=torch.contiguous_format)
+            dst = new[m.dst_slot.sid] = _fresh(registry, m.dst_slot)
         lo, hi = m.dst_off, m.dst_off + m.size
         if reduce_fn is not None:
             wr = written.setdefault(m.dst_slot.sid,
                                     np.zeros(m.dst_slot.size, bool))
             seg = wr[lo:hi].copy()
             if seg.any():
-                piece = torch.where(_index(seg, dst.device),
+                piece = torch.where(torch.from_numpy(seg).to(dst.device),
                                     reduce_fn(dst[0, lo:hi], piece), piece)
             wr[lo:hi] = True
         dst[0, lo:hi] = piece
@@ -890,63 +944,68 @@ def _execute_seq(plan: SuperstepPlan, registry: SlotRegistry,
             registry.set_value(slot, new.pop(slot.sid))
 
 
-def _execute_direct(plan: SuperstepPlan, registry: SlotRegistry,
-                    msgs: Sequence[Msg], attrs: SyncAttributes) -> None:
-    """Planned ``direct`` rounds.  Every round's payload is gathered from
+def _execute_direct(registry: SlotRegistry, msgs: Sequence[Msg],
+                    rounds: Sequence[RoundPlan], attrs: SyncAttributes,
+                    reduce_op: Optional[str] = None) -> None:
+    """Planned ``direct`` rounds.  Every round's payloads are taken from
     the pre-superstep values first; deliveries then apply in round order
     (later rounds win — the planner placed conflicting higher-pid writes
     in later rounds).  A round is a partial permutation, so its
-    destination indices are distinct.  With ``reduce_op`` a delivery that
-    overlaps an earlier delivery of this superstep combines with it."""
-    _refuse_compress(attrs, "direct")
-    reduce_fn = _REDUCE_FNS[plan.reduce_op] if plan.reduce_op else None
-    dev = registry.device
+    destination rows are distinct.  With ``reduce_op`` a delivery that
+    overlaps an earlier delivery of this superstep combines with it.  On
+    a compressed wire every message of a float round travels quantised,
+    scaled over the round's padded width as in the reference."""
+    reduce_fn = _REDUCE_FNS[reduce_op] if reduce_op is not None else None
     # ---- extraction: reads observe pre-superstep values ----
     deliveries = []
-    for rd in plan.rounds:
+    for rd in rounds:
         rd_msgs = [msgs[i] for i in rd.msg_idx]
         src_slot, dst_slot = rd_msgs[0].src_slot, rd_msgs[0].dst_slot
         val = registry.value(src_slot)
-        if rd.static_src_off is not None and reduce_fn is None:
+        squeeze = _round_compressed(rd, msgs, attrs)
+        if rd.static_src_off is not None and reduce_fn is None \
+                and not squeeze:
             # uniform round: one row gather of a static column range
             m0 = rd_msgs[0]
-            rows = _index(np.array([m.src for m in rd_msgs]), dev)
-            payload = val[rows, m0.src_off:m0.src_off + m0.size]
-            dst_rows = _index(np.array([m.dst for m in rd_msgs]), dev)
-            deliveries.append((dst_slot, payload, dst_rows, m0.dst_off))
+            payload = val[_index([m.src for m in rd_msgs], val.device),
+                          m0.src_off:m0.src_off + m0.size]
+            deliveries.append((dst_slot, [m.dst for m in rd_msgs],
+                               m0.dst_off, payload))
             continue
-        sizes = [m.size for m in rd_msgs]
-        src_idx = _segments([m.src * src_slot.size + m.src_off
-                             for m in rd_msgs], sizes)
-        dst_idx = _segments([m.dst * dst_slot.size + m.dst_off
-                             for m in rd_msgs], sizes)
-        payload = val.reshape(-1)[_index(src_idx, dev)]
-        deliveries.append((dst_slot, payload, _index(dst_idx, dev), None))
+        if squeeze:
+            wire = _squeeze_wire(_windows(
+                val, [m.src for m in rd_msgs], [m.src_off for m in rd_msgs],
+                rd.size), attrs.compress)
+            payloads = [wire[i, :m.size] for i, m in enumerate(rd_msgs)]
+        else:
+            payloads = [val[m.src, m.src_off:m.src_off + m.size]
+                        for m in rd_msgs]
+        for m, payload in zip(rd_msgs, payloads):
+            deliveries.append((dst_slot, m.dst, m.dst_off, payload))
 
     # ---- delivery, in round order ----
     new: Dict[int, torch.Tensor] = {}
     written: Dict[int, torch.Tensor] = {}
     order: List[Slot] = []
-    for dst_slot, payload, idx, dst_off in deliveries:
+    for dst_slot, dst, dst_off, payload in deliveries:
         cur = new.get(dst_slot.sid)
         if cur is None:
-            cur = new[dst_slot.sid] = registry.value(dst_slot).clone(
-                memory_format=torch.contiguous_format)
+            cur = new[dst_slot.sid] = _fresh(registry, dst_slot)
             order.append(dst_slot)
-        if dst_off is not None:
-            cur[idx, dst_off:dst_off + payload.shape[1]] = payload
+        if isinstance(dst, list):
+            _write_rows(cur, dst, [dst_off] * len(dst), payload)
             continue
-        flat = cur.view(-1)
+        seg = cur[dst, dst_off:dst_off + payload.shape[0]]
         if reduce_fn is None:
-            flat[idx] = payload
+            seg.copy_(payload)
             continue
         wr = written.get(dst_slot.sid)
         if wr is None:
             wr = written[dst_slot.sid] = torch.zeros(
-                flat.shape[0], dtype=torch.bool, device=dev)
-        seen = wr[idx]
-        flat[idx] = torch.where(seen, reduce_fn(flat[idx], payload), payload)
-        wr[idx] = True
+                cur.shape, dtype=torch.bool, device=cur.device)
+        seen = wr[dst, dst_off:dst_off + payload.shape[0]]
+        seg.copy_(torch.where(seen, reduce_fn(seg, payload), payload))
+        seen.fill_(True)
     for slot in order:
         registry.set_value(slot, new[slot.sid])
 
@@ -956,18 +1015,167 @@ def _execute_fused(plan: SuperstepPlan, registry: SlotRegistry,
     """The canonical total exchange: process ``s`` sends chunk ``d`` of
     its first ``p*w`` source elements to process ``d``, which stores it at
     chunk ``s``.  On the stacked store that is one permute of the
-    ``[p_src, p_dst, w]`` block."""
-    _refuse_compress(attrs, "fused")
+    ``[p_src, p_dst, w]`` block.  A compressed wire quantises each
+    destination chunk with its own scale."""
     p, w = registry.p, plan.fused_w
     src_slot, dst_slot = msgs[0].src_slot, msgs[0].dst_slot
     x = registry.value(src_slot)[:, :p * w].reshape(p, p, w)
+    if attrs.compress is not None and _is_floating(src_slot.dtype):
+        # per-destination-row scales travel alongside the payload; the
+        # reference multiplies by them in the payload's dtype
+        q, scale = _quantize(x, attrs.compress)
+        x = (q.to(torch.float32) * scale[..., None]).to(x.dtype)
     y = x.permute(1, 0, 2).contiguous().view(p, p * w)   # [dst, src*w]
     if dst_slot.size != p * w:
-        out = registry.value(dst_slot).clone(
-            memory_format=torch.contiguous_format)
+        out = _fresh(registry, dst_slot)
         out[:, :p * w] = y
         y = out
     registry.set_value(dst_slot, y)
+
+
+def _execute_fused_ag(plan: SuperstepPlan, registry: SlotRegistry,
+                      msgs: Sequence[Msg], attrs: SyncAttributes) -> None:
+    """All-gather: every process's ``w`` elements (from its own source
+    offset) land at chunk ``s`` of every destination; the exclude-self
+    variant keeps each process's own chunk.  A compressed wire quantises
+    each process's chunk with its own scale."""
+    p, w = registry.p, plan.fused_w
+    src_slot, dst_slot = msgs[0].src_slot, msgs[0].dst_slot
+    x = _windows(registry.value(src_slot), range(p), plan.ag_src_off, w)
+    if attrs.compress is not None and _is_floating(src_slot.dtype):
+        x = _squeeze_wire(x, attrs.compress)
+    y = x.reshape(1, p * w)
+    if dst_slot.size == p * w and not plan.ag_exclude_self:
+        registry.set_value(dst_slot, y.expand(p, p * w).contiguous())
+        return
+    old = registry.value(dst_slot)
+    out = _fresh(registry, dst_slot)
+    out[:, :p * w] = y
+    if plan.ag_exclude_self:
+        # exclude-self variant: keep own chunk as-is
+        diag = torch.arange(p, device=out.device)
+        out[:, :p * w].view(p, p, w)[diag, diag] = \
+            old[:, :p * w].reshape(p, p, w)[diag, diag]
+    registry.set_value(dst_slot, out)
+
+
+def _execute_fused_rs(plan: SuperstepPlan, registry: SlotRegistry,
+                      msgs: Sequence[Msg], attrs: SyncAttributes) -> None:
+    """Reduce-scatter: chunk ``d`` of every process combines under
+    ``reduce_op`` (a sum over the stacked source axis, or max/min) and
+    lands at process ``d``'s destination offset; the destination's old
+    contents there are replaced, not combined."""
+    p, w = registry.p, plan.fused_w
+    src_slot, dst_slot = msgs[0].src_slot, msgs[0].dst_slot
+    x = registry.value(src_slot)[:, :p * w].reshape(p, p, w)  # [src, dst]
+    if plan.reduce_op == "sum":
+        y = x.sum(0)
+    elif plan.reduce_op == "max":
+        y = x.amax(0)
+    else:
+        y = x.amin(0)
+    y = y.to(dst_slot.dtype)
+    offs = plan.rs_dst_off
+    if dst_slot.size == w and _uniform(offs) == 0:
+        registry.set_value(dst_slot, y.contiguous())
+        return
+    out = _fresh(registry, dst_slot)
+    _write_rows(out, range(p), offs, y)
+    registry.set_value(dst_slot, out)
+
+
+def _execute_fused_scatter(plan: SuperstepPlan, registry: SlotRegistry,
+                           msgs: Sequence[Msg],
+                           attrs: SyncAttributes) -> None:
+    """Root scatter: chunk ``d`` of the root's source lands at process
+    ``d``'s offset; processes outside ``sc_mask`` keep their data."""
+    p, w, root = registry.p, plan.fused_w, plan.fused_root
+    src_slot, dst_slot = msgs[0].src_slot, msgs[0].dst_slot
+    x = registry.value(src_slot)[root, :p * w].view(p, w)   # row d -> d
+    rows = [d for d in range(p) if plan.sc_mask[d]]
+    out = _fresh(registry, dst_slot)
+    _write_rows(out, rows, [plan.sc_dst_off[d] for d in rows],
+                x.index_select(0, _index(rows, x.device)).to(dst_slot.dtype))
+    registry.set_value(dst_slot, out)
+
+
+def _execute_fused_gather(plan: SuperstepPlan, registry: SlotRegistry,
+                          msgs: Sequence[Msg],
+                          attrs: SyncAttributes) -> None:
+    """Gather to root: process ``s``'s ``w`` elements land at chunk ``s``
+    of the root's destination; without a root -> root message the root
+    keeps its own chunk.  Other processes keep their data."""
+    p, w, root = registry.p, plan.fused_w, plan.fused_root
+    src_slot, dst_slot = msgs[0].src_slot, msgs[0].dst_slot
+    x = _windows(registry.value(src_slot), range(p), plan.g_src_off, w)
+    out = _fresh(registry, dst_slot)
+    rows = [s for s in range(p) if plan.g_has_self or s != root]
+    out[root, :p * w].view(p, w)[_index(rows, out.device)] = \
+        x.index_select(0, _index(rows, x.device)).to(dst_slot.dtype)
+    registry.set_value(dst_slot, out)
+
+
+def _execute_bruck(plan: SuperstepPlan, registry: SlotRegistry,
+                   msgs: Sequence[Msg], attrs: SyncAttributes) -> None:
+    """Planned Bruck rounds.  Row ``r`` of a process's ``[p, w]`` working
+    matrix holds the payload it carries whose original relative distance
+    (dst - origin mod p) is ``r``; a round rolls its row set ``step``
+    processes along the stacked process axis.  Deliveries then apply in
+    ascending ``r``, as the reference applies them (CRCW determinism)."""
+    p, w = registry.p, plan.bruck_w
+    src_slot, dst_slot = msgs[0].src_slot, msgs[0].dst_slot
+    # tables[src, rel] -> offset/size/mask of the message src -> src+rel
+    src_off = np.zeros((p, p), np.int64)
+    dst_off = np.zeros((p, p), np.int64)
+    sizes = np.zeros((p, p), np.int64)
+    mask = np.zeros((p, p), bool)
+    for m in msgs:
+        rel = (m.dst - m.src) % p
+        src_off[m.src, rel] = m.src_off
+        dst_off[m.dst, rel] = m.dst_off   # indexed by the *receiver* pid
+        sizes[m.src, rel] = m.size
+        mask[m.src, rel] = True
+    buf = _windows(registry.value(src_slot), np.repeat(np.arange(p), p),
+                   src_off.reshape(-1).tolist(), w).reshape(p, p, w)
+    for step, rows in plan.bruck_steps:
+        idx = _index(rows, buf.device)
+        buf[:, idx] = torch.roll(buf.index_select(1, idx), step, 0)
+    out = _fresh(registry, dst_slot)
+    for r in range(p):
+        # row r of process me arrived from origin (me - r) % p
+        me = [d for d in range(p) if mask[(d - r) % p, r]]
+        _write_rows(out, me, [int(dst_off[d, r]) for d in me],
+                    buf[_index(me, buf.device), r],
+                    [int(sizes[(d - r) % p, r]) for d in me])
+    registry.set_value(dst_slot, out)
+
+
+def _execute_valiant(plan: SuperstepPlan, registry: SlotRegistry,
+                     msgs: Sequence[Msg], attrs: SyncAttributes,
+                     scratch: Optional[Slot]) -> None:
+    """Two-phase routing: phase 1 puts every message into the scratch
+    slot of its seeded-hash intermediate, phase 2 delivers from there;
+    each phase runs its planned ``direct`` rounds."""
+    if scratch is None:
+        raise LPFFatalError("valiant plan lowered without a scratch slot")
+    ph1, ph2 = _valiant_phase_msgs(msgs, plan.valiant_order,
+                                   plan.valiant_via, plan.valiant_off,
+                                   scratch)
+    sub = attrs.replace(method="direct")
+    _execute_direct(registry, ph1, plan.valiant_phase1, sub)
+    _execute_direct(registry, ph2, plan.valiant_phase2, sub)
+
+
+_FUSED_EXECUTORS = {
+    "fused": _execute_fused, "fused_ag": _execute_fused_ag,
+    "fused_rs": _execute_fused_rs, "fused_scatter": _execute_fused_scatter,
+    "fused_gather": _execute_fused_gather, "bruck": _execute_bruck,
+}
+
+#: plan methods :func:`execute_plan` implements: every method
+#: :func:`plan_sync` can return
+EXECUTED_METHODS = frozenset(
+    {"noop", "seq", "direct", "valiant"} | set(_FUSED_EXECUTORS))
 
 
 def execute_plan(plan: SuperstepPlan, registry: SlotRegistry,
@@ -977,19 +1185,36 @@ def execute_plan(plan: SuperstepPlan, registry: SlotRegistry,
 
     ``msgs`` must be the table the plan was built from, or any table with
     the same :func:`plan_signature` (the cache guarantees this).  Replaces
-    the destination slots' values; returns the superstep's ledger entry —
-    identical to the plan's predicted cost, with the label attached.
-    Methods outside :data:`EXECUTED_METHODS` raise :class:`LPFFatalError`
-    before any slot changes."""
+    the destination slots' values (and, for ``valiant``, the scratch
+    slot's); returns the superstep's ledger entry — identical to the
+    plan's predicted cost, with the label attached."""
     if plan.method == "seq":
         _execute_seq(plan, registry, msgs)
     elif plan.method == "direct":
-        _execute_direct(plan, registry, msgs, attrs)
-    elif plan.method == "fused":
-        _execute_fused(plan, registry, msgs, attrs)
+        _execute_direct(registry, msgs, plan.rounds, attrs, plan.reduce_op)
+    elif plan.method == "valiant":
+        _execute_valiant(plan, registry, msgs, attrs, scratch)
     elif plan.method != "noop":
-        raise LPFFatalError(
-            f"superstep method {plan.method!r} is not implemented by the "
-            f"virtual-process executor yet (implemented: "
-            f"{sorted(EXECUTED_METHODS)})")
+        _FUSED_EXECUTORS[plan.method](plan, registry, msgs, attrs)
     return plan.cost_with_label(label)
+
+
+# ==========================================================================
+# entry point (plan + execute in one call)
+# ==========================================================================
+
+def execute_sync(registry: SlotRegistry, queue: Sequence[Msg],
+                 attrs: SyncAttributes, label: str,
+                 scratch: Optional[Slot] = None,
+                 cache: Optional[PlanCache] = None) -> SuperstepCost:
+    """Run one superstep over the registry's ``p`` processes; replaces
+    slot values; returns its cost record.
+
+    With ``cache`` the planning stage is memoised; pass ``None`` to force
+    a fresh planning pass."""
+    msgs = list(queue)
+    if cache is not None:
+        plan = cache.get_or_plan(msgs, registry.p, attrs, scratch)
+    else:
+        plan = plan_sync(msgs, registry.p, attrs, scratch)
+    return execute_plan(plan, registry, msgs, attrs, label, scratch=scratch)

@@ -22,7 +22,10 @@ same data to both packages:
   :class:`~repro_torch.models.lm.ParamTree`;
 * :func:`opt_state_from_jax` — the JAX package's AdamW state
   (``{"m", "v", "step"}``, as numpy arrays) as the port's, so both
-  packages can train on from one state.
+  packages can train on from one state;
+* :func:`graph_from_fields` — the port's
+  :class:`~repro_torch.algorithms.graphs.PartitionedGraph` from another
+  partitioned graph's ``dataclasses.asdict`` (PageRank's "weights").
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 
 import torch
 
+from .algorithms.graphs import PartitionedGraph
 from .core.context import resolve_device
 from .core.machine import HardwareModel, LinkModel
 from .core.memslot import Slot, as_torch_dtype
@@ -41,7 +45,7 @@ from .models.lm import ParamTree
 
 __all__ = ["cyclic_scatter", "cyclic_gather", "unordered_to_natural",
            "msgs_from_table", "hardware_from_fields", "params_from_jax",
-           "params_to_numpy", "opt_state_from_jax"]
+           "params_to_numpy", "opt_state_from_jax", "graph_from_fields"]
 
 Row = Tuple[int, int, int, int, int, int, int, str]
 
@@ -131,3 +135,14 @@ def params_to_numpy(params: ParamTree) -> Dict[str, Any]:
         return {k: conv(v) if isinstance(v, dict)
                 else v.detach().cpu().numpy() for k, v in t.items()}
     return conv(params.tree())
+
+
+def graph_from_fields(fields: Mapping[str, Any]) -> PartitionedGraph:
+    """A port partitioned graph from ``dataclasses.asdict`` of one with the
+    same fields: the shard arrays copied as numpy arrays, the halo plan as
+    a list of int tuples."""
+    f = dict(fields)
+    for k in ("row_ids", "col_ext", "vals", "pack_idx", "dangling"):
+        f[k] = np.array(f[k], copy=True)
+    f["msgs"] = [tuple(int(v) for v in m) for m in f["msgs"]]
+    return PartitionedGraph(**f)

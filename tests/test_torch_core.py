@@ -359,26 +359,6 @@ def test_quickstart_parity(mesh8):
     assert jled.predicted_seconds(jm) == tled.predicted_seconds(tm)
 
 
-def test_unported_methods_refuse_by_name():
-    """Executor methods not ported yet raise naming the method; nothing
-    is written."""
-    ctx = tlpf.LPFContext(4, device="cpu")
-    ctx.resize_memory_register(2)
-    ctx.resize_message_queue(16)
-    a = ctx.register_global("a", torch.ones(4, 12))
-    b = ctx.register_global("b", torch.zeros(4, 12))
-    ctx.put_msgs([(s, d, a, 0, b, s * 3, 3)
-                  for s in range(4) for d in range(4)])
-    with pytest.raises(tlpf.LPFFatalError, match="fused_ag"):
-        ctx.sync()
-    assert torch.equal(ctx.value(b), torch.zeros(4, 12))
-    ctx._queue = []      # a fatal sync leaves its queue, as in the reference
-    ctx.put(a, b, to=lambda s: (s + 1) % 4, size=3)
-    with pytest.raises(tlpf.LPFFatalError, match="compressed wire"):
-        ctx.sync(tlpf.SyncAttributes(compress=tlpf.CompressSpec()))
-    assert not ctx.ledger.records
-
-
 # ---------------------------------------------------------------------------
 # the process-axis rule, registration and capacity errors
 # ---------------------------------------------------------------------------

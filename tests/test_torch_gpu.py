@@ -16,10 +16,15 @@ final state within 1e-4 of the plain version's largest |value|, and each
 of its passes' scratch within 1e-4 of ``ssd_scan_passes``).  The FFT
 path, the llama3.2-1b serving and training paths (smoke config: prefill,
 the ``LPFServer`` loop, train steps) and the mamba2-130m serving path
-(smoke config) are driven through their entry points on the card.
+(smoke config) are driven through their entry points on the card.  Every
+superstep method, every BSP collective and a small PageRank run on the
+card against the same calls on the CPU: bit-equal where no sum is
+reordered, else within 1e-6 relative (PageRank within 1e-5, with the
+same iteration count and ledger).
 """
 
 import ctypes
+import dataclasses
 import subprocess
 
 import numpy as np
@@ -808,3 +813,155 @@ def test_mamba_smoke_decode_and_serve_on_card(cuda):
     assert out["completed"] >= 1
     assert out["solo_identical"] == out["completed"]
     assert out["health"]["deadline_misses"] == 0
+
+
+# ---------------------------------------------------------------------------
+# superstep methods, collectives and PageRank: the card against the CPU
+# ---------------------------------------------------------------------------
+
+def superstep_cases(p=8, w=5):
+    """(name, rows, slot sizes, attrs, scratch): one superstep each; rows
+    are (src, dst, src_sid, src_off, dst_sid, dst_off, size)."""
+    big = {1: p * w + 7, 2: p * w + 3}
+    a2a = [(s, d, 1, d * w, 2, s * w, w) for s in range(p) for d in range(p)]
+    ag_ex = [(s, d, 1, 0, 2, s * w, w)
+             for s in range(p) for d in range(p) if s != d]
+    bruck = [(s, d, 1, (d * 3) % 11, 2, (s * 2) % 9, 1 + (s + d) % 3)
+             for s in range(p) for d in range(p) if s != d]
+    shift = [(s, (s + 3) % p, 1, 12 - s % 3 - s % 2, 2, 7 - s % 3, 4 + s % 3)
+             for s in range(p)]
+    small = {1: 16, 2: 16}
+    return [
+        # name, method, rows, slot sizes, attrs, scratch
+        ("fused_ag", "fused_ag", [(s, d, 1, (3 * s) % 7, 2, s * w, w)
+                                  for s in range(p) for d in range(p)],
+         big, {}, 0),
+        ("fused_ag_exclude_self", "fused_ag", ag_ex, big, {}, 0),
+        ("fused_rs_sum", "fused_rs", [(s, d, 1, d * w, 2, d % 3, w)
+                                      for s in range(p) for d in range(p)],
+         big, {"reduce_op": "sum"}, 0),
+        ("fused_rs_max", "fused_rs", [(s, d, 1, d * w, 2, 0, w)
+                                      for s in range(p) for d in range(p)],
+         big, {"reduce_op": "max"}, 0),
+        ("fused_scatter", "fused_scatter", [(5, d, 1, d * w, 2, 1, w)
+                                            for d in range(p) if d != 5],
+         big, {}, 0),
+        ("fused_gather", "fused_gather", [(s, 6, 1, 2, 2, s * w, w)
+                                          for s in range(p) if s != 6],
+         big, {}, 0),
+        ("fused", "fused", a2a, big, {}, 0),
+        ("direct", "direct", shift, small, {}, 0),
+        ("bruck", "bruck", bruck, small, {"method": "bruck"}, 0),
+        ("valiant", "valiant", a2a, big, {"method": "valiant"}, 256),
+        ("compressed_direct", "direct", shift, small, {"compress": True}, 0),
+        ("compressed_fused", "fused", a2a, big, {"compress": True}, 0),
+        ("compressed_fused_ag", "fused_ag", ag_ex, big, {"compress": True},
+         0),
+    ]
+
+
+def run_superstep(device, rows, slots, attrs, scratch, p=8):
+    kw = dict(attrs)
+    if kw.get("compress"):
+        kw["compress"] = tlpf.CompressSpec()
+
+    def spmd(ctx, s, p_, _):
+        ctx.resize_message_queue(len(rows), valiant_payload=scratch)
+        ctx.resize_memory_register(len(slots))
+        h = {}
+        for sid, size in sorted(slots.items()):
+            rng = np.random.default_rng(sid)
+            h[sid] = ctx.register_global(f"s{sid}", torch.from_numpy(
+                rng.standard_normal((p, size)).astype(np.float32)))
+        ctx.put_msgs([(a, b, h[x], xo, h[y], yo, n)
+                      for a, b, x, xo, y, yo, n in rows])
+        ctx.sync(tlpf.SyncAttributes(**kw), label="case")
+        return [ctx.value(h[sid]).cpu() for sid in sorted(slots)]
+
+    return tlpf.exec_(p, spmd, None, device=device, return_ledger=True)
+
+
+@pytest.mark.parametrize("case", superstep_cases(),
+                         ids=[c[0] for c in superstep_cases()])
+def test_superstep_method_on_card_matches_cpu(cuda, case):
+    name, method, rows, slots, attrs, scratch = case
+    got, led = run_superstep(cuda, rows, slots, attrs, scratch)
+    want, cled = run_superstep("cpu", rows, slots, attrs, scratch)
+    assert [dataclasses.asdict(r) for r in led.records] == \
+        [dataclasses.asdict(r) for r in cled.records]
+    assert led.records[0].method == method
+    for a, b in zip(got, want):
+        if name == "fused_rs_sum":
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+        else:
+            assert torch.equal(a, b), name
+
+
+def collective_calls(p=8):
+    from repro_torch import bsp
+    int_attrs = tlpf.SyncAttributes()
+    return {
+        "allgather": lambda ctx, x: bsp.allgather(ctx, x),
+        "alltoall": lambda ctx, x: bsp.alltoall(ctx, x),
+        "broadcast": lambda ctx, x: bsp.broadcast(ctx, x, root=3),
+        "reduce": lambda ctx, x: bsp.reduce(ctx, x, root=2),
+        "allreduce": lambda ctx, x: bsp.allreduce(ctx, x),
+        "allreduce_max_int": lambda ctx, x: bsp.allreduce(
+            ctx, (x * 1000).to(torch.int32), op=torch.maximum,
+            attrs=int_attrs),
+        "allreduce_min_int": lambda ctx, x: bsp.allreduce(
+            ctx, (x * 1000).to(torch.int32), op=torch.minimum),
+        "allreduce_direct": lambda ctx, x: bsp.allreduce(
+            ctx, x, attrs=tlpf.SyncAttributes(method="direct")),
+        "allreduce_bruck": lambda ctx, x: bsp.allreduce(
+            ctx, x, attrs=tlpf.SyncAttributes(method="bruck")),
+        "allreduce_valiant": lambda ctx, x: bsp.allreduce(
+            ctx, x, attrs=tlpf.SyncAttributes(method="valiant")),
+        "allreduce_int8": lambda ctx, x: bsp.allreduce(
+            ctx, x, attrs=tlpf.SyncAttributes(compress=tlpf.CompressSpec())),
+        "exscan": lambda ctx, x: bsp.exscan(ctx, x),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(collective_calls()))
+def test_collective_on_card_matches_cpu(cuda, name):
+    call = collective_calls()[name]
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (8, 1000)).astype(np.float32))
+
+    def spmd(ctx, s, p, a):
+        ctx.resize_message_queue(p * p, valiant_payload=1024)
+        return call(ctx, a).cpu()
+
+    got, led = tlpf.exec_(8, spmd, x, device=cuda, return_ledger=True)
+    want, cled = tlpf.exec_(8, spmd, x, device="cpu", return_ledger=True)
+    assert [dataclasses.asdict(r) for r in led.records] == \
+        [dataclasses.asdict(r) for r in cled.records]
+    if name == "allreduce_int8":
+        # the card sums the exchanged chunks in another order, which can
+        # move a value of the second superstep across a rounding boundary
+        # of its int8 wire: one quantum, max|value| / 127
+        quantum = want.abs().max().item() / 127
+        assert (got - want).abs().max().item() <= 1.01 * quantum
+    elif got.dtype.is_floating_point and name not in (
+            "allgather", "alltoall", "broadcast"):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+    else:
+        assert torch.equal(got, want), name
+
+
+def test_pagerank_on_card_matches_cpu(cuda):
+    from repro_torch.algorithms import (lpf_pagerank, partition_graph,
+                                        rmat_graph,
+                                        sparse_reference_pagerank)
+    edges = rmat_graph(1 << 12, 16 << 12, seed=1)
+    g = partition_graph(edges, 1 << 12, 8)
+    r, iters, res, led = lpf_pagerank(8, g, return_ledger=True)
+    rc, ic, resc, cled = lpf_pagerank(8, g, device="cpu",
+                                      return_ledger=True)
+    assert r.is_cuda and iters == ic
+    assert (r.cpu() - rc).abs().max().item() / rc.max().item() < 1e-5
+    assert [dataclasses.asdict(x) for x in led.records] == \
+        [dataclasses.asdict(x) for x in cled.records]
+    ref, _ = sparse_reference_pagerank(edges, 1 << 12)
+    assert ((r.double() - ref).abs().max() / ref.max()).item() < 1e-3

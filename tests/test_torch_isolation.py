@@ -8,7 +8,9 @@
   serving path: ``init_params``, ``prefill``, ``decode_step``,
   ``build_serve_buckets``, ``ModelDecodeEngine``, the serve launcher; and
   the training path: ``loss_fn``, ``build_train_step``, the train
-  launcher, the interop loaders, a checkpoint restore);
+  launcher, the interop loaders, a checkpoint restore; and PageRank:
+  ``lpf_pagerank``, ``dataflow_pagerank``, the sparse oracle and
+  ``shard_tensors``);
 * a CPU tensor takes the plain version and launches nothing; the CUDA
   wrapper refuses a CPU tensor, and a missing ``nvcc`` raises instead of
   falling back.
@@ -65,6 +67,9 @@ def test_fresh_interpreter_loads_no_jax():
             "repro_torch.optim.adamw", "repro_torch.data.pipeline",
             "repro_torch.checkpoint.store"} <= set(PORT_MODULES)
     assert "repro_torch.kernels.flash_attention.kernel" in PORT_MODULES
+    assert {"repro_torch.bsp", "repro_torch.bsp.collectives",
+            "repro_torch.algorithms.graphs",
+            "repro_torch.algorithms.pagerank"} <= set(PORT_MODULES)
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -87,6 +92,27 @@ def test_entry_points_refuse_without_a_card():
     with pytest.raises(tlpf.LPFFatalError, match="cuda"):
         tlpf.LPFContext(4)
     assert bsp_fft(x, p=8, device="cpu").device.type == "cpu"
+
+
+def test_pagerank_entry_points_refuse_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points run on it")
+    from repro_torch.algorithms import (banded_graph, dataflow_pagerank,
+                                        lpf_pagerank, partition_graph,
+                                        shard_tensors,
+                                        sparse_reference_pagerank)
+    edges = banded_graph(16, 2)
+    g = partition_graph(edges, 16, 4)
+    calls = [
+        lambda: lpf_pagerank(4, g),
+        lambda: dataflow_pagerank(edges, 16, iters=1),
+        lambda: sparse_reference_pagerank(edges, 16),
+        lambda: shard_tensors(g),
+    ]
+    for call in calls:
+        with pytest.raises(tlpf.LPFFatalError, match="cuda"):
+            call()
+    assert lpf_pagerank(4, g, device="cpu")[0].device.type == "cpu"
 
 
 def test_serving_entry_points_refuse_without_a_card():
