@@ -22,7 +22,13 @@ failure is caught.  Phases:
    inverse: error against ``np.fft`` (complex128), the inverse round trip,
    the ledger (``fft.redistribute``/``fft.reorder``, ``fused``, 1 round,
    ``h_bytes == fft_h_bytes``) and the kernel's launch count on that run;
-   then the end-to-end time;
+   then the end-to-end time with its programs (redistribute, reorder)
+   compiled — each times its eager calls against its CUDA-graph replays
+   and keeps the faster, and each way's time and the choice are printed
+   — beside the same calls dispatched superstep by superstep
+   (``LPF_COMPILE_PROGRAMS=0``), whose result must be bit-equal; no
+   program may be quarantined, each must have replayed in its timed
+   calls, and the device memory the program cache held is printed;
 6. the fit of the virtual-process link's (g, l) from timed total
    exchanges of growing h (T(h) = g*h + l, the paper's Table-3
    estimators: g from the two ends of the sweep, l from the smallest);
@@ -155,7 +161,10 @@ phase 6's fitted (g, l) of the ``"vp"`` link:
     on the int8 wire), each ledger's methods and rounds (Bruck 3 rounds,
     Valiant 15, twice); CUDA-event and host milliseconds, the ledger's
     ``h_bytes``, wire bytes and predicted milliseconds, and measured over
-    predicted (the paper's model compliance, on this card);
+    predicted (the paper's model compliance, on this card); every
+    collective's programs flush through the program cache, compiled
+    (each choosing eager calls or graph replay by their times, no key
+    quarantined, every one replayed in its timed calls);
 (n) PageRank (paper §4.3) on ``rmat_graph(2^22, 16 * 2^22, seed=1)``
     (Graph500's R-MAT parameters and edge factor) over p = 8 through
     ``lpf_pagerank`` at the JAX package's defaults (alpha 0.85, tol 1e-7,
@@ -170,14 +179,45 @@ phase 6's fitted (g, l) of the ``"vp"`` link:
     milliseconds, one iteration's (median of 10) against its predicted
     communication, its ``torch.profiler`` breakdown and idle share, and
     ``dataflow_pagerank``'s ms an iteration on the same card (CUDA
-    events, 25 iterations less 5, the edges on the card).  Neither
-    phase launches a kernel of ``csrc/``: the ``kernels`` line keeps its
-    five rows.
+    events, 25 iterations less 5, the edges on the card).  The loop's
+    body runs as a CUDA graph from its second iteration: the ranks and
+    iterations bit-equal to the same run with everything eager
+    (``LPF_COMPILE_PROGRAMS=0``), the hooked run's context counting one
+    replay an iteration after the first and no fallback, and the
+    captured and the eager loop's ms an iteration (the median gap between
+    host reads of the loop's condition, one an iteration, over 40
+    iterations) and idle share (one profiled 12-iteration loop: the
+    union of its kernels' intervals over the host wall of the same
+    window, from the read before the third iteration to the last).  The
+    program cache is kept across (m), (n) and (o); the device memory it
+    holds and the peak above the memory before (m) are printed at the
+    end;
+(o) the program optimizer, its certificate and compiled replay, on the
+    JAX package's canned traces at p = 8, int32, priced with phase 6's
+    fit: 8 DDP buckets of 16 MiB a process, two FFT redistribute + reorder
+    pairs of 8 MiB, the fragmented trace, the PageRank shape with a 2 MiB
+    halo.  Each trace runs through a context (``bind_trace``) as one
+    recorded program, dispatched and compiled (a CUDA graph): the
+    context's schedule and signature equal ``optimize_program`` and
+    ``program_signature`` of the trace on the host, its certificate
+    passes, the values are bit-equal to recorded order (one eager
+    superstep a step), after the capture and after the timed replays too,
+    and the ledger is ``ledger_costs``; predicted ms of the searched
+    schedule, the peephole and recorded order; CUDA-event ms end to end
+    (recording and flush) and of the schedule alone, medians of 10, the
+    compiled program's after it chose; its timed eager calls and graph
+    replays (host ms, the fastest of each) and its choice; measured over
+    predicted; the cache holds one program and, compiled, one artifact
+    that replayed, nothing quarantined; the bytes a replay copies in and
+    out and the device memory the cache held.  Neither (m), (n) nor (o)
+    launches a kernel of ``csrc/``: the ``kernels`` line keeps its five
+    rows.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -1315,6 +1355,9 @@ COLL_F32_BAR, COLL_INT8_BAR = 1e-6, 0.05
 # 0.19, 0.19, rmat_graph's defaults) at scale 22 and edge factor 16
 PR_SCALE, PR_EDGE_FACTOR, PR_SEED = 22, 16, 1
 PR_BAR, PR_MASS_BAR = 1e-3, 1e-4
+# the loop's ms an iteration: the median of 40 iterations' gaps, and the
+# device's busy time over the host wall of one profiled 12-iteration loop
+PR_LOOP_ITERS, PR_LOOP_PROFILE = 40, 12
 
 
 def fit_link(dev) -> dict:
@@ -1464,6 +1507,7 @@ def collective_row(lpf, machine, name, a, call, plain, bar, want) -> dict:
                rel_err=err, bar=bar, ledger=recs, h_bytes=led.h_bytes,
                wire_bytes=led.wire_bytes, predicted_ms=pred_s * 1e3)
     del got, ref
+    settle(lpf, run)
     row["device_ms"] = cuda_ms(run, reps=10, warmup=2)
     row["host_ms"] = host_ms(run, reps=5, warmup=1)
     row["measured_over_predicted"] = row["host_ms"] / row["predicted_ms"]
@@ -1524,14 +1568,38 @@ def pagerank_phase(dev, fit: dict, scale: int = PR_SCALE) -> dict:
           f"pr.halo {halo[0]}")
     del ref
 
+    # the same run with the loop and its programs eager
+    # (LPF_COMPILE_PROGRAMS=0): the captured body replays bit for bit
+    os.environ["LPF_COMPILE_PROGRAMS"] = "0"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_eager, it_eager, _, led_eager = lpf_pagerank(
+            p, g, device=dev, return_ledger=True)
+        torch.cuda.synchronize()
+        out["eager_exec_s"] = time.perf_counter() - t0
+    finally:
+        del os.environ["LPF_COMPILE_PROGRAMS"]
+    check(torch.equal(r_eager, r) and it_eager == iters,
+          f"pagerank: the captured loop's {iters} iterations differ from "
+          f"the eager loop's {it_eager}")
+    check(led_eager.records == led.records, "pagerank: eager ledger")
+    del r_eager
+
     # Algorithm 3: a host function already holding the shards on the
     # card hooks the unmodified PageRank
     shards = shard_tensors(g, device=dev)
 
+    hooked = []
+
     def host_analytics():
         local_nnz = (shards["vals"] > 0).sum(1)
-        rh, ih, resh = lpf.hook(p, lambda ctx, s, p_, a: pagerank_spmd(
-            ctx, g, a), shards, device=dev)
+
+        def spmd(ctx, s, p_, a):
+            hooked.append(ctx)
+            return pagerank_spmd(ctx, g, a)
+
+        rh, ih, resh = lpf.hook(p, spmd, shards, device=dev)
         return rh.reshape(-1), ih, float(resh[0]), local_nnz
 
     torch.cuda.synchronize()
@@ -1546,6 +1614,14 @@ def pagerank_phase(dev, fit: dict, scale: int = PR_SCALE) -> dict:
     # the segment sum is deterministic: the same ranks, bit for bit
     check(torch.equal(rh, r) and ih == iters,
           f"hooked run: {ih} iterations, ranks differ by {diff}")
+    hctx = hooked[-1]
+    out.update(loop_graph_replays=hctx.loop_graph_replays,
+               loop_graph_fallbacks=hctx.loop_graph_fallbacks)
+    check(hctx.loop_graph_replays == ih - 1
+          and hctx.loop_graph_fallbacks == 0,
+          f"hooked run: {hctx.loop_graph_replays} replays of the captured "
+          f"body in {ih} iterations, fallbacks "
+          f"{hctx.loop_graph_errors}")
 
     # one iteration alone: wall time, predicted communication, profile
     spmv = pr._SpMV(g, shards)
@@ -1561,12 +1637,66 @@ def pagerank_phase(dev, fit: dict, scale: int = PR_SCALE) -> dict:
         return sub.ledger
 
     it_led = one_iteration()
+    settle(lpf, one_iteration)
     iter_ms = host_ms(one_iteration, reps=10, warmup=2)
     pred_s = it_led.predicted_seconds(machine)
     out.update(iteration_ms=iter_ms, iteration_predicted_ms=pred_s * 1e3,
                iteration_measured_over_predicted=iter_ms / (pred_s * 1e3))
     out["iteration_profile"] = profile_families("pagerank iteration",
                                                 one_iteration, iter_ms)
+
+    # an iteration of the loop, captured and eager: the body of
+    # pagerank_spmd through compile_loop with a cond that reads the
+    # iteration count on the host, which waits for the iteration's work,
+    # and stamps the host clock; an iteration's wall time is the median
+    # gap between stamps past the eager first iteration and the capture.
+    # The idle share from one profiled loop of PR_LOOP_PROFILE iterations
+    # (window_busy)
+    def timed_loop(n_it, stamps=None):
+        ctx = lpf.LPFContext(p, device=dev)
+
+        def cond(c):
+            go = bool(c[2] < n_it)
+            if stamps is not None:
+                stamps.append(time.perf_counter())
+            with torch.profiler.record_function("pr.cond"):
+                pass
+            return go
+
+        def body(sub, c):
+            r_, dm, it = c
+            r_new, dnew, _ = pr._iteration(sub, g, spmv, sh, r_, dm, 0.85,
+                                           lpf.LPF_SYNC_DEFAULT)
+            return r_new, dnew, it + 1
+
+        ctx.compile_loop(body, (r2, dmass, torch.zeros(
+            (), dtype=torch.int64, device=dev)), cond=cond, label="pr.iter")
+        return ctx
+
+    for mode in ("captured", "eager"):
+        if mode == "eager":
+            os.environ["LPF_COMPILE_PROGRAMS"] = "0"
+        try:
+            stamps = []
+            lctx = timed_loop(PR_LOOP_ITERS, stamps)
+            busy_ms, wall_ms = window_busy(
+                lambda: timed_loop(PR_LOOP_PROFILE), "pr.cond", 2)
+        finally:
+            os.environ.pop("LPF_COMPILE_PROGRAMS", None)
+        gaps = np.diff(stamps)[2:] * 1e3
+        it_ms = float(np.median(gaps))
+        n_win = PR_LOOP_PROFILE - 2
+        out[f"loop_{mode}_ms_per_iter"] = it_ms
+        out[f"loop_{mode}_ms_per_iter_quartiles"] = [
+            float(np.percentile(gaps, 25)), float(np.percentile(gaps, 75))]
+        out[f"loop_{mode}_profiled_ms_per_iter"] = wall_ms / n_win
+        out[f"loop_{mode}_busy_ms_per_iter"] = busy_ms / n_win
+        out[f"loop_{mode}_idle_share"] = 1.0 - busy_ms / wall_ms
+        out[f"loop_{mode}_replays"] = lctx.loop_graph_replays
+    check(out["loop_captured_replays"] == PR_LOOP_ITERS - 1,
+          f"the timed loop replayed {out['loop_captured_replays']} times")
+    check(out["loop_captured_busy_ms_per_iter"] > 0,
+          "the profiler saw no device time in the captured loop")
 
     # the paper's "pure Spark" baseline on the same card, the edges on
     # the card: the difference of 25 and 5 iterations leaves out its
@@ -1582,13 +1712,317 @@ def pagerank_phase(dev, fit: dict, scale: int = PR_SCALE) -> dict:
     print(f"pagerank scale {scale}: {iters} iterations (hooked {ih}), "
           f"residual {res:.3e}, {iter_ms:.3f} ms an iteration (predicted "
           f"communication {pred_s * 1e3:.3f}; the hooked run "
-          f"{hook_s * 1e3:.1f} ms, set-up included), dataflow "
+          f"{hook_s * 1e3:.1f} ms, set-up included), captured loop "
+          f"{out['loop_captured_ms_per_iter']:.3f} ms an iteration (idle "
+          f"{out['loop_captured_idle_share']:.3f}), eager loop "
+          f"{out['loop_eager_ms_per_iter']:.3f} (idle "
+          f"{out['loop_eager_idle_share']:.3f}), dataflow "
           f"{out['dataflow_ms_per_iter']:.3f} ms an iteration; graph "
           f"{out['build_s']:.1f} s on the host", flush=True)
     del shards, spmv, sh, r, rh
     torch.cuda.empty_cache()
     return out
 
+
+
+# (o) the program optimizer, its certificate and compiled replay on the
+# JAX package's canned traces at the card's sizes, p = 8, int32 (sums are
+# exact in any order): 8 DDP buckets of 16 MiB a process, two interleaved
+# FFT redistribute + reorder pairs of 8 MiB a process, the fragmented
+# trace the search reroutes through Valiant, and the PageRank iteration
+# shape with a 2 MiB halo
+CANNED_CARD = [
+    ("bucketed_sync8", "canned_bucketed_trace", (P_MAIN, 8, 1 << 19)),
+    ("fft_redistribute", "canned_fft_trace", (P_MAIN, 1 << 18)),
+    ("fragmented_valiant", "canned_fragmented_trace", (P_MAIN,)),
+    ("pagerank", "canned_pagerank_trace", (P_MAIN, 1 << 16)),
+]
+PROGRAM_REPLAYS = 10
+
+
+def fitted_hardware(lpf, fit: dict):
+    """H100_SXM with phase 6's fitted ``"vp"`` link: a context on it
+    prices its schedules with the fit's (g, l)."""
+    return dataclasses.replace(lpf.H100_SXM, links={"vp": lpf.LinkModel(
+        bw=fit["link_bw"], latency=fit["link_latency"])})
+
+
+def events_ms(fn) -> float:
+    """CUDA-event milliseconds of one call of ``fn``."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def window_busy(fn, mark: str, first: int) -> tuple:
+    """``(busy ms, wall ms)`` of one profiled call of ``fn`` over the
+    window between its ``first``-th (0-based) and its last
+    ``record_function(mark)``: busy is the union of the device kernels'
+    intervals inside the window, wall the window's length on the same
+    clock.  The marks must follow host reads that wait for the device."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    marks = sorted(e.time_range.start for e in events if e.name == mark)
+    lo, hi = marks[first], marks[-1]
+    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                   for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > lo and e.time_range.start < hi)
+    busy, end = 0.0, lo
+    for a, b in spans:
+        a = max(a, end)
+        if b > a:
+            busy, end = busy + b - a, b
+    return busy / 1e3, (hi - lo) / 1e3
+
+
+def same_schedule(a, b) -> bool:
+    """Two SuperstepPrograms with the same groups, canonical tables,
+    attrs, plans and counters."""
+    return (a.groups() == b.groups() and a.n_recorded == b.n_recorded
+            and (a.n_coalesced, a.n_eliminated, a.n_merged, a.n_overlapped,
+                 a.n_rewritten, a.n_hoisted) == (
+                b.n_coalesced, b.n_eliminated, b.n_merged, b.n_overlapped,
+                b.n_rewritten, b.n_hoisted)
+            and all(x.table == y.table and x.attrs == y.attrs
+                    and x.merged_from == y.merged_from
+                    and x.rewrite == y.rewrite
+                    and x.plan.method == y.plan.method
+                    and x.plan.cost == y.plan.cost
+                    for x, y in zip(a.steps, b.steps)))
+
+
+def program_phase(dev, fit: dict) -> list:
+    """(o): each canned trace at the card's size through a context that
+    prices with phase 6's fit: the searched schedule, its signature and
+    certificate, values bit-equal to recorded-order execution and the
+    ledger ``ledger_costs`` gives, dispatched against compiled (a CUDA
+    graph) end to end and the schedule alone (CUDA events, median of
+    ``PROGRAM_REPLAYS``), measured over predicted, and the cache's
+    entries, artifacts and replays."""
+    import torch
+    from repro_torch import core as lpf
+    from repro_torch.analysis import traces
+    from repro_torch.core.program import TRIAL_CALLS
+    hw = fitted_hardware(lpf, fit)
+    out = []
+    for name, builder, args in CANNED_CARD:
+        p, slots, steps, scratch = getattr(traces, builder)(*args)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        init = {s.sid: torch.randint(-(1 << 20), 1 << 20, (p, s.size),
+                                     dtype=torch.int32, device=dev,
+                                     generator=gen) for s in slots}
+
+        def bind(compiled):
+            pc = lpf.ProgramCache()
+            ctx = lpf.LPFContext(p, device=dev, hardware=hw,
+                                 program_cache=pc)
+            ctx.compile_programs = compiled
+            return (ctx, pc) + traces.bind_trace(ctx, slots, steps, scratch,
+                                                 init, label=name)
+
+        def values(ctx, handles):
+            return {sid: ctx.value(h) for sid, h in handles.items()}
+
+        def equal(a, b):
+            return all(torch.equal(a[k], b[k]) for k in a)
+
+        ctx, _, run, _, handles, _ = bind(False)
+        run(recorded=False)                 # recorded order, eager syncs
+        ref = values(ctx, handles)
+        machine = ctx._machine()
+        t0 = time.perf_counter()
+        searched = lpf.optimize_program(steps, p, machine, scratch=scratch)
+        search_ms = (time.perf_counter() - t0) * 1e3
+        peephole = lpf.optimize_program(steps, p, machine, scratch=scratch,
+                                        search=False)
+        row = dict(name=name, args=list(args), p=p,
+                   g_s_per_byte=machine.g, l_s=machine.l,
+                   mib_per_process=sum(s.size for s in slots) * 4 / 2**20,
+                   groups=[list(g) for g in searched.groups()],
+                   rewrites=[st.rewrite for st in searched.steps],
+                   search_ms=search_ms,
+                   predicted_ms=searched.predicted_seconds(machine) * 1e3,
+                   peephole_ms=peephole.predicted_seconds(machine) * 1e3,
+                   in_order_ms=searched.in_order_seconds(machine) * 1e3)
+        del ctx
+        for mode in ("dispatched", "compiled"):
+            ctx, pc, run, reset, handles, bound = bind(mode == "compiled")
+            labels = [st.label for st in bound]
+            n0 = len(ctx.ledger.records)
+            run()
+            prog = ctx.last_program
+            order, sig = pc.canonicalize(bound, p, ctx._scratch)
+            check(equal(values(ctx, handles), ref),
+                  f"{name} {mode}: values differ from recorded order")
+            check(ctx.ledger.records[n0:] == prog.ledger_costs(labels, order),
+                  f"{name} {mode}: ledger is not ledger_costs")
+            check(same_schedule(prog, searched),
+                  f"{name} {mode}: schedule differs from the host's search")
+            check(sig == lpf.program_signature(steps, p, scratch),
+                  f"{name} {mode}: signature differs from the host's")
+            cert = pc.certificate(pc.keys()[0])
+            check(cert is not None and cert.ok, f"{name}: certificate {cert}")
+            if mode == "compiled":
+                (cp,) = pc.artifacts()
+                # the timed eager calls, the capture and the timed
+                # replays, until the program has chosen
+                while cp.use_graph is None and cp.n_calls < 4 * TRIAL_CALLS:
+                    reset()
+                    run()
+                    check(equal(values(ctx, handles), ref),
+                          f"{name}: call {cp.n_calls} (replays "
+                          f"{cp.n_replays}) differs from recorded order")
+                check(cp.use_graph is not None and cp.n_replays > 0,
+                      f"{name}: {cp.n_calls} calls, {cp.n_replays} replays, "
+                      f"no choice")
+            reset()
+            times = [events_ms(run) for _ in range(PROGRAM_REPLAYS)]
+            reset()
+            run()
+            check(equal(values(ctx, handles), ref),
+                  f"{name} {mode}: replayed values differ")
+            # the schedule alone: the compiled artifact's copies and
+            # replay, or the dispatched execute_schedule on the registry
+            slot_list = lpf.trace_slot_map(bound, order)
+            if mode == "compiled":
+                vals = [ctx.registry.value(s) for s in slot_list]
+                sv = ctx.registry.value(ctx._scratch) \
+                    if cp.scratch is not None else None
+                sched = [events_ms(lambda: cp(vals, sv))
+                         for _ in range(PROGRAM_REPLAYS)]
+                check(len(pc) == 1 and len(pc.artifacts()) == 1,
+                      f"{name}: {len(pc)} programs, "
+                      f"{len(pc.artifacts())} artifacts")
+                row.update(n_calls=cp.n_calls, n_replays=cp.n_replays,
+                           use_graph=cp.use_graph,
+                           trial_eager_ms=min(cp.eager_s) * 1e3,
+                           trial_graph_ms=min(cp.replay_s) * 1e3,
+                           copy_bytes=cp.copy_bytes,
+                           copy_bound_ms=2 * cp.copy_bytes
+                           / HBM_BYTES_PER_S * 1e3)
+                del cp, vals, sv
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                pc.clear()
+                row["cache_held_mb"] = \
+                    (held - torch.cuda.memory_allocated()) / 1e6
+            else:
+                entries = prog.materialize(bound, labels, order=order)
+                sched = [events_ms(lambda: lpf.execute_schedule(
+                    entries, prog.groups(), ctx.registry,
+                    scratch=ctx._scratch)) for _ in range(PROGRAM_REPLAYS)]
+                check(len(pc) == 1 and not pc.artifacts(),
+                      f"{name}: dispatched cache {len(pc)}")
+            check(not pc.quarantined and pc.stats.compile_fallbacks == 0,
+                  f"{name} {mode}: quarantined {pc.compile_errors}")
+            row[f"{mode}_ms"] = statistics.median(times)
+            row[f"{mode}_schedule_ms"] = statistics.median(sched)
+            row[f"{mode}_over_predicted"] = \
+                row[f"{mode}_ms"] / row["predicted_ms"]
+            row[f"{mode}_schedule_over_predicted"] = \
+                row[f"{mode}_schedule_ms"] / row["predicted_ms"]
+            if mode == "compiled":
+                row["explain"] = prog.explain(machine)
+            del ctx, pc, run, reset, handles, bound
+            torch.cuda.empty_cache()
+        out.append(row)
+        print("program " + json.dumps(row), flush=True)
+        print(f"program {name}: predicted {row['predicted_ms']:.3f} ms "
+              f"(peephole {row['peephole_ms']:.3f}, in order "
+              f"{row['in_order_ms']:.3f}); dispatched "
+              f"{row['dispatched_ms']:.3f} ms, compiled "
+              f"{row['compiled_ms']:.3f} ms; the schedule alone "
+              f"{row['dispatched_schedule_ms']:.3f} / "
+              f"{row['compiled_schedule_ms']:.3f} ms; timed calls eager "
+              f"{row['trial_eager_ms']:.3f}, graph "
+              f"{row['trial_graph_ms']:.3f} ms: "
+              f"{'graph' if row['use_graph'] else 'eager'}", flush=True)
+        del init, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def settle(lpf, fn, limit: int = 12) -> None:
+    """Call ``fn`` until every compiled program it runs has timed its
+    eager calls against its graph replays and chosen (at most ``limit``
+    calls), so the timings that follow see the chosen way."""
+    pc = lpf.global_program_cache()
+    calls = {id(a): a.n_calls for a in pc.artifacts()}
+    fn()
+    mine = [a for a in pc.artifacts() if a.n_calls > calls.get(id(a), 0)]
+    for _ in range(limit):
+        if all(a.use_graph is not None for a in mine):
+            return
+        fn()
+
+
+def programs_replayed(lpf, path: str, seen: set) -> dict:
+    """The compiled programs ``path`` added to the process-wide cache
+    (those whose ids are not in ``seen``, which gains them): each one's
+    calls, replays, timed eager and graph ms and choice, and the device
+    memory allocated now.  Fails if a key is quarantined, if a program
+    that chose never replayed, or if none replayed."""
+    import torch
+    pc = lpf.global_program_cache()
+    arts = [a for a in pc.artifacts() if id(a) not in seen]
+    seen.update(id(a) for a in arts)
+
+    def fastest(ts):
+        return min(ts) * 1e3 if ts else None
+
+    out = dict(path=path, programs=len(pc), artifacts=len(arts),
+               kept_graphs=sum(a.captured for a in arts),
+               replays=sum(a.n_replays for a in arts),
+               calls=sum(a.n_calls for a in arts),
+               quarantined=len(pc.quarantined),
+               allocated_gb=torch.cuda.memory_allocated() / 1e9,
+               each=[dict(steps=[st.label for st in a.prog.steps],
+                          calls=a.n_calls, replays=a.n_replays,
+                          graph=a.use_graph, eager_ms=fastest(a.eager_s),
+                          graph_ms=fastest(a.replay_s),
+                          copy_bytes=a.copy_bytes) for a in arts])
+    print("program cache " + json.dumps(out), flush=True)
+    check(not pc.quarantined and pc.stats.compile_fallbacks == 0,
+          f"{path}: quarantined programs {pc.compile_errors}")
+    check(all(a.n_replays > 0 for a in arts if a.use_graph is not None),
+          f"{path}: a program chose without replaying")
+    check(out["replays"] > 0, f"{path}: no compiled program replayed")
+    return out
+
+
+def cache_footprint(lpf, label: str, base: int = None) -> dict:
+    """The device memory the process-wide program cache holds — what
+    emptying it frees: kept graphs with their memory pools and input
+    buffers — and, from ``base``, the peak allocated above it since the
+    peak was last reset; then empties the cache."""
+    import gc
+    import torch
+    pc = lpf.global_program_cache()
+    arts = pc.artifacts()
+    out = dict(label=label, programs=len(pc), artifacts=len(arts),
+               kept_graphs=sum(a.captured for a in arts))
+    del arts
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    pc.clear()
+    gc.collect()
+    out["held_gb"] = (held - torch.cuda.memory_allocated()) / 1e9
+    if base is not None:
+        out["peak_above_base_gb"] = \
+            (torch.cuda.max_memory_allocated() - base) / 1e9
+    print("program cache memory " + json.dumps(out), flush=True)
+    return out
 
 
 def profile_bsp_fft(bsp_fft, x, wall_ms: float) -> dict:
@@ -1756,13 +2190,35 @@ def main() -> int:
     check(launches > 0, "the main path never launched fft_planes")
     for row in main_rows:
         ordered = row["ordered"]
-        row["e2e_ms"] = host_ms(lambda: bsp_fft(
-            x, p=P_MAIN, ordered=ordered, use_kernel=True, device="cuda"))
+
+        def fft_run():
+            return bsp_fft(x, p=P_MAIN, ordered=ordered, use_kernel=True,
+                           device="cuda")
+
+        settle(lpf, fft_run)
+        row["e2e_ms"] = host_ms(fft_run)
+        y_compiled = fft_run()
+        # the same calls with every program dispatched superstep by
+        # superstep (LPF_COMPILE_PROGRAMS=0)
+        os.environ["LPF_COMPILE_PROGRAMS"] = "0"
+        try:
+            row["e2e_ms_dispatched"] = host_ms(fft_run)
+            y_dispatched = fft_run()
+        finally:
+            del os.environ["LPF_COMPILE_PROGRAMS"]
+        check(torch.equal(y_compiled, y_dispatched),
+              f"bsp_fft ordered={ordered}: compiled replay differs from "
+              f"the dispatched schedule")
         row["e2e_ms_plain_local_fft"] = host_ms(lambda: bsp_fft(
             x, p=P_MAIN, ordered=ordered, use_kernel=False, device="cuda"))
         print(f"bsp_fft N=2^24 p=8 ordered={ordered}: {row['e2e_ms']:.3f} "
-              f"ms with fft_stage, {row['e2e_ms_plain_local_fft']:.3f} ms "
-              f"with torch.fft", flush=True)
+              f"ms with fft_stage (compiled programs; dispatched "
+              f"{row['e2e_ms_dispatched']:.3f}), "
+              f"{row['e2e_ms_plain_local_fft']:.3f} ms with torch.fft",
+              flush=True)
+        del y_compiled, y_dispatched
+    programs_replayed(lpf, "bsp_fft", set())
+    cache_footprint(lpf, "bsp_fft")
     profile_bsp_fft(bsp_fft, x, main_rows[0]["e2e_ms"])
 
     # 6. (g, l) of the virtual-process link ----------------------------------
@@ -1781,9 +2237,20 @@ def main() -> int:
                          built["ssd_scan"].log)
     mamba = mamba_phases(np.random.default_rng([SEED, 5]), dev)
 
-    # (m) the BSP collectives, (n) PageRank ----------------------------------
+    # (m) the BSP collectives, (n) PageRank, (o) the canned programs ------
+    # one process-wide program cache across (m) and (n), emptied only
+    # after (o): what it holds, and the peak above the memory before (m)
+    lpf.global_program_cache().clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    seen = set()
     collectives_phase(dev, fit)
+    programs_replayed(lpf, "collectives", seen)
     pagerank_phase(dev, fit)
+    programs_replayed(lpf, "pagerank", seen)
+    program_phase(dev, fit)
+    cache_footprint(lpf, "collectives and pagerank", base)
 
     # 7. result lines ----------------------------------------------------------
     big = [r for r in rows if r["n"] == N_MAIN // P_MAIN and not r["inverse"]][0]

@@ -133,7 +133,8 @@ def pagerank_spmd(ctx: LPFContext, g: PartitionedGraph, shard: dict, *,
     pack_idx [p, send_max], dangling [p, rows].  Returns (r [p, rows],
     iterations, l1 residual [p], the same on every process).  The loop
     runs through ``ctx.compile_loop``, its condition read on the host
-    once an iteration."""
+    once an iteration; the carry holds only tensors (the iteration count
+    too), so on the card the body is captured once and replayed."""
     rows, n, p = g.rows, g.n, ctx.p
     spmv = _SpMV(g, shard)
     shard = dict(shard, pack_idx=shard["pack_idx"].long())
@@ -149,7 +150,7 @@ def pagerank_spmd(ctx: LPFContext, g: PartitionedGraph, shard: dict, *,
 
     def cond(carry):
         _, _, it, res = carry
-        return it < max_iter and bool(res[0] > tol)
+        return bool((it < max_iter) & (res[0] > tol))
 
     def body(ctx2, carry):
         r, dmass, it, _ = carry
@@ -157,10 +158,11 @@ def pagerank_spmd(ctx: LPFContext, g: PartitionedGraph, shard: dict, *,
                                       alpha, attrs)
         return (r_new, dnew, it + 1, res)
 
+    it0 = torch.zeros((), dtype=torch.int64, device=ctx.device)
     r, _, iters, res = ctx.compile_loop(
-        body, (r0, stats0[:, 0], 0, torch.full_like(zeros, float("inf"))),
+        body, (r0, stats0[:, 0], it0, torch.full_like(zeros, float("inf"))),
         cond=cond, label="pr.iter")
-    return r, iters, res
+    return r, int(iters), res
 
 
 def lpf_pagerank(p: int, g: PartitionedGraph, *, alpha: float = 0.85,

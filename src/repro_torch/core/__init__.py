@@ -29,9 +29,15 @@ from .errors import (LPF_ERR_FATAL, LPF_ERR_OUT_OF_MEMORY,
 from .faultpoints import InjectedFault
 from .machine import H100_SXM, HardwareModel, LinkModel, LPFMachine, probe
 from .memslot import Slot, SlotRegistry, replicate
-from .program import ProgramStep, dependency_cone
-from .sync import (CacheStats, EXECUTED_METHODS, Msg, PlanCache, RoundPlan,
-                   SuperstepPlan, conflict_free, execute_plan, execute_sync,
+from .program import (CompiledProgram, OptimizedStep, ProgramCache,
+                      ProgramStep, SuperstepProgram, canonical_order,
+                      compile_program, dependency_cone,
+                      global_program_cache, optimize_program,
+                      program_signature, simulate_program, trace_slot_map)
+from .sync import (CacheStats, EXECUTED_METHODS, Msg, OVERLAPPABLE_METHODS,
+                   PlanCache, RoundPlan, SuperstepPlan, ValueStore,
+                   begin_plan, conflict_free, execute_overlapped,
+                   execute_plan, execute_schedule, execute_sync,
                    find_conflict, global_plan_cache, plan_cost,
                    plan_signature, plan_sync)
 
@@ -39,8 +45,10 @@ __all__ = [
     "LPFContext", "exec_", "hook", "rehook", "resolve_device",
     "SyncAttributes", "CompressSpec", "LPF_SYNC_DEFAULT",
     "CostLedger", "SuperstepCost", "FUSED_METHODS",
-    "OVERLAP_L_FRACTION", "overlap_cost", "schedule_seconds",
-    "conflict_free", "find_conflict", "dependency_cone",
+    "OVERLAP_L_FRACTION", "overlap_cost", "OVERLAPPABLE_METHODS",
+    "schedule_seconds", "conflict_free", "find_conflict",
+    "canonical_order",
+    "begin_plan", "execute_overlapped", "dependency_cone",
     "LPFError", "LPFCapacityError", "LPFFatalError", "LPFAnalysisError",
     "LPFTransientError", "classify", "InjectedFault",
     "LPF_SUCCESS", "LPF_ERR_OUT_OF_MEMORY", "LPF_ERR_FATAL",
@@ -51,5 +59,8 @@ __all__ = [
     "plan_sync", "plan_signature", "plan_cost", "execute_plan",
     "execute_sync",
     "EXECUTED_METHODS", "global_plan_cache",
-    "ProgramStep",
+    "ProgramStep", "OptimizedStep", "SuperstepProgram", "ProgramCache",
+    "CompiledProgram", "compile_program", "trace_slot_map",
+    "program_signature", "optimize_program", "global_program_cache",
+    "simulate_program", "ValueStore", "execute_schedule",
 ]

@@ -13,7 +13,12 @@ processes at once: ``s`` is the ``[p, 1]`` pid tensor.
 
 The context is imperative (mirroring the C API): ``put``/``get`` stage
 messages, ``sync`` plans and executes the superstep, slot values are read
-back with ``value``/``tensor``.
+back with ``value``/``tensor``.  Supersteps recorded with
+``ctx.program()`` flush as one program, as in the JAX package: canonical
+order, the :class:`~repro_torch.core.program.ProgramCache`, the schedule
+verifier's certificate, then the searched schedule — compiled
+(:class:`~repro_torch.core.program.CompiledProgram`: a CUDA graph on the
+card) or dispatched superstep by superstep.
 
 Entry points run on the card: ``device`` defaults to ``"cuda"`` and a
 context never falls back to the CPU when no GPU is present — pass
@@ -23,19 +28,24 @@ context never falls back to the CPU when no GPU is present — pass
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from . import faultpoints as _fp
 from .attrs import LPF_SYNC_DEFAULT, SyncAttributes
 from .cost import CostLedger, SuperstepCost
-from .errors import LPFCapacityError, LPFFatalError
+from .errors import (LPFAnalysisError, LPFCapacityError, LPFError,
+                     LPFFatalError)
 from .machine import H100_SXM, HardwareModel, LPFMachine, probe as _probe
 from .memslot import Slot, SlotRegistry, replicate
-from .program import ProgramStep, dependency_cone
-from .sync import Msg, PlanCache, execute_plan, global_plan_cache
+from .program import (ProgramCache, ProgramStep, compile_program,
+                      dependency_cone, global_program_cache, trace_slot_map)
+from .sync import (Msg, PlanCache, _capturing, execute_plan,
+                   execute_schedule, global_plan_cache, keep_indices)
 
 __all__ = ["LPFContext", "exec_", "hook", "rehook", "resolve_device"]
 
@@ -64,12 +74,25 @@ def _per_pid(value: PidFn, p: int, name: str) -> List[int]:
     return out
 
 
+class _CacheStatsView(dict):
+    """``ctx.cache_stats``: a dict of the memo layers' counter objects
+    (``plan``/``program``) with a ``reset()`` that zeroes them in place —
+    replay measurements take hit/miss deltas with the caches warm."""
+
+    def reset(self) -> None:
+        for stats in self.values():
+            stats.reset()
+
+
 class LPFContext:
     """The LPF state of ``p`` virtual processes on one device (``lpf_t``)."""
 
     def __init__(self, p: int = 1, *, device="cuda",
                  hardware: HardwareModel = H100_SXM,
-                 plan_cache: Optional[PlanCache] = None):
+                 plan_cache: Optional[PlanCache] = None,
+                 program_cache: Optional[ProgramCache] = None,
+                 sanitize: Optional[bool] = None,
+                 _parent: Optional["LPFContext"] = None):
         if int(p) < 1:
             raise LPFFatalError(f"a context needs p >= 1, got {p}")
         self.p: int = int(p)
@@ -83,6 +106,39 @@ class LPFContext:
         #: memoised superstep plans; shared process-wide by default
         self.plan_cache = plan_cache if plan_cache is not None \
             else global_plan_cache()
+        #: memoised optimized programs; shared process-wide by default
+        self.program_cache = program_cache if program_cache is not None \
+            else global_program_cache()
+        #: run optimized programs as :class:`CompiledProgram` (a CUDA graph
+        #: on the card, the plain version on the CPU) and capture
+        #: ``compile_loop`` bodies; ``LPF_COMPILE_PROGRAMS=0`` forces the
+        #: dispatched path.  The ledger is identical either way.
+        self.compile_programs: bool = \
+            os.environ.get("LPF_COMPILE_PROGRAMS", "1") != "0"
+        #: the most recently executed optimized program — inspect the
+        #: searched schedule with ``ctx.last_program.explain(machine)``
+        self.last_program = None
+        #: sanitizer mode (``LPF_SANITIZE=1`` or ``sanitize=True``): every
+        #: staged message is checked against live registrations and every
+        #: flushed trace is linted (``repro_torch.analysis.linter``) —
+        #: error diagnostics raise :class:`LPFAnalysisError` before any
+        #: data moves, warnings accumulate on :attr:`diagnostics`.
+        #: Sub-contexts (hook, compile_loop) inherit the parent's setting
+        #: and diagnostics list.
+        if sanitize is None:
+            sanitize = _parent.sanitize if _parent is not None \
+                else os.environ.get("LPF_SANITIZE", "0") != "0"
+        self.sanitize: bool = bool(sanitize)
+        self.diagnostics: List[Any] = [] if _parent is None \
+            else _parent.diagnostics
+        self._rec_registered: List[Slot] = []
+        self._gate_machine: Optional[LPFMachine] = None
+        #: ``compile_loop`` iterations run as a replay of the captured
+        #: body, captures that failed (each falls back to eager
+        #: iterations), and their exceptions
+        self.loop_graph_replays = 0
+        self.loop_graph_fallbacks = 0
+        self.loop_graph_errors: List[BaseException] = []
         self.ledger = CostLedger()
         self._queue: List[Msg] = []
         self._queue_capacity = 0
@@ -178,12 +234,21 @@ class LPFContext:
     # ------------------------------------------------------------------
     def register_global(self, name: str, value, flatten: bool = True) -> Slot:
         """Register ``value`` (leading dimension ``p``) collectively."""
-        return self.registry.register(name, value, "global", flatten)
+        slot = self.registry.register(name, value, "global", flatten)
+        if self._rec_depth and self.sanitize:
+            self._rec_registered.append(slot)
+        return slot
 
     def register_local(self, name: str, value, flatten: bool = True) -> Slot:
-        return self.registry.register(name, value, "local", flatten)
+        slot = self.registry.register(name, value, "local", flatten)
+        if self._rec_depth and self.sanitize:
+            self._rec_registered.append(slot)
+        return slot
 
     def deregister(self, slot: Slot) -> None:
+        self._rec_registered = [
+            s for s in self._rec_registered
+            if not (s.sid == slot.sid and s.gen == slot.gen)]
         if self._rec_depth and self._pending_refs(slot):
             # a recorded superstep still moves data through this slot;
             # deregistration takes effect when the trace flushes
@@ -215,6 +280,17 @@ class LPFContext:
         # extents/dtypes/kinds are checked the moment a transfer is staged
         for m in msgs:
             m.validate(self.p)
+        if self.sanitize:
+            for m in msgs:
+                for slot in (m.src_slot, m.dst_slot):
+                    if not slot.gen:
+                        continue   # synthetic handle, never registered
+                    if not self.registry.is_registered(slot) or any(
+                            d.sid == slot.sid and d.gen == slot.gen
+                            for d in self._rec_deferred_dereg):
+                        raise LPFAnalysisError(
+                            f"LPF003: staged transfer uses deregistered "
+                            f"slot {slot}")
         self._queue.extend(msgs)
 
     def put(self, src_slot: Slot, dst_slot: Slot, *, to: PidFn,
@@ -280,6 +356,9 @@ class LPFContext:
                 ProgramStep(tuple(self._queue), attrs, label))
             self._queue = []
             return None
+        if self.sanitize and self._queue:
+            self._sanitize_lint(
+                [ProgramStep(tuple(self._queue), attrs, label)])
         cost = self._execute(self._queue, attrs, label)
         self._queue = []
         return cost
@@ -316,6 +395,16 @@ class LPFContext:
         self._rec_marks.pop()
         if self._rec_depth == 0:
             self._flush_program()
+            if self.sanitize and self._rec_registered:
+                from ..analysis.linter import Diagnostic, WARNING
+                for slot in self._rec_registered:
+                    if self.registry.is_registered(slot):
+                        self.diagnostics.append(Diagnostic(
+                            "LPF003", WARNING, -1,
+                            f"slot {slot} registered during the "
+                            f"recording is still registered at "
+                            f"end_record (leak?)"))
+            self._rec_registered = []
 
     def abort_record(self) -> None:
         """Abandon one level of recording: the supersteps recorded at
@@ -328,6 +417,8 @@ class LPFContext:
         mark = self._rec_marks.pop()
         del self._rec_pending[mark:]
         self._queue = []
+        if self._rec_depth == 0:
+            self._rec_registered = []
 
     @contextlib.contextmanager
     def program(self, label: str = ""):
@@ -349,11 +440,110 @@ class LPFContext:
         return any(m.dst_slot.sid == slot.sid or m.src_slot.sid == slot.sid
                    for st in self._rec_pending for m in st.msgs)
 
+    def _machine(self) -> LPFMachine:
+        """The (g, l) machine the optimizer's cost gates price with: this
+        context's own probe (the ``"vp"`` link of its ``p`` processes)."""
+        if self._gate_machine is None:
+            self._gate_machine = self.probe()
+        return self._gate_machine
+
     def _execute_steps(self, steps: List[ProgramStep]) -> None:
-        """Execute a flushed trace in recorded order: one planned
-        superstep, and one ledger entry, per recorded sync."""
-        for st in steps:
-            self._execute(st.msgs, st.attrs, st.label)
+        """Optimize (or fetch the cached optimization of) one trace and
+        execute it, as the JAX package's flush does: canonical order,
+        the program cache, the verifier's certificate (a schedule that
+        fails it is refused before any data moves), then the compiled
+        program or the dispatched schedule.  The ledger gains one entry
+        per *optimized* superstep — its plan's predicted cost — and one
+        ``overlap_cost`` entry per overlap group; ``materialize`` and
+        ``ledger_costs`` resolve the program's canonical ranks against
+        this trace's own canonical order, so labels stay attached to the
+        right recorded steps whatever order the scheduler emitted.
+
+        With :attr:`compile_programs` (the default) the schedule runs as
+        a :class:`CompiledProgram` — on the card, CUDA graph replay where
+        its first calls timed it faster than eager calls, else the
+        dispatched schedule; the plain version on the CPU.  A compilation or replay failure that is
+        not an :class:`LPFError` quarantines the key on this device
+        (``program_cache.compile_errors`` keeps the exception) and the
+        dispatched schedule runs instead: the same certified program, the
+        same ledger.  An ``LPFError`` propagates.  Inside a CUDA-graph
+        capture (a ``compile_loop`` body) the dispatched schedule runs, so
+        no graph is launched inside another's capture."""
+        order, sig = self.program_cache.canonicalize(steps, self.p,
+                                                     self._scratch)
+        prog, key = self.program_cache.get_or_build_keyed(
+            steps, self.p, self._machine(), plan_cache=self.plan_cache,
+            scratch=self._scratch, order=order, signature=sig)
+        self.last_program = prog
+        cert = self.program_cache.certify(key, steps, prog,
+                                          scratch=self._scratch,
+                                          order=order)
+        if not cert.ok:
+            raise LPFAnalysisError(
+                "schedule verification failed; refusing to execute:\n  "
+                + "\n  ".join(str(d) for d in cert.diagnostics))
+        if self.sanitize:
+            self._sanitize_lint(steps, prog, order)
+        labels = [st.label for st in steps]
+        dev = str(self.device)
+        cp = None
+        if self.compile_programs and not _capturing(self.device) and \
+                not self.program_cache.compile_quarantined(key, dev):
+            cp = self.program_cache.compiled(key, dev)
+            if cp is None:
+                try:
+                    cp = compile_program(prog, steps, order, self.p,
+                                         self.device, scratch=self._scratch)
+                except LPFError:
+                    raise
+                except Exception as e:
+                    self.program_cache.quarantine_compile(key, dev, e)
+                else:
+                    self.program_cache.set_compiled(key, dev, cp)
+        if cp is not None and cp.use_graph is False:
+            # its graph lost to eager calls: the dispatched schedule is
+            # the eager way, on the registry itself
+            cp = None
+        if cp is not None:
+            slots = trace_slot_map(steps, order)
+            vals = [self.registry.value(s) for s in slots]
+            scratch_val = self.registry.value(self._scratch) \
+                if cp.scratch is not None else None
+            try:
+                out = cp(vals, scratch_val)
+            except LPFError:
+                raise
+            except Exception as e:
+                # nothing was written back: the dispatched schedule below
+                # starts from the same values
+                self.program_cache.quarantine_compile(key, dev, e)
+                cp = None
+            else:
+                for sid, v in out.items():
+                    self.registry.set_value(
+                        self._scratch if sid < 0 else slots[sid], v)
+                costs = prog.ledger_costs(labels, order)
+        if cp is None:
+            entries = prog.materialize(steps, labels, order=order)
+            costs = execute_schedule(entries, prog.groups(), self.registry,
+                                     scratch=self._scratch)
+        for cost in costs:
+            self.ledger.add(cost)
+
+    def _sanitize_lint(self, steps: List[ProgramStep],
+                       prog=None, order=None) -> None:
+        """Sanitizer hook: lint a trace about to execute.  Error
+        diagnostics raise :class:`LPFAnalysisError` (before any data
+        moves); warnings accumulate on :attr:`diagnostics`."""
+        from ..analysis.linter import ERROR, lint_program, lint_trace
+        diags = list(lint_trace(steps, self.p, check_dead=False))
+        if prog is not None:
+            diags += lint_program(prog, steps, order=order)
+        errors = [d for d in diags if d.severity == ERROR]
+        if errors:
+            raise LPFAnalysisError(
+                "sanitize: " + "; ".join(str(d) for d in errors))
+        self.diagnostics.extend(diags)
 
     def _drain_deferred_dereg(self) -> None:
         still: List[Slot] = []
@@ -411,12 +601,29 @@ class LPFContext:
         ``n_iters``/``cond`` must be given.
 
         Each iteration runs against a fresh sub-context on this context's
-        device, hardware and plan cache, whose supersteps record as one
-        program (``sub.program(label)``).  As in the JAX package, which
-        traces the body once, the first iteration's superstep costs are
-        appended to this context's ledger once (the BSP model prices one
-        iteration; a loop that runs no iteration appends none).  With
-        ``collect`` (counted loops only) each iteration's
+        device, hardware, plan and program caches, whose supersteps record
+        as one program (``sub.program(label)``).  As in the JAX package,
+        which traces the body once whatever the trip count, the body's
+        superstep costs are appended to this context's ledger once (the
+        BSP model prices one iteration): those of the first iteration, or,
+        for a loop that runs none, of one run of the body on clones of
+        the carry whose result is discarded (the returned carry is the
+        one passed in).
+
+        On a CUDA context with :attr:`compile_programs`, when every leaf
+        of the carry (nested tuples, lists, dicts) is a tensor, the body
+        becomes one CUDA graph: the first iteration runs eagerly (it warms
+        the caches and gives the ledger), the second is captured over
+        static carry buffers and replayed, and every later iteration
+        replays it (:attr:`loop_graph_replays`).  Inside the capture the
+        sub-context runs its programs dispatched.  The captured body must
+        not read device values on the host, and must return tensors of
+        the carry's shapes and dtypes; a capture that fails falls back to
+        eager iterations (:attr:`loop_graph_fallbacks`,
+        :attr:`loop_graph_errors`).  A carry that holds host values
+        (Python ints) runs every iteration eagerly.
+
+        With ``collect`` (counted loops only) each iteration's
         ``collect(carry)``, a tensor, is stacked on a new leading axis and
         ``(final_carry, stacked)`` is returned; otherwise the final
         carry."""
@@ -431,27 +638,67 @@ class LPFContext:
         first: List[SuperstepCost] = []
         ys: List[torch.Tensor] = []
 
-        def one(c):
+        def one(c, ledger: bool = True):
             sub = LPFContext(self.p, device=self.device,
                              hardware=self.hardware,
-                             plan_cache=self.plan_cache)
+                             plan_cache=self.plan_cache,
+                             program_cache=self.program_cache,
+                             _parent=self)
+            sub.compile_programs = self.compile_programs
             with sub.program(label):
                 out = body(sub, c)
-            if not first:
+            if ledger and not first:
                 first.extend(sub.ledger.records)
                 for cost in first:
                     self.ledger.add(cost)
             return out
 
-        if cond is not None:
-            while bool(cond(carry)):
-                carry = one(carry)
-        else:
-            for _ in range(n_iters):
-                carry = one(carry)
-                if collect is not None:
-                    ys.append(collect(carry))
+        loop = None
+        # a loop inside another loop's capture is part of that graph
+        if self.compile_programs and self.device.type == "cuda" \
+                and not _capturing(self.device):
+            leaves = pytree.tree_leaves(carry)
+            if leaves and all(isinstance(t, torch.Tensor) for t in leaves):
+                loop = _LoopGraph(lambda c: one(c, ledger=False))
+        k = 0
+        while (k < n_iters) if cond is None else bool(cond(carry)):
+            replayed = False
+            if k > 0 and loop is not None:
+                try:
+                    carry = loop.step(carry)
+                    replayed = True
+                    self.loop_graph_replays += 1
+                except LPFError:
+                    raise
+                except Exception as e:
+                    self.loop_graph_fallbacks += 1
+                    self.loop_graph_errors.append(e)
+                    loop = None
+            if not replayed:
+                # the eager first iteration builds the index tensors that
+                # the capture reads
+                with keep_indices(loop.indices) if k == 0 and loop \
+                        else contextlib.nullcontext():
+                    carry = one(carry)
+            if collect is not None:
+                y = collect(carry)
+                # a replayed carry lives in buffers the next replay writes
+                ys.append(y.clone() if replayed else y)
+            k += 1
+        if k == 0:
+            out = one(pytree.tree_map_only(torch.Tensor, torch.clone, carry))
+            if collect is not None:
+                y = collect(out)
+                return carry, y.new_empty((0, *y.shape))
         return carry if collect is None else (carry, torch.stack(ys))
+
+    @property
+    def cache_stats(self) -> "_CacheStatsView":
+        """Hit/miss/eviction counters of both memo layers; call
+        ``.reset()`` on the returned view to zero the counters in place
+        (the caches stay warm) for delta measurements."""
+        return _CacheStatsView(plan=self.plan_cache.stats,
+                               program=self.program_cache.stats)
 
     # ------------------------------------------------------------------
     # introspection: lpf_probe
@@ -493,6 +740,52 @@ class LPFContext:
             slot.dtype))
 
 
+class _LoopGraph:
+    """A ``compile_loop`` body captured as one CUDA graph that feeds
+    itself: the body reads the static carry buffers and its result is
+    copied back into them inside the graph, so one replay advances the
+    carry by an iteration and the host only evaluates ``cond``."""
+
+    def __init__(self, run_body: Callable[[Any], Any]):
+        self.run_body = run_body
+        self.graph = None
+        self.inputs: List[torch.Tensor] = []
+        self.spec = None
+        #: the index tensors the graph reads (sync.keep_indices)
+        self.indices: dict = {}
+
+    def step(self, carry: Any) -> Any:
+        leaves, spec = pytree.tree_flatten(carry)
+        if self.graph is None:
+            self.inputs = [t.clone() for t in leaves]
+            graph = torch.cuda.CUDAGraph()
+            with keep_indices(self.indices), torch.cuda.graph(graph):
+                outs, _ = pytree.tree_flatten(self.run_body(
+                    pytree.tree_unflatten(self.inputs, spec)))
+                if len(outs) != len(self.inputs) or any(
+                        not isinstance(o, torch.Tensor)
+                        or o.shape != i.shape or o.dtype != i.dtype
+                        or o.device != i.device
+                        for o, i in zip(outs, self.inputs)):
+                    raise RuntimeError(
+                        "compile_loop body returned a carry of other "
+                        "leaves, shapes or dtypes than it was given")
+                held = {t.untyped_storage().data_ptr() for t in self.inputs}
+                # an output that shares memory with an input would be
+                # overwritten by an earlier copy back: copy it first
+                outs = [o.clone() if o.untyped_storage().data_ptr() in held
+                        else o for o in outs]
+                for i, o in zip(self.inputs, outs):
+                    i.copy_(o)
+            self.graph, self.spec = graph, spec
+        else:
+            for i, t in zip(self.inputs, leaves):
+                if t is not i:
+                    i.copy_(t)
+        self.graph.replay()
+        return pytree.tree_unflatten(self.inputs, self.spec)
+
+
 def _to_device(args: Any, device: torch.device) -> Any:
     """Move the tensors of ``args`` (nested tuples/lists/dicts) to
     ``device``; everything else passes through."""
@@ -508,16 +801,21 @@ def _to_device(args: Any, device: torch.device) -> Any:
 def hook(p: int, spmd: Callable, args: Any = None, *,
          device=None, hardware: HardwareModel = H100_SXM,
          plan_cache: Optional[PlanCache] = None,
+         program_cache: Optional[ProgramCache] = None,
          parent: Optional[LPFContext] = None) -> Any:
     """``lpf_hook``: run an LPF SPMD function over ``p`` virtual processes
     inside an existing computation — the caller's tensors stay where they
     are and no process is spawned.  Returns the function's output.  With
-    ``parent`` the child context inherits its device and plan cache."""
+    ``parent`` the child context inherits its device, plan and program
+    caches, and sanitizer setting."""
     if parent is not None:
         device = parent.device if device is None else device
         plan_cache = parent.plan_cache if plan_cache is None else plan_cache
+        if program_cache is None:
+            program_cache = parent.program_cache
     ctx = LPFContext(p, device="cuda" if device is None else device,
-                     hardware=hardware, plan_cache=plan_cache)
+                     hardware=hardware, plan_cache=plan_cache,
+                     program_cache=program_cache, _parent=parent)
     return spmd(ctx, ctx.pid, ctx.p, args)
 
 

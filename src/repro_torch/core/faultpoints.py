@@ -7,11 +7,13 @@ executed path is the same as a build without fault injection.
 
 Seams the port fires so far (:data:`SEAMS`): ``capacity``
 (:meth:`repro_torch.core.context.LPFContext._stage` — injected capacity
-exhaustion, a mitigable ``LPFCapacityError``), ``serve_admit`` and
+exhaustion, a mitigable ``LPFCapacityError``), ``compile``
+(:func:`repro_torch.core.program.compile_program` — a failure the flush
+degrades around to the dispatched schedule), ``serve_admit`` and
 ``serve_decode`` (:class:`repro_torch.runtime.server.LPFServer` —
 admission and decode faults, refused or retried classified).  The JAX
-package's other seams (``persist_save``, ``persist_load``, ``compile``,
-``straggler``) come with the modules that fire them (ROADMAP A4, A7).
+package's other seams (``persist_save``, ``persist_load``,
+``straggler``) come with the modules that fire them (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Optional
 __all__ = ["InjectedFault", "SEAMS", "fire"]
 
 #: the seams the port fires; an injector's plan may target these
-SEAMS = ("capacity", "serve_admit", "serve_decode")
+SEAMS = ("compile", "capacity", "serve_admit", "serve_decode")
 
 
 class InjectedFault(RuntimeError):

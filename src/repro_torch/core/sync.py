@@ -16,11 +16,15 @@ stages as in the JAX package:
 * **cache** — :class:`PlanCache` memoises plans under a canonical
   signature of ``(p, attributes, message table)`` with slot ids renamed to
   first-occurrence indices.
-* **execute** — :func:`execute_plan` lowers a :class:`SuperstepPlan` to
-  row and column copies, rolls and reductions over the stacked
-  ``[p, size]`` slot values of the ``p`` virtual processes
-  (:mod:`repro_torch.core.memslot`) and returns the (already predicted)
-  cost.
+* **execute** — :func:`begin_plan` lowers a :class:`SuperstepPlan`
+  split-phase to row and column copies, rolls and reductions over the
+  stacked ``[p, size]`` slot values of the ``p`` virtual processes
+  (:mod:`repro_torch.core.memslot`): a start half that only reads and a
+  finish closure that only writes.  :func:`execute_plan` runs both
+  halves and returns the (already predicted) cost;
+  :func:`execute_overlapped` runs an overlap group's starts before its
+  finishes, and :func:`execute_schedule` issues a whole optimized
+  program against a registry or a :class:`ValueStore`.
 
 Every method the planner returns executes: ``noop``, ``seq`` (p == 1),
 ``direct`` (coloured rounds, the uniform-permutation fast path,
@@ -36,15 +40,16 @@ one reshape, permute or reduction of the stacked ``[p, size]`` block.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
-from typing import Dict, Hashable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .attrs import SyncAttributes
-from .cost import SuperstepCost
+from .cost import SuperstepCost, overlap_cost
 from .errors import LPFFatalError
 from .memslot import Slot, SlotRegistry, as_torch_dtype, dtype_name
 
@@ -52,7 +57,8 @@ __all__ = [
     "Msg", "RoundPlan", "SuperstepPlan", "PlanCache", "CacheStats",
     "plan_sync", "plan_signature", "execute_plan", "execute_sync",
     "plan_cost", "conflict_free", "find_conflict", "global_plan_cache",
-    "EXECUTED_METHODS",
+    "EXECUTED_METHODS", "OVERLAPPABLE_METHODS", "begin_plan",
+    "execute_overlapped", "execute_schedule", "ValueStore",
 ]
 
 
@@ -831,9 +837,6 @@ def global_plan_cache() -> PlanCache:
     return _GLOBAL_PLAN_CACHE
 
 
-
-
-
 # ==========================================================================
 # Stage 3: EXECUTE — row and column views of the stacked store
 # ==========================================================================
@@ -844,9 +847,67 @@ def global_plan_cache() -> PlanCache:
 # before the writes stays the pre-superstep state.  Payloads move as row
 # and column views of the ``[p, size]`` values; index tensors have length
 # p (or p * p for Bruck's working rows), never the payload's length.
+#
+# Each method lowers split-phase (:func:`begin_plan`): a *start* half that
+# only reads slot values and computes the payloads, and a *finish* closure
+# that applies the slot writes.  The store is functional — no tensor a slot
+# holds is ever written in place — so the start half's views stay valid
+# whatever the finish halves of an overlap group write.
+
+#: index tensors kept on their device, keyed by (values, device): a
+#: superstep replayed with the same table reuses them instead of copying
+#: its index table from the host again — a pageable host-to-device copy,
+#: which CUDA-graph capture refuses
+_INDEX_MEMO: "collections.OrderedDict[Tuple, torch.Tensor]" = \
+    collections.OrderedDict()
+_INDEX_MEMO_SIZE = 8192
+#: the key -> tensor dicts of the :func:`keep_indices` blocks now open
+_INDEX_KEEPERS: List[Dict[Tuple, torch.Tensor]] = []
+
+
+def _capturing(device: torch.device) -> bool:
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+@contextlib.contextmanager
+def keep_indices(kept: Dict[Tuple, torch.Tensor]):
+    """Record into ``kept`` every index tensor :func:`_index` returns in
+    the block, and look tables up there when the memo has dropped them.
+
+    A CUDA graph reads its index tensors on every replay but holds no
+    reference to them, and the memo is an LRU: whoever owns a graph owns
+    the ``kept`` dict of its capture, so the tensors live as long as the
+    graph."""
+    _INDEX_KEEPERS.append(kept)
+    try:
+        yield kept
+    finally:
+        _INDEX_KEEPERS.remove(kept)
+
 
 def _index(arr, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(arr, np.int64)).to(device)
+    """``arr`` (1-D ints) as an int64 tensor on ``device``, built once and
+    kept (:data:`_INDEX_MEMO`, and the open :func:`keep_indices`)."""
+    key = (tuple(np.asarray(arr, np.int64).reshape(-1).tolist()),
+           torch.device(device))
+    t = _INDEX_MEMO.get(key)
+    if t is not None:
+        _INDEX_MEMO.move_to_end(key)
+    else:
+        t = next((k[key] for k in _INDEX_KEEPERS if key in k), None)
+    if t is None:
+        if _capturing(key[1]):
+            raise RuntimeError(
+                "a superstep's index table was first built inside a CUDA "
+                "graph capture; run the schedule once eagerly before "
+                "capturing it")
+        t = torch.tensor(key[0], dtype=torch.int64).to(key[1])
+        _INDEX_MEMO[key] = t
+        if len(_INDEX_MEMO) > _INDEX_MEMO_SIZE:
+            _INDEX_MEMO.popitem(last=False)
+    for kept in _INDEX_KEEPERS:
+        kept[key] = t
+    return t
 
 
 def _uniform(values: Sequence[int]) -> Optional[int]:
@@ -855,7 +916,7 @@ def _uniform(values: Sequence[int]) -> Optional[int]:
     return first if all(v == first for v in values) else None
 
 
-def _fresh(registry: SlotRegistry, slot: Slot) -> torch.Tensor:
+def _fresh(registry, slot: Slot) -> torch.Tensor:
     """A writable copy of the slot's value."""
     return registry.value(slot).clone(memory_format=torch.contiguous_format)
 
@@ -913,50 +974,63 @@ def _squeeze_wire(x: torch.Tensor, spec) -> torch.Tensor:
         x.dtype)
 
 
-def _execute_seq(plan: SuperstepPlan, registry: SlotRegistry,
-                 msgs: Sequence[Msg]) -> None:
-    """p == 1: the puts are ordered memcpys.  Every payload is read
-    before any write lands (LPF reads observe the pre-superstep state)."""
+Finish = Callable[[], None]
+
+
+def _seq_begin(plan: SuperstepPlan, registry,
+               msgs: Sequence[Msg]) -> Finish:
+    """p == 1: the puts are ordered memcpys.  Every payload is read in the
+    start half, before any write lands (LPF reads observe the
+    pre-superstep state)."""
     reduce_fn = _REDUCE_FNS[plan.reduce_op] if plan.reduce_op else None
     chunks = [registry.value(msgs[i].src_slot)[
         0, msgs[i].src_off:msgs[i].src_off + msgs[i].size]
         for i in plan.seq_order]
-    new: Dict[int, torch.Tensor] = {}
-    written: Dict[int, np.ndarray] = {}
-    for i, piece in zip(plan.seq_order, chunks):
-        m = msgs[i]
-        dst = new.get(m.dst_slot.sid)
-        if dst is None:
-            dst = new[m.dst_slot.sid] = _fresh(registry, m.dst_slot)
-        lo, hi = m.dst_off, m.dst_off + m.size
-        if reduce_fn is not None:
-            wr = written.setdefault(m.dst_slot.sid,
-                                    np.zeros(m.dst_slot.size, bool))
-            seg = wr[lo:hi].copy()
-            if seg.any():
-                piece = torch.where(torch.from_numpy(seg).to(dst.device),
-                                    reduce_fn(dst[0, lo:hi], piece), piece)
-            wr[lo:hi] = True
-        dst[0, lo:hi] = piece
-    for i in plan.seq_order:
-        slot = msgs[i].dst_slot
-        if slot.sid in new:
-            registry.set_value(slot, new.pop(slot.sid))
+
+    def finish() -> None:
+        new: Dict[int, torch.Tensor] = {}
+        written: Dict[int, np.ndarray] = {}
+        for i, piece in zip(plan.seq_order, chunks):
+            m = msgs[i]
+            dst = new.get(m.dst_slot.sid)
+            if dst is None:
+                dst = new[m.dst_slot.sid] = _fresh(registry, m.dst_slot)
+            lo, hi = m.dst_off, m.dst_off + m.size
+            if reduce_fn is not None:
+                wr = written.setdefault(m.dst_slot.sid,
+                                        np.zeros(m.dst_slot.size, bool))
+                seg = wr[lo:hi].copy()
+                if seg.all():
+                    piece = reduce_fn(dst[0, lo:hi], piece)
+                elif seg.any():
+                    # combine where this superstep already wrote
+                    hit = _index(np.flatnonzero(seg), dst.device)
+                    piece = piece.clone()
+                    piece[hit] = reduce_fn(dst[0, lo:hi][hit], piece[hit])
+                wr[lo:hi] = True
+            dst[0, lo:hi] = piece
+        for i in plan.seq_order:
+            slot = msgs[i].dst_slot
+            if slot.sid in new:
+                registry.set_value(slot, new.pop(slot.sid))
+
+    return finish
 
 
-def _execute_direct(registry: SlotRegistry, msgs: Sequence[Msg],
-                    rounds: Sequence[RoundPlan], attrs: SyncAttributes,
-                    reduce_op: Optional[str] = None) -> None:
-    """Planned ``direct`` rounds.  Every round's payloads are taken from
-    the pre-superstep values first; deliveries then apply in round order
-    (later rounds win — the planner placed conflicting higher-pid writes
-    in later rounds).  A round is a partial permutation, so its
-    destination rows are distinct.  With ``reduce_op`` a delivery that
-    overlaps an earlier delivery of this superstep combines with it.  On
-    a compressed wire every message of a float round travels quantised,
-    scaled over the round's padded width as in the reference."""
+def _direct_begin(registry, msgs: Sequence[Msg],
+                  rounds: Sequence[RoundPlan], attrs: SyncAttributes,
+                  reduce_op: Optional[str] = None) -> Finish:
+    """Planned ``direct`` rounds.  The start half takes every round's
+    payloads from the pre-superstep values; the finish closure applies
+    the deliveries in round order (later rounds win — the planner placed
+    conflicting higher-pid writes in later rounds).  A round is a partial
+    permutation, so its destination rows are distinct.  With
+    ``reduce_op`` a delivery that overlaps an earlier delivery of this
+    superstep combines with it.  On a compressed wire every message of a
+    float round travels quantised, scaled over the round's padded width
+    as in the reference."""
     reduce_fn = _REDUCE_FNS[reduce_op] if reduce_op is not None else None
-    # ---- extraction: reads observe pre-superstep values ----
+    # ---- start: extraction (reads observe pre-superstep values) ----
     deliveries = []
     for rd in rounds:
         rd_msgs = [msgs[i] for i in rd.msg_idx]
@@ -983,35 +1057,38 @@ def _execute_direct(registry: SlotRegistry, msgs: Sequence[Msg],
         for m, payload in zip(rd_msgs, payloads):
             deliveries.append((dst_slot, m.dst, m.dst_off, payload))
 
-    # ---- delivery, in round order ----
-    new: Dict[int, torch.Tensor] = {}
-    written: Dict[int, torch.Tensor] = {}
-    order: List[Slot] = []
-    for dst_slot, dst, dst_off, payload in deliveries:
-        cur = new.get(dst_slot.sid)
-        if cur is None:
-            cur = new[dst_slot.sid] = _fresh(registry, dst_slot)
-            order.append(dst_slot)
-        if isinstance(dst, list):
-            _write_rows(cur, dst, [dst_off] * len(dst), payload)
-            continue
-        seg = cur[dst, dst_off:dst_off + payload.shape[0]]
-        if reduce_fn is None:
-            seg.copy_(payload)
-            continue
-        wr = written.get(dst_slot.sid)
-        if wr is None:
-            wr = written[dst_slot.sid] = torch.zeros(
-                cur.shape, dtype=torch.bool, device=cur.device)
-        seen = wr[dst, dst_off:dst_off + payload.shape[0]]
-        seg.copy_(torch.where(seen, reduce_fn(seg, payload), payload))
-        seen.fill_(True)
-    for slot in order:
-        registry.set_value(slot, new[slot.sid])
+    # ---- finish: delivery, in round order ----
+    def finish() -> None:
+        new: Dict[int, torch.Tensor] = {}
+        written: Dict[int, torch.Tensor] = {}
+        order: List[Slot] = []
+        for dst_slot, dst, dst_off, payload in deliveries:
+            cur = new.get(dst_slot.sid)
+            if cur is None:
+                cur = new[dst_slot.sid] = _fresh(registry, dst_slot)
+                order.append(dst_slot)
+            if isinstance(dst, list):
+                _write_rows(cur, dst, [dst_off] * len(dst), payload)
+                continue
+            seg = cur[dst, dst_off:dst_off + payload.shape[0]]
+            if reduce_fn is None:
+                seg.copy_(payload)
+                continue
+            wr = written.get(dst_slot.sid)
+            if wr is None:
+                wr = written[dst_slot.sid] = torch.zeros(
+                    cur.shape, dtype=torch.bool, device=cur.device)
+            seen = wr[dst, dst_off:dst_off + payload.shape[0]]
+            seg.copy_(torch.where(seen, reduce_fn(seg, payload), payload))
+            seen.fill_(True)
+        for slot in order:
+            registry.set_value(slot, new[slot.sid])
+
+    return finish
 
 
-def _execute_fused(plan: SuperstepPlan, registry: SlotRegistry,
-                   msgs: Sequence[Msg], attrs: SyncAttributes) -> None:
+def _fused_begin(plan: SuperstepPlan, registry, msgs: Sequence[Msg],
+                 attrs: SyncAttributes) -> Finish:
     """The canonical total exchange: process ``s`` sends chunk ``d`` of
     its first ``p*w`` source elements to process ``d``, which stores it at
     chunk ``s``.  On the stacked store that is one permute of the
@@ -1026,15 +1103,19 @@ def _execute_fused(plan: SuperstepPlan, registry: SlotRegistry,
         q, scale = _quantize(x, attrs.compress)
         x = (q.to(torch.float32) * scale[..., None]).to(x.dtype)
     y = x.permute(1, 0, 2).contiguous().view(p, p * w)   # [dst, src*w]
-    if dst_slot.size != p * w:
-        out = _fresh(registry, dst_slot)
-        out[:, :p * w] = y
-        y = out
-    registry.set_value(dst_slot, y)
+
+    def finish() -> None:
+        out = y
+        if dst_slot.size != p * w:
+            out = _fresh(registry, dst_slot)
+            out[:, :p * w] = y
+        registry.set_value(dst_slot, out)
+
+    return finish
 
 
-def _execute_fused_ag(plan: SuperstepPlan, registry: SlotRegistry,
-                      msgs: Sequence[Msg], attrs: SyncAttributes) -> None:
+def _fused_ag_begin(plan: SuperstepPlan, registry, msgs: Sequence[Msg],
+                    attrs: SyncAttributes) -> Finish:
     """All-gather: every process's ``w`` elements (from its own source
     offset) land at chunk ``s`` of every destination; the exclude-self
     variant keeps each process's own chunk.  A compressed wire quantises
@@ -1045,22 +1126,26 @@ def _execute_fused_ag(plan: SuperstepPlan, registry: SlotRegistry,
     if attrs.compress is not None and _is_floating(src_slot.dtype):
         x = _squeeze_wire(x, attrs.compress)
     y = x.reshape(1, p * w)
-    if dst_slot.size == p * w and not plan.ag_exclude_self:
-        registry.set_value(dst_slot, y.expand(p, p * w).contiguous())
-        return
-    old = registry.value(dst_slot)
-    out = _fresh(registry, dst_slot)
-    out[:, :p * w] = y
-    if plan.ag_exclude_self:
-        # exclude-self variant: keep own chunk as-is
-        diag = torch.arange(p, device=out.device)
-        out[:, :p * w].view(p, p, w)[diag, diag] = \
-            old[:, :p * w].reshape(p, p, w)[diag, diag]
-    registry.set_value(dst_slot, out)
+
+    def finish() -> None:
+        if dst_slot.size == p * w and not plan.ag_exclude_self:
+            registry.set_value(dst_slot, y.expand(p, p * w).contiguous())
+            return
+        old = registry.value(dst_slot)
+        out = _fresh(registry, dst_slot)
+        out[:, :p * w] = y
+        if plan.ag_exclude_self:
+            # exclude-self variant: keep own chunk as-is
+            diag = torch.arange(p, device=out.device)
+            out[:, :p * w].view(p, p, w)[diag, diag] = \
+                old[:, :p * w].reshape(p, p, w)[diag, diag]
+        registry.set_value(dst_slot, out)
+
+    return finish
 
 
-def _execute_fused_rs(plan: SuperstepPlan, registry: SlotRegistry,
-                      msgs: Sequence[Msg], attrs: SyncAttributes) -> None:
+def _fused_rs_begin(plan: SuperstepPlan, registry, msgs: Sequence[Msg],
+                    attrs: SyncAttributes) -> Finish:
     """Reduce-scatter: chunk ``d`` of every process combines under
     ``reduce_op`` (a sum over the stacked source axis, or max/min) and
     lands at process ``d``'s destination offset; the destination's old
@@ -1076,52 +1161,65 @@ def _execute_fused_rs(plan: SuperstepPlan, registry: SlotRegistry,
         y = x.amin(0)
     y = y.to(dst_slot.dtype)
     offs = plan.rs_dst_off
-    if dst_slot.size == w and _uniform(offs) == 0:
-        registry.set_value(dst_slot, y.contiguous())
-        return
-    out = _fresh(registry, dst_slot)
-    _write_rows(out, range(p), offs, y)
-    registry.set_value(dst_slot, out)
+
+    def finish() -> None:
+        if dst_slot.size == w and _uniform(offs) == 0:
+            registry.set_value(dst_slot, y.contiguous())
+            return
+        out = _fresh(registry, dst_slot)
+        _write_rows(out, range(p), offs, y)
+        registry.set_value(dst_slot, out)
+
+    return finish
 
 
-def _execute_fused_scatter(plan: SuperstepPlan, registry: SlotRegistry,
-                           msgs: Sequence[Msg],
-                           attrs: SyncAttributes) -> None:
+def _fused_scatter_begin(plan: SuperstepPlan, registry,
+                         msgs: Sequence[Msg],
+                         attrs: SyncAttributes) -> Finish:
     """Root scatter: chunk ``d`` of the root's source lands at process
     ``d``'s offset; processes outside ``sc_mask`` keep their data."""
     p, w, root = registry.p, plan.fused_w, plan.fused_root
     src_slot, dst_slot = msgs[0].src_slot, msgs[0].dst_slot
     x = registry.value(src_slot)[root, :p * w].view(p, w)   # row d -> d
     rows = [d for d in range(p) if plan.sc_mask[d]]
-    out = _fresh(registry, dst_slot)
-    _write_rows(out, rows, [plan.sc_dst_off[d] for d in rows],
-                x.index_select(0, _index(rows, x.device)).to(dst_slot.dtype))
-    registry.set_value(dst_slot, out)
+    data = x.index_select(0, _index(rows, x.device)).to(dst_slot.dtype)
+
+    def finish() -> None:
+        out = _fresh(registry, dst_slot)
+        _write_rows(out, rows, [plan.sc_dst_off[d] for d in rows], data)
+        registry.set_value(dst_slot, out)
+
+    return finish
 
 
-def _execute_fused_gather(plan: SuperstepPlan, registry: SlotRegistry,
-                          msgs: Sequence[Msg],
-                          attrs: SyncAttributes) -> None:
+def _fused_gather_begin(plan: SuperstepPlan, registry,
+                        msgs: Sequence[Msg],
+                        attrs: SyncAttributes) -> Finish:
     """Gather to root: process ``s``'s ``w`` elements land at chunk ``s``
     of the root's destination; without a root -> root message the root
     keeps its own chunk.  Other processes keep their data."""
     p, w, root = registry.p, plan.fused_w, plan.fused_root
     src_slot, dst_slot = msgs[0].src_slot, msgs[0].dst_slot
     x = _windows(registry.value(src_slot), range(p), plan.g_src_off, w)
-    out = _fresh(registry, dst_slot)
     rows = [s for s in range(p) if plan.g_has_self or s != root]
-    out[root, :p * w].view(p, w)[_index(rows, out.device)] = \
-        x.index_select(0, _index(rows, x.device)).to(dst_slot.dtype)
-    registry.set_value(dst_slot, out)
+    data = x.index_select(0, _index(rows, x.device)).to(dst_slot.dtype)
+
+    def finish() -> None:
+        out = _fresh(registry, dst_slot)
+        out[root, :p * w].view(p, w)[_index(rows, out.device)] = data
+        registry.set_value(dst_slot, out)
+
+    return finish
 
 
-def _execute_bruck(plan: SuperstepPlan, registry: SlotRegistry,
-                   msgs: Sequence[Msg], attrs: SyncAttributes) -> None:
+def _bruck_begin(plan: SuperstepPlan, registry, msgs: Sequence[Msg],
+                 attrs: SyncAttributes) -> Finish:
     """Planned Bruck rounds.  Row ``r`` of a process's ``[p, w]`` working
     matrix holds the payload it carries whose original relative distance
     (dst - origin mod p) is ``r``; a round rolls its row set ``step``
-    processes along the stacked process axis.  Deliveries then apply in
-    ascending ``r``, as the reference applies them (CRCW determinism)."""
+    processes along the stacked process axis (the start half).  The
+    finish closure applies the deliveries in ascending ``r``, as the
+    reference applies them (CRCW determinism)."""
     p, w = registry.p, plan.bruck_w
     src_slot, dst_slot = msgs[0].src_slot, msgs[0].dst_slot
     # tables[src, rel] -> offset/size/mask of the message src -> src+rel
@@ -1140,63 +1238,165 @@ def _execute_bruck(plan: SuperstepPlan, registry: SlotRegistry,
     for step, rows in plan.bruck_steps:
         idx = _index(rows, buf.device)
         buf[:, idx] = torch.roll(buf.index_select(1, idx), step, 0)
-    out = _fresh(registry, dst_slot)
-    for r in range(p):
-        # row r of process me arrived from origin (me - r) % p
-        me = [d for d in range(p) if mask[(d - r) % p, r]]
-        _write_rows(out, me, [int(dst_off[d, r]) for d in me],
-                    buf[_index(me, buf.device), r],
-                    [int(sizes[(d - r) % p, r]) for d in me])
-    registry.set_value(dst_slot, out)
+
+    def finish() -> None:
+        out = _fresh(registry, dst_slot)
+        for r in range(p):
+            # row r of process me arrived from origin (me - r) % p
+            me = [d for d in range(p) if mask[(d - r) % p, r]]
+            _write_rows(out, me, [int(dst_off[d, r]) for d in me],
+                        buf[_index(me, buf.device), r],
+                        [int(sizes[(d - r) % p, r]) for d in me])
+        registry.set_value(dst_slot, out)
+
+    return finish
 
 
-def _execute_valiant(plan: SuperstepPlan, registry: SlotRegistry,
-                     msgs: Sequence[Msg], attrs: SyncAttributes,
-                     scratch: Optional[Slot]) -> None:
+def _valiant_begin(plan: SuperstepPlan, registry, msgs: Sequence[Msg],
+                   attrs: SyncAttributes, scratch: Optional[Slot]) -> Finish:
     """Two-phase routing: phase 1 puts every message into the scratch
     slot of its seeded-hash intermediate, phase 2 delivers from there;
-    each phase runs its planned ``direct`` rounds."""
+    each phase runs its planned ``direct`` rounds.  Phase 2 reads what
+    phase 1 wrote, so phase 1 completes inside the start half — the
+    reason the optimizer never overlaps a Valiant superstep."""
     if scratch is None:
         raise LPFFatalError("valiant plan lowered without a scratch slot")
     ph1, ph2 = _valiant_phase_msgs(msgs, plan.valiant_order,
                                    plan.valiant_via, plan.valiant_off,
                                    scratch)
     sub = attrs.replace(method="direct")
-    _execute_direct(registry, ph1, plan.valiant_phase1, sub)
-    _execute_direct(registry, ph2, plan.valiant_phase2, sub)
+    _direct_begin(registry, ph1, plan.valiant_phase1, sub)()
+    return _direct_begin(registry, ph2, plan.valiant_phase2, sub)
 
 
-_FUSED_EXECUTORS = {
-    "fused": _execute_fused, "fused_ag": _execute_fused_ag,
-    "fused_rs": _execute_fused_rs, "fused_scatter": _execute_fused_scatter,
-    "fused_gather": _execute_fused_gather, "bruck": _execute_bruck,
+_FUSED_BEGIN = {
+    "fused": _fused_begin, "fused_ag": _fused_ag_begin,
+    "fused_rs": _fused_rs_begin, "fused_scatter": _fused_scatter_begin,
+    "fused_gather": _fused_gather_begin, "bruck": _bruck_begin,
 }
 
 #: plan methods :func:`execute_plan` implements: every method
 #: :func:`plan_sync` can return
 EXECUTED_METHODS = frozenset(
-    {"noop", "seq", "direct", "valiant"} | set(_FUSED_EXECUTORS))
+    {"noop", "seq", "direct", "valiant"} | set(_FUSED_BEGIN))
+
+#: methods the overlap rewrite may schedule split-phase: their start half
+#: performs no slot writes (valiant's phase-1 scratch writes land in the
+#: start half, so two overlapped valiant supersteps would race the scratch)
+OVERLAPPABLE_METHODS = frozenset(
+    {"noop", "seq", "direct", "bruck", "fused", "fused_ag", "fused_rs",
+     "fused_scatter", "fused_gather"})
 
 
-def execute_plan(plan: SuperstepPlan, registry: SlotRegistry,
-                 msgs: Sequence[Msg], attrs: SyncAttributes, label: str,
+def begin_plan(plan: SuperstepPlan, registry, msgs: Sequence[Msg],
+               attrs: SyncAttributes,
+               scratch: Optional[Slot] = None) -> Finish:
+    """Phase (3), split-phase: read the superstep's payloads (the *start*
+    half) and return a closure that applies its slot writes (the *finish*
+    half).
+
+    The start half reads source values and computes what each message
+    delivers, but writes no slot; every destination read and write
+    happens inside the returned closure.  :func:`execute_overlapped` runs
+    all starts of an overlap group before any finish, so every member
+    observes the group-entry state.  (``valiant`` is the exception: its
+    phase-1 scratch writes land in the start half.)  ``registry`` is a
+    :class:`~repro_torch.core.memslot.SlotRegistry` or a
+    :class:`ValueStore`."""
+    if plan.method == "noop":
+        return lambda: None
+    if plan.method == "seq":
+        return _seq_begin(plan, registry, msgs)
+    if plan.method == "direct":
+        return _direct_begin(registry, msgs, plan.rounds, attrs,
+                             plan.reduce_op)
+    if plan.method == "valiant":
+        return _valiant_begin(plan, registry, msgs, attrs, scratch)
+    return _FUSED_BEGIN[plan.method](plan, registry, msgs, attrs)
+
+
+def execute_plan(plan: SuperstepPlan, registry, msgs: Sequence[Msg],
+                 attrs: SyncAttributes, label: str,
                  scratch: Optional[Slot] = None) -> SuperstepCost:
-    """Phase (3): apply ``plan`` to the registry's stacked slot values.
+    """Phase (3): apply ``plan`` to the registry's stacked slot values
+    (``begin_plan(...)()``).
 
     ``msgs`` must be the table the plan was built from, or any table with
     the same :func:`plan_signature` (the cache guarantees this).  Replaces
     the destination slots' values (and, for ``valiant``, the scratch
     slot's); returns the superstep's ledger entry — identical to the
     plan's predicted cost, with the label attached."""
-    if plan.method == "seq":
-        _execute_seq(plan, registry, msgs)
-    elif plan.method == "direct":
-        _execute_direct(registry, msgs, plan.rounds, attrs, plan.reduce_op)
-    elif plan.method == "valiant":
-        _execute_valiant(plan, registry, msgs, attrs, scratch)
-    elif plan.method != "noop":
-        _FUSED_EXECUTORS[plan.method](plan, registry, msgs, attrs)
+    begin_plan(plan, registry, msgs, attrs, scratch=scratch)()
     return plan.cost_with_label(label)
+
+
+def execute_overlapped(items: Sequence[Tuple[SuperstepPlan, Sequence[Msg],
+                                             SyncAttributes, str]],
+                       registry, scratch: Optional[Slot] = None
+                       ) -> SuperstepCost:
+    """Issue one overlap group of independent supersteps split-phase: all
+    *start* halves first (every member reads the group-entry slot state),
+    then all *finish* halves in program order.  Returns the group's single
+    ledger entry, by construction :func:`repro_torch.core.cost.
+    overlap_cost` of the members' planned costs."""
+    finishes = [begin_plan(plan, registry, list(msgs), attrs,
+                           scratch=scratch)
+                for plan, msgs, attrs, _ in items]
+    for finish in finishes:
+        finish()
+    return overlap_cost([plan.cost for plan, _, _, _ in items],
+                        label="||".join(label for _, _, _, label in items))
+
+
+class ValueStore:
+    """The slot-value surface the executors consume — a duck type of
+    :class:`~repro_torch.core.memslot.SlotRegistry` holding only
+    ``sid -> [p, size]`` values.  Every lowering touches its store only
+    through ``p``, ``value`` and ``set_value``, which is what lets a whole
+    optimized program run against canonical slots
+    (:class:`repro_torch.core.program.CompiledProgram`).  It records which
+    slots the schedule read before writing them (``read_first``) and
+    which it wrote (``written``): the values a replay has to copy in and
+    out.  No registration or shape checks — the registry re-validates the
+    results when they are written back."""
+
+    def __init__(self, values: Dict[int, torch.Tensor], p: int):
+        self._values = dict(values)
+        self.p = int(p)
+        self.read_first: set = set()
+        self.written: set = set()
+
+    def value(self, slot: Slot) -> torch.Tensor:
+        if slot.sid not in self.written:
+            self.read_first.add(slot.sid)
+        return self._values[slot.sid]
+
+    def set_value(self, slot: Slot, value: torch.Tensor) -> None:
+        self.written.add(slot.sid)
+        self._values[slot.sid] = value
+
+
+def execute_schedule(entries, groups, registry,
+                     scratch: Optional[Slot] = None) -> List[SuperstepCost]:
+    """Issue one optimized program's schedule: ``entries`` are the
+    materialized ``(msgs, attrs, label, plan)`` supersteps and ``groups``
+    the issue partition (singletons via :func:`execute_plan`, overlap
+    groups via :func:`execute_overlapped`).  The one executor loop of the
+    dispatched path and of a compiled program — both ledger the same plans'
+    costs.  ``registry`` may be a :class:`SlotRegistry` or a
+    :class:`ValueStore`."""
+    costs: List[SuperstepCost] = []
+    for grp in groups:
+        if len(grp) == 1:
+            msgs, attrs, label, plan = entries[grp[0]]
+            costs.append(execute_plan(plan, registry, msgs, attrs, label,
+                                      scratch=scratch))
+        else:
+            costs.append(execute_overlapped(
+                [(entries[i][3], entries[i][0], entries[i][1],
+                  entries[i][2]) for i in grp],
+                registry, scratch=scratch))
+    return costs
 
 
 # ==========================================================================

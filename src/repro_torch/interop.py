@@ -25,7 +25,13 @@ same data to both packages:
   packages can train on from one state;
 * :func:`graph_from_fields` — the port's
   :class:`~repro_torch.algorithms.graphs.PartitionedGraph` from another
-  partitioned graph's ``dataclasses.asdict`` (PageRank's "weights").
+  partitioned graph's ``dataclasses.asdict`` (PageRank's "weights");
+* :func:`slot_from_fields`, :func:`steps_from_fields` and
+  :func:`program_from_fields` — a slot handle, a recorded
+  trace (:class:`~repro_torch.core.ProgramStep` list) and an optimized
+  :class:`~repro_torch.core.SuperstepProgram` from ``dataclasses.asdict``
+  of objects with the same fields, so both packages' optimizers,
+  verifiers and executors can be handed one trace or one schedule.
 """
 
 from __future__ import annotations
@@ -37,15 +43,19 @@ import numpy as np
 import torch
 
 from .algorithms.graphs import PartitionedGraph
+from .core.attrs import CompressSpec, SyncAttributes
 from .core.context import resolve_device
+from .core.cost import SuperstepCost
 from .core.machine import HardwareModel, LinkModel
 from .core.memslot import Slot, as_torch_dtype
-from .core.sync import Msg
+from .core.program import OptimizedStep, ProgramStep, SuperstepProgram
+from .core.sync import Msg, RoundPlan, SuperstepPlan
 from .models.lm import ParamTree
 
 __all__ = ["cyclic_scatter", "cyclic_gather", "unordered_to_natural",
            "msgs_from_table", "hardware_from_fields", "params_from_jax",
-           "params_to_numpy", "opt_state_from_jax", "graph_from_fields"]
+           "params_to_numpy", "opt_state_from_jax", "graph_from_fields",
+           "slot_from_fields", "steps_from_fields", "program_from_fields"]
 
 Row = Tuple[int, int, int, int, int, int, int, str]
 
@@ -146,3 +156,68 @@ def graph_from_fields(fields: Mapping[str, Any]) -> PartitionedGraph:
         f[k] = np.array(f[k], copy=True)
     f["msgs"] = [tuple(int(v) for v in m) for m in f["msgs"]]
     return PartitionedGraph(**f)
+
+
+def _attrs_from_fields(f: Mapping[str, Any]) -> SyncAttributes:
+    f = dict(f)
+    if f.get("compress") is not None:
+        f["compress"] = CompressSpec(**f["compress"])
+    return SyncAttributes(**f)
+
+
+def slot_from_fields(f: Mapping[str, Any]) -> Slot:
+    """A port slot handle from ``dataclasses.asdict`` of a slot with the
+    same fields (the dtype as any numpy dtype or name)."""
+    return Slot(sid=int(f["sid"]), name=f["name"], size=int(f["size"]),
+                dtype=as_torch_dtype(f["dtype"]), kind=f["kind"],
+                orig_shape=tuple(f["orig_shape"]), gen=int(f.get("gen", 0)))
+
+
+def steps_from_fields(steps: Iterable[Mapping[str, Any]]
+                      ) -> List[ProgramStep]:
+    """A recorded trace from ``dataclasses.asdict`` of each step of a
+    trace with the same fields (``msgs`` with their nested slots,
+    ``attrs``, ``label``).  One :class:`Slot` is built per (sid,
+    generation), with the dtype the fields name."""
+    made: Dict[Tuple[int, int], Slot] = {}
+
+    def slot(f: Mapping[str, Any]) -> Slot:
+        key = (int(f["sid"]), int(f.get("gen", 0)))
+        s = made.get(key)
+        if s is None:
+            s = made[key] = slot_from_fields(f)
+        return s
+
+    return [ProgramStep(
+        tuple(Msg(int(m["src"]), int(m["dst"]), slot(m["src_slot"]),
+                  int(m["src_off"]), slot(m["dst_slot"]), int(m["dst_off"]),
+                  int(m["size"]), m["origin"]) for m in st["msgs"]),
+        _attrs_from_fields(st["attrs"]), st["label"]) for st in steps]
+
+
+def _plan_from_fields(f: Mapping[str, Any]) -> SuperstepPlan:
+    f = dict(f)
+    f["cost"] = SuperstepCost(**f["cost"])
+    for k in ("rounds", "valiant_phase1", "valiant_phase2"):
+        f[k] = tuple(RoundPlan(tuple(r["msg_idx"]), int(r["size"]),
+                               r["static_src_off"]) for r in f[k])
+    f["bruck_steps"] = tuple((int(step), tuple(rows))
+                             for step, rows in f["bruck_steps"])
+    return SuperstepPlan(**f)
+
+
+def program_from_fields(fields: Mapping[str, Any]) -> SuperstepProgram:
+    """An optimized program from ``dataclasses.asdict`` of one with the
+    same fields: canonical tables, attrs, plans and overlap groups as
+    they are (a certificate attached to the source is not carried)."""
+    f = dict(fields)
+    f["steps"] = tuple(OptimizedStep(
+        table=tuple(tuple(row) for row in st["table"]),
+        attrs=_attrs_from_fields(st["attrs"]), label=st["label"],
+        plan=_plan_from_fields(st["plan"]),
+        merged_from=tuple(st["merged_from"]), unchanged=st["unchanged"],
+        rewrite=st["rewrite"]) for st in f["steps"])
+    f["overlap_groups"] = tuple(tuple(g) for g in f["overlap_groups"])
+    f["in_order_costs"] = tuple(SuperstepCost(**c)
+                                for c in f["in_order_costs"])
+    return SuperstepProgram(**f)

@@ -62,9 +62,9 @@ The port
 This module is pure Python: the JAX package's serve loop
 (``repro.runtime.server``) line for line, so both packages' servers make
 the same decisions on the same engine.  The JAX package's
-``ProgramDecodeEngine`` (a decode step that is a recorded LPF program)
-needs the program optimizer and ``ProgramCache`` and comes with them
-(ROADMAP A4); the model engine is
+``ProgramDecodeEngine`` (a decode step that is a recorded LPF program,
+on the port's program optimizer and ``ProgramCache``) is not ported yet
+(ROADMAP A11); the model engine is
 :class:`repro_torch.launch.serve.ModelDecodeEngine`.
 """
 

@@ -965,3 +965,184 @@ def test_pagerank_on_card_matches_cpu(cuda):
         [dataclasses.asdict(x) for x in cled.records]
     ref, _ = sparse_reference_pagerank(edges, 1 << 12)
     assert ((r.double() - ref).abs().max() / ref.max()).item() < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# compiled replay: programs as CUDA graphs, compile_loop bodies captured
+# ---------------------------------------------------------------------------
+
+def _canned_on_card(name, mode, dev, seed=0, n_runs=None, between=None):
+    """Run a canned trace (default sizes, int32) on a fresh context:
+    ``"ref"`` one eager superstep per step, ``"dispatched"`` and
+    ``"compiled"`` as one recorded program, ``n_runs`` times (by default
+    the compiled program's eager calls, its timed ones, its capture, its
+    timed replays and two calls past its choice), each from the same
+    initial values, calling ``between(k)`` before run ``k``.  Returns the
+    values after each run, the ledger of the last run and the program
+    cache."""
+    from repro_torch.analysis import traces
+    from repro_torch.core.program import TRIAL_CALLS
+    p, slots, steps, scratch = traces.CANNED_TRACES[name]()
+    gen = torch.Generator().manual_seed(seed)
+    init = {s.sid: torch.randint(-(1 << 20), 1 << 20, (p, s.size),
+                                 dtype=torch.int32, generator=gen).to(dev)
+            for s in slots}
+    pc = tlpf.ProgramCache()
+    ctx = tlpf.LPFContext(p, device=dev, program_cache=pc)
+    ctx.compile_programs = mode == "compiled"
+    run, reset, handles, _ = traces.bind_trace(ctx, slots, steps, scratch,
+                                               init, label=name)
+    if n_runs is None:
+        n_runs = 1 if mode == "ref" else 2 * TRIAL_CALLS + 4
+    runs = []
+    for k in range(n_runs):
+        if between is not None:
+            between(k)
+        reset()
+        before = len(ctx.ledger.records)
+        run(recorded=mode != "ref")
+        runs.append({sid: ctx.value(h).cpu() for sid, h in handles.items()})
+    return runs, ctx.ledger.records[before:], pc
+
+
+@pytest.mark.parametrize("name", ["fft_redistribute", "bucketed_sync8",
+                                  "fragmented_valiant", "pagerank"])
+def test_compiled_replay_matches_dispatched_on_card(cuda, name):
+    """A canned trace's program, eager, replayed as a CUDA graph, and on
+    whichever of the two its timed calls chose, leaves every slot
+    bit-equal (int32) to the dispatched schedule and to recorded-order
+    execution after every call, ledgers what the dispatched run ledgers,
+    and is one cache entry with one artifact that replayed; a graph that
+    lost its timing is dropped, and the context then dispatches."""
+    from repro_torch.core.program import TRIAL_CALLS
+    (ref,), _, _ = _canned_on_card(name, "ref", cuda)
+    disp, dled, _ = _canned_on_card(name, "dispatched", cuda)
+    comp, cled, pc = _canned_on_card(name, "compiled", cuda)
+    for got in disp + comp:
+        for sid in ref:
+            assert torch.equal(got[sid], ref[sid]), sid
+    assert [dataclasses.asdict(r) for r in dled] == \
+        [dataclasses.asdict(r) for r in cled]
+    (cp,) = pc.artifacts()
+    assert len(pc) == 1 and not pc.quarantined
+    assert cp.use_graph is not None
+    assert len(cp.eager_s) == len(cp.replay_s) == TRIAL_CALLS
+    assert cp.captured == cp.use_graph
+    past = 2 if cp.use_graph else 0         # the calls past the choice
+    assert cp.n_calls == 2 * TRIAL_CALLS + 2 + past
+    assert cp.n_replays == TRIAL_CALLS + 1 + past
+
+
+def _flood_index_memo(dev, n=64):
+    """Build ``n`` index tables no schedule uses, so the index memo (made
+    small by the caller) drops every table it held."""
+    from repro_torch.core import sync as tsync
+    for i in range(n):
+        tsync._index([i, i + 7, i + 11], dev)
+
+
+def test_compiled_replay_survives_index_memo_eviction(cuda, monkeypatch):
+    """A captured program keeps the index tensors its graph reads: with
+    the memo cut to one table and flooded before every call, the replays
+    stay bit-equal to recorded order."""
+    from repro_torch.core import sync as tsync
+    monkeypatch.setattr(tsync, "_INDEX_MEMO_SIZE", 1)
+    (ref,), _, _ = _canned_on_card("pagerank", "ref", cuda)
+    comp, _, pc = _canned_on_card("pagerank", "compiled", cuda,
+                                  between=lambda k: _flood_index_memo(cuda))
+    for got in comp:
+        for sid in ref:
+            assert torch.equal(got[sid], ref[sid]), sid
+    (cp,) = pc.artifacts()
+    assert cp.n_replays > 0 and not pc.quarantined
+
+
+def _ring_body(c2, carry):
+    v, it = carry
+    c2.resize_memory_register(2)
+    c2.resize_message_queue(c2.p)
+    a = c2.register_global("a", v)
+    b = c2.register_global("b", torch.zeros_like(v))
+    c2.put(a, b, to=lambda s_: (s_ + 1) % c2.p, size=4)
+    c2.sync(label="shift")
+    out = c2.value(b) * 3 + 1
+    c2.deregister(a)
+    c2.deregister(b)
+    return out, it + 1
+
+
+@pytest.mark.parametrize("counted", [True, False])
+def test_captured_loop_body_matches_eager_loop(cuda, counted):
+    """A compile_loop body with an all-tensor carry runs as a CUDA graph
+    from its second iteration: the carry, the collected values and the
+    once-ledgered body equal the eager loop's."""
+    def run(compiled):
+        ctx = tlpf.LPFContext(8, device=cuda)
+        ctx.compile_programs = compiled
+        v0 = (torch.arange(32, dtype=torch.int32, device=cuda).reshape(8, 4),
+              torch.zeros((), dtype=torch.int64, device=cuda))
+        if counted:
+            out = ctx.compile_loop(_ring_body, v0, n_iters=6, label="ring",
+                                   collect=lambda c: c[0][:, :1])
+        else:
+            out = (ctx.compile_loop(_ring_body, v0, label="ring",
+                                    cond=lambda c: bool(c[1] < 6)), None)
+        return out, ctx
+
+    (g_carry, g_ys), gctx = run(True)
+    (e_carry, e_ys), ectx = run(False)
+    assert torch.equal(g_carry[0], e_carry[0])
+    assert int(g_carry[1]) == int(e_carry[1]) == 6
+    if counted:
+        assert torch.equal(g_ys, e_ys)
+    assert [dataclasses.asdict(r) for r in gctx.ledger.records] == \
+        [dataclasses.asdict(r) for r in ectx.ledger.records]
+    assert (gctx.loop_graph_replays, gctx.loop_graph_fallbacks) == (5, 0)
+    assert ectx.loop_graph_replays == 0
+
+
+def test_captured_loop_body_survives_index_memo_eviction(cuda, monkeypatch):
+    """A captured compile_loop body keeps the index tensors its graph
+    reads: with the memo cut to one table and flooded before every
+    iteration, the loop stays bit-equal to the eager loop."""
+    from repro_torch.core import sync as tsync
+    monkeypatch.setattr(tsync, "_INDEX_MEMO_SIZE", 1)
+
+    def run(compiled):
+        ctx = tlpf.LPFContext(8, device=cuda)
+        ctx.compile_programs = compiled
+        v0 = (torch.arange(32, dtype=torch.int32, device=cuda).reshape(8, 4),
+              torch.zeros((), dtype=torch.int64, device=cuda))
+
+        def cond(c):
+            _flood_index_memo(cuda)
+            return bool(c[1] < 6)
+
+        return ctx.compile_loop(_ring_body, v0, label="ring", cond=cond), ctx
+
+    (g, _), gctx = run(True)
+    (e, _), _ = run(False)
+    assert torch.equal(g, e)
+    assert (gctx.loop_graph_replays, gctx.loop_graph_fallbacks) == (5, 0)
+
+
+def test_pagerank_captured_loop_matches_eager_on_card(cuda):
+    """PageRank's compile_loop body captured as a CUDA graph: the ranks
+    and the iteration count bit-equal to the eager loop's."""
+    from repro_torch.algorithms import (pagerank_spmd, partition_graph,
+                                        rmat_graph, shard_tensors)
+    g = partition_graph(rmat_graph(1 << 12, 16 << 12, seed=1), 1 << 12, 8)
+
+    def run(compiled):
+        ctx = tlpf.LPFContext(8, device=cuda)
+        ctx.compile_programs = compiled
+        r, iters, res = pagerank_spmd(ctx, g, shard_tensors(g, cuda))
+        return r, iters, ctx
+
+    rg, ig, gctx = run(True)
+    re_, ie, ectx = run(False)
+    assert ig == ie and torch.equal(rg, re_)
+    assert gctx.loop_graph_replays == ig - 1 and \
+        gctx.loop_graph_fallbacks == 0
+    assert [dataclasses.asdict(r) for r in gctx.ledger.records] == \
+        [dataclasses.asdict(r) for r in ectx.ledger.records]

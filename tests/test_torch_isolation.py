@@ -13,7 +13,8 @@
   ``shard_tensors``);
 * a CPU tensor takes the plain version and launches nothing; the CUDA
   wrapper refuses a CPU tensor, and a missing ``nvcc`` raises instead of
-  falling back.
+  falling back; on a CPU context ``compile_program`` is the plain
+  version of compiled replay and captures no CUDA graph.
 """
 
 import ast
@@ -211,3 +212,29 @@ def test_cuda_wrapper_never_falls_back(monkeypatch):
     monkeypatch.setattr(build, "TOOLKIT_NVCC", Path("/nonexistent/nvcc"))
     with pytest.raises(tlpf.LPFFatalError, match="nvcc not found"):
         build.find_nvcc()
+
+
+def test_cpu_context_compiles_programs_without_capture(monkeypatch):
+    """On a CPU context a flushed program runs as ``compile_program``'s
+    plain version — the schedule over a ``ValueStore`` — every call: no
+    CUDA graph is built or replayed."""
+    from repro_torch.analysis import traces
+
+    def no_graph(*a, **k):
+        raise AssertionError("a CUDA graph was built on a CPU context")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", no_graph)
+    p, slots, steps, scratch = traces.canned_bucketed_trace(p=4, w=8)
+    pc = tlpf.ProgramCache()
+    ctx = tlpf.LPFContext(p, device="cpu", program_cache=pc)
+    assert ctx.compile_programs
+    run, reset, handles, _ = traces.bind_trace(
+        ctx, slots, steps, scratch,
+        {s.sid: torch.ones(p, s.size, dtype=torch.int32) for s in slots})
+    for _ in range(3):
+        reset()
+        run()
+    (cp,) = pc.artifacts()
+    assert cp.device.type == "cpu" and not cp.captured
+    assert (cp.n_calls, cp.n_replays) == (3, 0)
+    assert ctx.loop_graph_replays == 0

@@ -342,6 +342,51 @@ def test_compile_loop_while_matches_python_loop_and_jax(mesh8):
     np.testing.assert_array_equal(trun(True), jv)
 
 
+@pytest.mark.parametrize("kind", ["cond_false", "n_iters_0"])
+def test_compile_loop_zero_trips_ledgers_the_body_once(mesh8, kind):
+    """A loop that runs no iteration ledgers what the JAX package's does
+    (the body traced once: one ``shift``) and returns the carry it was
+    given, unchanged, as does a zero-length ``collect``."""
+    kw = {"cond_false": dict(cond=lambda c: c[1] < 0),
+          "n_iters_0": dict(n_iters=0)}[kind]
+
+    def make_body(xp_zeros):
+        ring = ring_body(xp_zeros)
+
+        def body(c2, carry):
+            v, it = carry
+            return ring(c2, v) + 1.0, it + 1
+        return body
+
+    def jwrapped(ctx, s, p, _):
+        v, it = ctx.compile_loop(
+            make_body(jnp.zeros_like),
+            (jnp.arange(4.0) + ctx.pid, jnp.zeros((), jnp.int32)),
+            label="z", **kw)
+        return v
+
+    jv, jled = jlpf.exec_(mesh8, jwrapped, None, out_specs=P("x"),
+                          return_ledger=True)
+    ctx = tlpf.LPFContext(P8, device="cpu")
+    v0 = torch.arange(4.0) + ctx.pid
+    it0 = torch.zeros((), dtype=torch.int64)
+    v, it = ctx.compile_loop(make_body(torch.zeros_like), (v0, it0),
+                             label="z", **kw)
+    assert v is v0 and it is it0
+    assert torch.equal(v0, torch.arange(4.0) + torch.arange(P8)[:, None])
+    assert int(it0) == 0
+    np.testing.assert_array_equal(np.asarray(jv).reshape(8, 4), v.numpy())
+    assert [dataclasses.asdict(r) for r in jled.records] == \
+        [dataclasses.asdict(r) for r in ctx.ledger.records]
+    assert [r.label for r in ctx.ledger.records] == ["shift"]
+    if kind == "n_iters_0":
+        c2 = tlpf.LPFContext(P8, device="cpu")
+        final, ys = c2.compile_loop(ring_body(torch.zeros_like), v0,
+                                    n_iters=0, collect=lambda c: c[:, :1])
+        assert final is v0 and ys.shape == (0, P8, 1)
+        assert [r.label for r in c2.ledger.records] == ["shift"]
+
+
 @pytest.mark.parametrize("bad", ["both", "collect_while"])
 def test_compile_loop_argument_validation(mesh8, bad):
     """Exactly one of n_iters/cond, and collect only with n_iters: both
