@@ -44,9 +44,11 @@ bf16) adds, between phases 6 and 7:
     serialised its wgmma (``build`` in (b)'s rows and the ``kernels`` line);
 (b) ``flash_attention_fwd`` against its plain version on the card at the
     JAX kernel tests' seven shapes, the prefill's main shape
-    [4, 32, 2048, 64] bf16, causal, Hkv 8, and gemma2-9b's attention at
+    [4, 32, 2048, 64] bf16, causal, Hkv 8, gemma2-9b's attention at
     head dim 256, [1, 16, 8, 8192, 256] bf16 causal, as a local layer
-    (window 4096, soft-cap 50) and as a global layer without them: o within
+    (window 4096, soft-cap 50) and as a global layer without them, and
+    qwen3-14b's [4, 40, 8, 2048, 128] (a GQA group of 5) and
+    qwen1.5-110b's [1, 64, 8, 2048, 128] (group 8), causal: o within
     2e-5 (f32) / 2e-2 (bf16), and in bf16 also each row's error within
     2^-6 of the row's largest |o_plain| (two bf16 ulps); lse within 1e-4;
     in bf16 the kernel against a plain version that rounds P to bf16 as
@@ -62,13 +64,18 @@ bf16) adds, between phases 6 and 7:
     through a 64-slot rolling cache against prefill with window 65, each
     within 0.08 (relative);
 (e) serving at full width: ``ModelDecodeEngine`` buckets (2, 256) and
-    (4, 256) behind ``LPFServer``, 8 ``synthetic_requests`` (seed 0, at
-    most 32 tokens): no deadline miss, an empty queue after the drain,
-    every refusal classified, every completed stream bit-identical to a
-    solo re-decode; ms per token of each bucket and tokens/s;
-(f) last, ``torch.profiler`` over one prefill and one decode step:
-    device time by kernel family, kernel launches, and the device's idle
-    share.
+    (4, 256), each bucket's decode step captured once as a CUDA graph and
+    replayed once a token, behind ``LPFServer``, 8 ``synthetic_requests``
+    (seed 0, at most 32 tokens): no deadline miss, no quarantine, one
+    capture a bucket, an empty queue after the drain, every refusal
+    classified, every completed stream bit-identical to a solo re-decode
+    on the captured path and to one on the per-token path (one eager step
+    a token); ms per token of each bucket on each path (a full batch of
+    64 tokens, the median of 3 calls, the two paths' streams equal),
+    beside each engine's admission price, and tokens/s (``serve_paths``);
+(f) last, ``torch.profiler`` over one prefill, one eager decode step and
+    one replay of the captured step: device time by kernel family,
+    kernel launches, and the device's idle share.
 
 The llama3.2-1b training path (f32 masters, bf16 compute, ``remat="full"``,
 ``attn_impl="flash"``) adds, after (f):
@@ -144,8 +151,9 @@ from ``SEED``, f32 parameters cast once to bf16 compute) adds, after (i):
     path's own spread (chunk 16 against 64) is wider, twice that spread;
     serving behind ``LPFServer`` (buckets (2, 256) and (4, 256), 8
     requests): no deadline miss, an empty queue, streams bit-identical to
-    solo re-decodes; ms per token per bucket, tokens/s, and the idle share
-    of one decode step.
+    solo re-decodes on the captured and the per-token path, no
+    quarantine; ms per token per bucket on each path, tokens/s, and the
+    launches and idle share of one eager and one captured decode step.
 
 The BSP layer and the paper's second evaluation add, after (l), under
 phase 6's fitted (g, l) of the ``"vp"`` link:
@@ -212,6 +220,37 @@ phase 6's fitted (g, l) of the ``"vp"`` link:
     out and the device memory the cache held.  Neither (m), (n) nor (o)
     launches a kernel of ``csrc/``: the ``kernels`` line keeps its five
     rows.
+
+The dense configs at full width (seed-0 weights drawn by
+``load_params``, each matrix cast to bf16 as it is drawn; each model's
+load seconds and peak device memory printed, and each model freed before
+the next) add, after (o):
+
+(p) gemma2-9b, this slice's main path (42 layers alternating local,
+    window 4096, and global attention, soft-caps 50 and 30, sandwich
+    norms, head dim 256): prefill at B 1 x S 8192 with the counts set to
+    0 just before, 42 ``flash_attention_fwd`` launches, last-position
+    logits within 5e-2 (relative) of ``attn_impl="reference"``, host ms and
+    tokens/s; the bar's readings at this shape: the bf16 reference
+    prefill against the same in f32 compute must pass it, and flash
+    prefills of a wrong kernel's function (K/V heads of the next group;
+    the local layers without their window) must fail it; 64
+    teacher-forced decode steps at B 1 within 0.08 of
+    prefill; serving as in (e), and one eager against one captured decode
+    step as in (f);
+(q) qwen3-14b (40 heads over 8 kv heads, qk-norm): the same at prefill B
+    4 x S 2048 (40 launches);
+(r) qwen1.5-110b at its published widths with the depth cut to 4 of its
+    80 layers (its 222 GB of bf16 weights do not fit one card): prefill
+    only, B 1 x S 2048 (4 launches), against reference attention;
+(s) ``ProgramDecodeEngine`` at p = 8 on ``scripts/serve_latency.py``'s
+    workload (120 requests in bursts of 6, buckets (2, 16), (4, 16), (4,
+    32)), priced on H100_SXM with phase 6's fitted link: zero deadline
+    misses, every completed request within its
+    predicted model-clock time, loop-graph replays and no fallback, at
+    least two programs pinned, no quarantine; p50/p99 of wall and
+    model-clock latency per bucket; then one bucket's streams solo,
+    batched and on the per-token fallback, bit-identical.
 """
 
 from __future__ import annotations
@@ -247,6 +286,9 @@ ARCH = "llama3.2-1b"
 PREFILL_B, PREFILL_S = 4, 2048          # the serving path's prefill
 TEACHER_S, ROLL_S, ROLL_C = 64, 96, 64  # phase (d) prompts and cache
 SERVE_BUCKETS = [(2, 256), (4, 256)]
+# serve_paths' ms per token: full-batch decodes of DECODE_TOKENS tokens,
+# the median of DECODE_CALLS calls on each path
+DECODE_TOKENS, DECODE_CALLS = 64, 3
 # the JAX kernel tests' sweep (tests/test_kernels.py), then the prefill's
 # main shape; B, H, Hkv, S, D, causal, window, softcap, dtype
 FLASH_SHAPES = [
@@ -266,6 +308,12 @@ FLASH_SHAPES = [
 GEMMA_FWD_SHAPES = [
     (1, 16, 8, 8192, 256, True, 4096, 50.0, "bfloat16"),
     (1, 16, 8, 8192, 256, True, None, None, "bfloat16"),
+]
+# qwen3-14b's prefill attention (40 heads over 8 kv: a GQA group of 5, B 4
+# x S 2048) and qwen1.5-110b's (64 over 8, B 1 x S 2048), causal
+DENSE_FWD_SHAPES = [
+    (4, 40, 8, 2048, 128, True, None, None, "bfloat16"),
+    (1, 64, 8, 2048, 128, True, None, None, "bfloat16"),
 ]
 # (g) adds a head-dim-256 backward shape, without window and soft-cap so
 # that SDPA's backward computes the same gradients beside it
@@ -316,6 +364,21 @@ SSD_SPLIT_PRODUCTS = {4: (3, 3), 2: (1, 2)}   # itemsize: (C B^T, the rest)
 # within WITNESS_BAR (relative) of each other, the step-0 bar's 1e-2
 # widened for the steps' bf16 differences compounding through AdamW
 WITNESS_STEPS, WITNESS_BAR = 4, 5e-2
+# the dense configs at full width (p)-(r): gemma2-9b's prefill at B 1 x S
+# 8192 (over its local layers' window of 4096, so the window masks),
+# qwen3-14b's at B 4 x S 2048, and qwen1.5-110b's published widths with
+# its depth cut from 80 layers to QWEN110_LAYERS (its 222 GB of bf16
+# weights do not fit one card's 80 GB), prefill only at B 1 x S 2048
+# last-position logits of the flash prefill against reference attention,
+# relative.  Set between its two readings at the committed shapes (NVIDIA
+# H100 80GB HBM3, 700 W): a sound run (the bf16 reference against f32
+# compute) reads 1.0-1.7e-2 and the flash prefill 1.2-1.96e-2, a wrong
+# kernel's function 0.59-1.47; dense_prefill checks both sides each run
+DENSE_PREFILL_BAR = 5e-2
+GEMMA_ARCH, GEMMA_B, GEMMA_S = "gemma2-9b", 1, 8192
+QWEN3_ARCH, QWEN3_B, QWEN3_S = "qwen3-14b", 4, 2048
+QWEN110_ARCH, QWEN110_B, QWEN110_S, QWEN110_LAYERS = "qwen1.5-110b", 1, \
+    2048, 4
 
 
 def check(cond: bool, what: str) -> None:
@@ -403,7 +466,8 @@ def row_err(o, o_p) -> float:
 
 
 def flash_phase(rng, dev, build_log: str,
-                shapes=FLASH_SHAPES + GEMMA_FWD_SHAPES) -> list:
+                shapes=FLASH_SHAPES + GEMMA_FWD_SHAPES + DENSE_FWD_SHAPES
+                ) -> list:
     """(b): the CUDA kernel against its plain version at every shape."""
     import torch
     from repro_torch.kernels import build
@@ -921,21 +985,14 @@ def serving_phases(rng, dev) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.launch.serve import ModelDecodeEngine, serve
-    from repro_torch.models import (Group, Runtime, cast_params,
-                                    decode_step, init_caches, init_params,
+    from repro_torch.models import (Group, Runtime, decode_step, init_caches,
                                     prefill)
 
     cfg = dataclasses.replace(get_config(ARCH), attn_impl="flash")
     ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
     rt = Runtime(dev)
-    t0 = time.perf_counter()
-    params = cast_params(init_params(SEED, cfg, device=dev), cfg)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.parameters())
-    print(f"{ARCH}: {n_params} parameters, init + cast to "
-          f"{cfg.compute_dtype} {time.perf_counter() - t0:.2f} s", flush=True)
-    out = {}
+    params, load = load_model(ARCH, cfg, dev)
+    out = dict(load=load)
 
     # (c) prefill at full width ------------------------------------------
     batch = {"tokens": torch.from_numpy(rng.integers(
@@ -992,35 +1049,16 @@ def serving_phases(rng, dev) -> dict:
     check(rel_r < 0.08, f"rolling-cache decode vs windowed prefill rel err "
                         f"{rel_r}")
 
-    # (e) serving behind LPFServer ----------------------------------------
-    eng = ModelDecodeEngine(cfg, SERVE_BUCKETS, params=params, device=dev)
-    buckets = {str(b): dict(ms_per_token=eng.token_seconds(b) * 1e3,
-                            ms_per_call=eng.overhead_seconds(b) * 1e3)
-               for b in eng.buckets()}
-    res = serve(eng, requests=8, seed=0, max_tokens=32, check=True)
-    health = res["health"]
-    check(res["completed"] >= 1, "no request completed")
-    check(res["solo_identical"] == res["completed"],
-          "batched streams differ from solo decodes")
-    out["serve"] = dict(buckets=buckets, completed=res["completed"],
-                        tokens=res["tokens"], wall_s=res["wall_s"],
-                        tokens_per_s=res["tokens_per_s"],
-                        solo_identical=res["solo_identical"],
-                        **{k: health[k] for k in (
-                            "admitted", "rejected_total", "shed",
-                            "deadline_misses", "batches", "queue_depth")})
-    print("serve " + json.dumps(out["serve"]), flush=True)
+    # (e) serving behind LPFServer, captured and per token ----------------
+    out["serve"], eng = serve_paths(ARCH, cfg, params, dev)
 
     # (f) profiles last: after a torch.profiler session the host's eager
     # dispatch may run slower, which would skew the decode timings above
     out["profile"] = profile_families(
         "prefill", lambda: prefill(params, batch, cfg, rt), ms)
-    B, C = SERVE_BUCKETS[-1]
-    caches = init_caches(cfg, B, C, device=dev)
-    tok = torch.zeros(B, dtype=torch.long, device=dev)
-    step = lambda: decode_step(params, tok, caches, C // 2, cfg, rt)
-    out["decode_profile"] = profile_families(
-        f"decode step (B {B}, cache {C})", step, host_ms(step))
+    out["decode_profile"], out["captured_decode_profile"] = step_profiles(
+        ARCH, cfg, params, eng, dev)
+    del eng
     return out
 
 
@@ -1174,7 +1212,6 @@ def mamba_phases(rng, dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-    from repro_torch.launch.serve import ModelDecodeEngine, serve
     from repro_torch.models import (Runtime, blocks, cast_params,
                                     decode_step, init_caches, init_params,
                                     prefill)
@@ -1183,13 +1220,8 @@ def mamba_phases(rng, dev) -> dict:
     check(cfg.compute_dtype == "bfloat16" and cfg.n_layers == 24,
           "mamba2-130m config")
     rt = Runtime(dev)
-    t0 = time.perf_counter()
-    params = cast_params(init_params(SEED, cfg, device=dev), cfg)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.parameters())
-    print(f"{MAMBA_ARCH}: {n_params} parameters, init + cast to "
-          f"{cfg.compute_dtype} {time.perf_counter() - t0:.2f} s", flush=True)
-    out = {}
+    params, load = load_model(MAMBA_ARCH, cfg, dev)
+    out = dict(load=load)
 
     def chunked_prefill(batch, chunk=None, p=params, c=cfg):
         """The same prefill with the blocks' scan through the JAX model's
@@ -1308,24 +1340,8 @@ def mamba_phases(rng, dev) -> dict:
           f"mamba2 teacher-forced decode vs prefill rel err {rel_t}, over "
           f"0.08 and over twice the chunked path's own spread {spread_t}")
 
-    # serving behind LPFServer ---------------------------------------------
-    eng = ModelDecodeEngine(cfg, SERVE_BUCKETS, params=params, device=dev)
-    buckets = {str(b): dict(ms_per_token=eng.token_seconds(b) * 1e3,
-                            ms_per_call=eng.overhead_seconds(b) * 1e3)
-               for b in eng.buckets()}
-    res = serve(eng, requests=8, seed=0, max_tokens=32, check=True)
-    health = res["health"]
-    check(res["completed"] >= 1, "mamba2: no request completed")
-    check(res["solo_identical"] == res["completed"],
-          "mamba2: batched streams differ from solo decodes")
-    out["serve"] = dict(buckets=buckets, completed=res["completed"],
-                        tokens=res["tokens"], wall_s=res["wall_s"],
-                        tokens_per_s=res["tokens_per_s"],
-                        solo_identical=res["solo_identical"],
-                        **{k: health[k] for k in (
-                            "admitted", "rejected_total", "shed",
-                            "deadline_misses", "batches", "queue_depth")})
-    print("mamba2 serve " + json.dumps(out["serve"]), flush=True)
+    # serving behind LPFServer, captured and per token ---------------------
+    out["serve"], eng = serve_paths(MAMBA_ARCH, cfg, params, dev)
 
     # profiles last, as in (f)
     out["profile"] = profile_families(
@@ -1333,14 +1349,324 @@ def mamba_phases(rng, dev) -> dict:
     out["long_profile"] = profile_families(
         f"mamba2 prefill B 1 x S {LONG_S}",
         lambda: prefill(params, long, cfg, rt), long_ms)
-    B, C = SERVE_BUCKETS[-1]
+    out["decode_profile"], out["captured_decode_profile"] = step_profiles(
+        MAMBA_ARCH, cfg, params, eng, dev)
+    del params, eng, logits, long_logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def timed_decode(eng, bucket) -> tuple:
+    """Host ms per token of a full-batch ``DECODE_TOKENS``-token decode of
+    ``bucket`` through ``eng``: the median of ``DECODE_CALLS`` calls (each
+    waiting for its tokens) and each call's, and the streams of the last
+    call."""
+    from repro_torch.runtime.server import ServeRequest
+    n = DECODE_TOKENS
+    reqs = [ServeRequest(rid=i, n_tokens=n, deadline_s=1.0, seed=1000 + i)
+            for i in range(bucket[0])]
+    ts = []
+    for _ in range(DECODE_CALLS):
+        t0 = time.perf_counter()
+        streams = eng.decode(bucket, reqs, n)
+        ts.append(time.perf_counter() - t0)
+    per_call = [t * 1e3 / n for t in ts]
+    return statistics.median(per_call), per_call, streams
+
+
+def serve_paths(label: str, cfg, params, dev, buckets=SERVE_BUCKETS):
+    """Serving behind ``LPFServer`` through both decode paths: the engine
+    as a user builds it (each bucket's step captured as a CUDA graph and
+    replayed once a token), and beside it one whose buckets are all
+    quarantined (one eager step a token).  Each bucket's ms per token on
+    each path is ``timed_decode``'s (a full batch, ``DECODE_TOKENS``
+    tokens, the median of ``DECODE_CALLS`` calls), whose streams must be
+    the same on both paths; each engine's admission price (the slope and
+    intercept its warm-up calibration fits) is printed beside it.
+    8 ``synthetic_requests`` (seed 0, at most 32 tokens) through the
+    captured engine: no deadline miss, no quarantine, one capture a
+    bucket, and every completed stream bit-identical to its solo decode on
+    the captured path and on the per-token path.  Returns (the summary,
+    the captured engine)."""
+    from repro_torch.launch.serve import ModelDecodeEngine, serve
+    eng = ModelDecodeEngine(cfg, buckets, params=params, device=dev)
+    per_token = ModelDecodeEngine(cfg, buckets, params=params, device=dev,
+                                  per_token=True)
+    check(eng.captures == len(buckets) and per_token.captures == 0,
+          f"{label}: {eng.captures} captures for {len(buckets)} buckets, "
+          f"{per_token.captures} on the per-token engine")
+    ms = {}
+    for b in eng.buckets():
+        cap_ms, cap_calls, cap = timed_decode(eng, b)
+        pt_ms, pt_calls, pt = timed_decode(per_token, b)
+        check(cap == pt, f"{label} bucket {b}: the captured {DECODE_TOKENS}"
+                         f"-token decode differs from the per-token one")
+        ms[str(b)] = dict(
+            captured_ms_per_token=cap_ms, per_token_ms_per_token=pt_ms,
+            captured_calls=cap_calls, per_token_calls=pt_calls,
+            captured_price_ms_per_token=eng.token_seconds(b) * 1e3,
+            captured_price_ms_per_call=eng.overhead_seconds(b) * 1e3,
+            per_token_price_ms_per_token=per_token.token_seconds(b) * 1e3,
+            per_token_price_ms_per_call=per_token.overhead_seconds(b) * 1e3)
+    del per_token
+    res = serve(eng, requests=8, seed=0, max_tokens=32, check=True)
+    health = res["health"]
+    check(res["completed"] >= 1, f"{label}: no request completed")
+    check(res["solo_identical"] == res["completed"],
+          f"{label}: batched streams differ from solo decodes")
+    check(res["per_token_identical"] == res["completed"],
+          f"{label}: captured streams differ from per-token decodes")
+    check(health["deadline_misses"] == 0, f"{label}: deadline misses")
+    check(res["quarantines"] == 0 and not eng.quarantined
+          and health["decode_fallbacks"] == 0,
+          f"{label}: {res['quarantines']} quarantines in the serving run")
+    out = dict(buckets=ms, completed=res["completed"],
+               tokens=res["tokens"], wall_s=res["wall_s"],
+               tokens_per_s=res["tokens_per_s"],
+               solo_identical=res["solo_identical"],
+               per_token_identical=res["per_token_identical"],
+               quarantines=res["quarantines"], captures=eng.captures,
+               replays=eng.replays,
+               **{k: health[k] for k in (
+                   "admitted", "rejected_total", "shed", "deadline_misses",
+                   "batches", "decode_fallbacks", "queue_depth")})
+    print(f"{label} serve " + json.dumps(out), flush=True)
+    return out, eng
+
+
+def step_profiles(label: str, cfg, params, eng, dev,
+                  bucket=SERVE_BUCKETS[-1]) -> tuple:
+    """One eager decode step and one replay of the bucket's captured step
+    at position C / 2 (``torch.profiler``): device time by kernel family,
+    kernels launched, and the device's idle share of each one's
+    unprofiled host wall time."""
+    import torch
+    from repro_torch.models import Runtime, decode_step, init_caches
+    B, C = bucket
+    rt = Runtime(dev)
     caches = init_caches(cfg, B, C, device=dev)
     tok = torch.zeros(B, dtype=torch.long, device=dev)
-    step = lambda: decode_step(params, tok, caches, 0, cfg, rt)
-    out["decode_profile"] = profile_families(
-        f"mamba2 decode step (B {B})", step, host_ms(step))
-    del params, caches, logits, long_logits
+    step = lambda: decode_step(params, tok, caches, C // 2, cfg, rt)
+    eager = profile_families(f"{label} eager decode step (B {B}, cache {C})",
+                             step, host_ms(step))
+    g = eng.serve_step(bucket).graph
+    g.pos.fill_(C // 2)
+    replay = g.graph.replay
+    captured = profile_families(
+        f"{label} captured decode step (B {B}, cache {C})", replay,
+        host_ms(replay))
+    return eager, captured
+
+
+def load_model(label: str, cfg, dev) -> tuple:
+    """Full-width weights from ``SEED`` through ``load_params`` (each
+    matrix cast to the compute dtype as it is drawn): seconds, the
+    weights' bytes and the peak device memory of the load."""
+    import torch
+    from repro_torch.models import load_params
+    torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = load_params(SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    info = dict(
+        parameters=sum(p.numel() for p in params.parameters()),
+        weights_gb=sum(p.numel() * p.element_size()
+                       for p in params.parameters()) / 1e9,
+        load_s=time.perf_counter() - t0,
+        load_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        allocated_before_gb=base / 1e9)
+    print(f"{label} load " + json.dumps(info), flush=True)
+    return params, info
+
+
+def rolled_kv(params, cfg):
+    """``params`` with every layer's K and V projections rolled by one KV
+    head: a prefill on them computes what a flash kernel that reads each
+    query group's keys and values from the next group's head computes."""
+    from repro_torch.models import ParamTree
+    import torch
+    hd = cfg.head_dim or cfg.d_model // cfg.n_heads
+
+    def roll(tree):
+        return {k: roll(v) if isinstance(v, dict) else (
+            torch.roll(v, hd, dims=-1) if k in ("wk", "wv", "bk", "bv")
+            else v) for k, v in tree.items()}
+    return ParamTree(roll(params.tree()))
+
+
+def without_window(cfg):
+    """``cfg`` with every block's sliding window dropped."""
+    return dataclasses.replace(cfg, groups=tuple(dataclasses.replace(
+        g, blocks=tuple(dataclasses.replace(b, window=None)
+                        for b in g.blocks)) for g in cfg.groups))
+
+
+def dense_prefill(label: str, rng, cfg, params, dev, B: int, S: int
+                  ) -> dict:
+    """Prefill at full width with the counts set to 0 just before: one
+    ``flash_attention_fwd`` launch a layer, finite last-position logits
+    within ``DENSE_PREFILL_BAR`` (relative) of the same prefill with
+    ``attn_impl="reference"``; host milliseconds and tokens/s.  The bar's
+    two readings at this shape, each checked: a sound run (the bf16
+    reference prefill against the same prefill in f32 compute on the same
+    weights: what bf16 rounding alone moves) passes it, and each control
+    (a flash prefill of a wrong kernel's function: K/V heads of the next
+    group; without the local layers' window where the model has one)
+    fails it."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import Runtime, prefill
+    rt = Runtime(dev)
+    V = cfg.vocab
+    batch = {"tokens": torch.from_numpy(rng.integers(0, V, (B, S))).to(dev)}
+    fa_kernel.flash_attention_fwd.launches = 0
+    logits = prefill(params, batch, cfg, rt)
+    torch.cuda.synchronize()
+    launches = fa_kernel.flash_attention_fwd.launches
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    ref = prefill(params, batch, ref_cfg, rt)[:, :V]
+    rel = rel_err(logits[:, :V], ref)
+    f32 = prefill(params, batch, dataclasses.replace(
+        ref_cfg, compute_dtype="float32"), rt)[:, :V]
+    controls = {"kv_heads_rolled": rel_err(prefill(
+        rolled_kv(params, cfg), batch, cfg, rt)[:, :V], ref)}
+    if any(b.window for g in cfg.groups for b in g.blocks):
+        controls["window_dropped"] = rel_err(prefill(
+            params, batch, without_window(cfg), rt)[:, :V], ref)
+    readings = dict(bar=DENSE_PREFILL_BAR,
+                    sound_bf16_vs_f32=rel_err(ref, f32),
+                    flash_vs_f32=rel_err(logits[:, :V], f32),
+                    controls=controls)
+    print(f"{label} prefill bar " + json.dumps(readings), flush=True)
+    check(logits.shape == (B, cfg.vocab_padded)
+          and bool(torch.isfinite(logits[:, :V]).all()),
+          f"{label} prefill logits shape/finite")
+    check(launches == cfg.n_layers,
+          f"{label} prefill launched flash_attention_fwd {launches} times, "
+          f"not {cfg.n_layers}")
+    check(rel < DENSE_PREFILL_BAR,
+          f"{label} prefill flash vs reference rel err {rel}")
+    check(readings["sound_bf16_vs_f32"] < DENSE_PREFILL_BAR,
+          f"{label} prefill bar under a sound run's "
+          f"{readings['sound_bf16_vs_f32']}")
+    check(all(c > DENSE_PREFILL_BAR for c in controls.values()),
+          f"{label} prefill bar passes a control: {controls}")
+    del ref, f32
+    torch.cuda.reset_peak_memory_stats()
+    ms = host_ms(lambda: prefill(params, batch, cfg, rt), reps=3, warmup=1)
+    out = dict(batch=B, seq=S, layers=cfg.n_layers, flash_launches=launches,
+               rel_err_vs_reference=rel, bar_readings=readings, e2e_ms=ms,
+               tokens_per_s=B * S / (ms * 1e-3),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"{label} prefill " + json.dumps(out), flush=True)
+    return out
+
+
+def teacher_forced(label: str, rng, cfg, params, dev, S: int = TEACHER_S
+                   ) -> dict:
+    """``S`` ``decode_step`` calls at B 1 against ``prefill`` of the same
+    prompt: last logits within 0.08 (relative); ms a step."""
+    import torch
+    from repro_torch.models import Runtime, decode_step, init_caches, prefill
+    rt = Runtime(dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S))).to(dev)
+    want = prefill(params, {"tokens": toks}, cfg, rt)
+    caches = init_caches(cfg, 1, S, device=dev)
+    t0 = time.perf_counter()
+    for t in range(S):
+        _, got, caches = decode_step(params, toks[:, t], caches, t, cfg, rt)
+    torch.cuda.synchronize()
+    out = dict(prompt=S, rel_err=rel_err(got[:, :cfg.vocab],
+                                         want[:, :cfg.vocab]),
+               decode_ms_per_step_b1=(time.perf_counter() - t0) * 1e3 / S)
+    print(f"{label} teacher-forced decode " + json.dumps(out), flush=True)
+    check(out["rel_err"] < 0.08, f"{label} teacher-forced decode vs prefill "
+                                 f"rel err {out['rel_err']}")
+    return out
+
+
+def dense_phases(dev) -> dict:
+    """(p)-(r): gemma2-9b (this slice's main path) and qwen3-14b at full
+    width, qwen1.5-110b at its published widths cut in depth; each model
+    freed before the next."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Group
+    out = {}
+    for arch, B, S, seed in ((GEMMA_ARCH, GEMMA_B, GEMMA_S, 7),
+                             (QWEN3_ARCH, QWEN3_B, QWEN3_S, 8)):
+        rng = np.random.default_rng([SEED, seed])
+        cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+        params, load = load_model(arch, cfg, dev)
+        res = dict(load=load)
+        res["prefill"] = dense_prefill(arch, rng, cfg, params, dev, B, S)
+        res["teacher"] = teacher_forced(arch, rng, cfg, params, dev)
+        res["serve"], eng = serve_paths(arch, cfg, params, dev)
+        res["decode_profile"], res["captured_decode_profile"] = \
+            step_profiles(arch, cfg, params, eng, dev)
+        out[arch] = res
+        del params, eng
+        torch.cuda.empty_cache()
+    cfg = get_config(QWEN110_ARCH)
+    cfg = dataclasses.replace(cfg, attn_impl="flash", groups=tuple(
+        Group(g.name, g.blocks, QWEN110_LAYERS) for g in cfg.groups))
+    print(f"{QWEN110_ARCH}: published widths, depth cut to "
+          f"{QWEN110_LAYERS} of 80 layers (222 GB of bf16 weights at full "
+          f"depth, over one card's 80 GB)", flush=True)
+    params, load = load_model(QWEN110_ARCH, cfg, dev)
+    out[QWEN110_ARCH] = dict(load=load, layers=QWEN110_LAYERS,
+                             prefill=dense_prefill(
+                                 QWEN110_ARCH, np.random.default_rng(
+                                     [SEED, 9]), cfg, params, dev,
+                                 QWEN110_B, QWEN110_S))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def program_engine_phase(fit: dict) -> dict:
+    """(s): ``ProgramDecodeEngine`` at p = 8 on ``scripts/serve_latency.py``'s
+    workload (120 requests in bursts of 6, buckets (2, 16), (4, 16), (4,
+    32)), priced on H100_SXM with phase 6's fitted ``"vp"`` link: no
+    deadline miss, every completed request within its predicted
+    model-clock time, loop-graph replays and no fallback, at least two
+    programs pinned, no quarantine; then one bucket's streams solo,
+    batched and on the per-token fallback, bit-identical."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import serve_latency
+    from repro_torch import core as lpf
+    from repro_torch.runtime.server import ServeRequest
+    res = serve_latency.run(device="cuda", hardware=fitted_hardware(lpf, fit))
+    t = res["total"]
+    check(t["completed"] >= 1 and t["deadline_misses"] == 0,
+          f"program engine: {t['completed']} completed, "
+          f"{t['deadline_misses']} deadline misses")
+    check(t["completed_after_predicted"] == 0,
+          "program engine: requests completed after their predicted time")
+    check(t["loop_graph_replays"] > 0 and t["loop_graph_fallbacks"] == 0,
+          f"program engine: {t['loop_graph_replays']} loop-graph replays, "
+          f"{t['loop_graph_fallbacks']} fallbacks")
+    check(t["program_pinned"] >= 2 and t["quarantines"] == 0
+          and t["program_quarantined"] == 0,
+          f"program engine: {t['program_pinned']} pinned, "
+          f"{t['quarantines']} quarantines")
+    eng = res["engine"]
+    bucket = (4, 32)
+    reqs = [ServeRequest(rid=i, n_tokens=32, deadline_s=1.0, seed=s)
+            for i, s in enumerate((1234, 777, 5, 31337))]
+    batched = eng.decode(bucket, reqs, 32)
+    solo = {r.rid: eng.decode(bucket, [r], 32)[r.rid] for r in reqs}
+    eng.quarantine(bucket)
+    per_token = eng.decode(bucket, reqs, 32)
+    eng.quarantined.clear()
+    check(batched == solo == per_token,
+          "program engine: solo, batched and per-token streams differ")
+    out = dict(rows=res["rows"], total=t, identical_streams=len(reqs))
+    print("program engine " + json.dumps(out), flush=True)
     return out
 
 
@@ -2252,17 +2578,38 @@ def main() -> int:
     program_phase(dev, fit)
     cache_footprint(lpf, "collectives and pagerank", base)
 
+    # (p)-(r) the dense configs at full width (gemma2-9b's serving is this
+    # slice's main path), (s) the pure-LPF program engine -------------------
+    torch.cuda.empty_cache()
+    dense = dense_phases(dev)
+    program_engine_phase(fit)
+
     # 7. result lines ----------------------------------------------------------
     big = [r for r in rows if r["n"] == N_MAIN // P_MAIN and not r["inverse"]][0]
     bound_ms, bound_by = fft_bound_ms(big["batch"], big["n"])
     # "replaces" names each TPU kernel's pallas_call line; "launches" is
-    # the count from this slice's main path, the training loop (h); the
-    # flash rows are the main path's shapes, chosen by shape
+    # the count from each kernel's own path: fft_planes the BSP FFT (5),
+    # flash_attention_fwd this slice's main path, the gemma2-9b prefill
+    # (p), with every other path's count beside it, the backward kernels
+    # the training loop (h), ssd_scan the mamba2-130m prefill (k).  The
+    # flash rows' times are the llama3.2-1b prefill's shape, chosen by
+    # shape, as in earlier slices; ``shapes`` adds the dense configs'
+    train_launches = training["train"]["launches"]
     main_fwd = [r for r in flash_rows if r["shape"] == MAIN_FWD_SHAPE
                 and r["dtype"] == "bfloat16"][0]
+    slice_fwd = [dict((k, r[k]) for k in (
+        "shape", "causal", "window", "softcap", "max_abs_err", "row_err",
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
+        for r in flash_rows if r["dtype"] == "bfloat16"
+        and r["shape"][3:] in ([8192, 256], [2048, 128])]
+    prefill_launches = {
+        "llama3.2-1b prefill (c)": serving["prefill"]["flash_launches"],
+        "llama3.2-1b training step (h)":
+            train_launches["flash_attention_fwd"],
+        **{f"{arch} prefill": dense[arch]["prefill"]["flash_launches"]
+           for arch in (GEMMA_ARCH, QWEN3_ARCH, QWEN110_ARCH)}}
     main_bwd = [r for r in bwd_rows if r["shape"] == MAIN_BWD_SHAPE
                 and r["dtype"] == "bfloat16"][0]
-    train_launches = training["train"]["launches"]
     main_ssd = [r for r in ssd_rows if r["shape"] == MAIN_SSD_SHAPE
                 and r["dtype"] == "float32"][0]
     kernels = {"kernels": [dict(
@@ -2277,12 +2624,13 @@ def main() -> int:
         name="flash_attention_fwd", route="cuda",
         source="src/repro_torch/csrc/flash_attention_fwd.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:111",
-        launches=train_launches["flash_attention_fwd"],
-        launches_prefill=serving["prefill"]["flash_launches"],
+        launches=dense[GEMMA_ARCH]["prefill"]["flash_launches"],
+        launches_by_path=prefill_launches,
         max_abs_err=main_fwd["max_abs_err"], ms=main_fwd["ms"],
         plain_ms=main_fwd["plain_ms"], bound_ms=main_fwd["bound_ms"],
         bound_by=main_fwd["bound_by"], library_ms=main_fwd["library_ms"],
-        row_err=main_fwd["row_err"], build=main_fwd["build"])] + [dict(
+        row_err=main_fwd["row_err"], build=main_fwd["build"],
+        shapes=slice_fwd)] + [dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/flash_attention_bwd.cu",
             replaces=f"src/repro/kernels/flash_attention/kernel.py:{line}",

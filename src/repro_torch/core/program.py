@@ -1482,6 +1482,10 @@ class ProgramCache:
         #: keys exempt from LRU eviction (:meth:`pin`); ``maxsize`` bounds
         #: the *unpinned* population, and pins are never silently dropped
         self._pinned: set = set()
+        #: why a detached persistent store left the cache memory-only, as
+        #: in the JAX package; ``None`` while no store was ever attached,
+        #: which is always, until the store is ported (ROADMAP A7)
+        self.memory_only_reason: Optional[str] = None
 
     def __len__(self) -> int:
         return len(self._programs)

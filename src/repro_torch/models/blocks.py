@@ -16,8 +16,9 @@ on the CPU, ``ops.ssd`` takes the kernel's plain version, which computes
 the same function as the JAX block's chunked path.
 
 Decode writes the new token's K/V (or the Mamba state and convolution
-window) into the cache in place (for attention a slice copy at slot
-``pos % cache_len``, after attention has read the cache); the JAX package
+window) into the cache in place (for attention at slot ``pos % cache_len``,
+after attention has read the cache: a slice copy for an int ``pos``, an
+``index_copy_`` for a position held in a device tensor); the JAX package
 returns an updated copy.  The values are the same.
 """
 
@@ -209,9 +210,10 @@ def block_init_cache(bcfg: BlockCfg, cfg: ModelConfig, batch: int,
     return c
 
 
-def _attn_decode(p, h, cache, cfg: ModelConfig, bcfg: BlockCfg, pos: int):
+def _attn_decode(p, h, cache, cfg: ModelConfig, bcfg: BlockCfg, pos):
     """One token of attention against the cache, then the rolling write
-    of its K/V at slot ``pos % cache_len`` (in place)."""
+    of its K/V at slot ``pos % cache_len`` (in place).  ``pos`` is an int
+    or a 0-d long tensor on ``h``'s device (see :func:`block_decode`)."""
     B, _ = h.shape
     hd = cfg.hd
     q = h @ p["wq"]
@@ -227,8 +229,10 @@ def _attn_decode(p, h, cache, cfg: ModelConfig, bcfg: BlockCfg, pos: int):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
+    on_device = isinstance(pos, torch.Tensor)
     if cfg.pos_embed == "rope":
-        posb = torch.full((B, 1), pos, dtype=torch.long, device=h.device)
+        posb = pos.reshape(1, 1).expand(B, 1) if on_device else \
+            torch.full((B, 1), pos, dtype=torch.long, device=h.device)
         q = apply_rope(q[:, None], posb, cfg.rope_theta)[:, 0]
         k = apply_rope(k, posb, cfg.rope_theta)
     scale = 1.0 / math.sqrt(hd)
@@ -240,19 +244,27 @@ def _attn_decode(p, h, cache, cfg: ModelConfig, bcfg: BlockCfg, pos: int):
     _m, l, o = merge_partials(m1, l1, o1, m2, l2, o2)
     o = (o / l.clamp_min(1e-30)).reshape(B, cfg.n_heads, hd).to(h.dtype)
     out = o.reshape(B, cfg.n_heads * hd) @ p["wo"]
-    # a slice with a host-side index: no index tensor to copy to the
-    # device, so no wait for the device per layer
-    slot = pos % C
-    cache["k"][:, slot:slot + 1].copy_(k)
-    cache["v"][:, slot:slot + 1].copy_(v)
+    if on_device:
+        # the slot computed on the device, where the position lives
+        slot = (pos % C).reshape(1)
+        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    else:
+        # a slice with a host-side index: no index tensor to copy to the
+        # device, so no wait for the device per layer
+        slot = pos % C
+        cache["k"][:, slot:slot + 1].copy_(k)
+        cache["v"][:, slot:slot + 1].copy_(v)
     return out
 
 
 def block_decode(p: Tree, x: torch.Tensor, cache: Tree, bcfg: BlockCfg,
-                 cfg: ModelConfig, rt: Runtime, pos: int
+                 cfg: ModelConfig, rt: Runtime, pos
                  ) -> Tuple[torch.Tensor, Tree]:
     """One-token decode.  x [B, D]; ``cache`` is updated in place and
-    returned."""
+    returned.  ``pos`` is an int, or a 0-d long tensor on the device that
+    no step reads on the host (a CUDA graph replays it at whatever
+    position the tensor holds)."""
     _unported(bcfg)
     plus_one = cfg.norm == "rms"
     if bcfg.mixer == "attn":

@@ -13,7 +13,8 @@ Batch conventions (as in ``repro.models.lm``)::
 
     train:    {"tokens" [B, S] int, "labels" [B, S] int (-1 = masked)}
     prefill:  {"tokens" [B, S] int}
-    decode:   decode_step(params, token [B] int, caches, pos int, cfg, rt)
+    decode:   decode_step(params, token [B] int, caches, pos, cfg, rt)
+              (pos an int, or a 0-d long tensor on the device)
 
 Every entry point runs on ``rt.device`` (``Runtime()`` is the card) and
 refuses parameters that live elsewhere.  :func:`loss_fn` runs with
@@ -41,9 +42,9 @@ from .common import (dense_init, dtype_of, layer_norm, rms_norm,
                      sinusoidal_positions)
 from .config import Group, ModelConfig
 
-__all__ = ["ParamTree", "init_params", "cast_params", "forward", "prefill",
-           "loss_fn", "init_caches", "decode_step", "count_params",
-           "model_flops"]
+__all__ = ["ParamTree", "init_params", "load_params", "cast_params",
+           "forward", "prefill", "loss_fn", "init_caches", "decode_step",
+           "count_params", "model_flops"]
 
 Tree = Dict[str, Any]
 
@@ -95,10 +96,64 @@ def _stack_trees(trees: List[Tree]) -> Tree:
             for k in first}
 
 
-def _group_params(gen, g: Group, cfg: ModelConfig, dtype, device) -> Tree:
-    return _stack_trees([{f"b{i}": block_params(gen, b, cfg, dtype, device)
-                          for i, b in enumerate(g.blocks)}
-                         for _ in range(g.repeats)])
+def _group_params(gen, g: Group, cfg: ModelConfig, dtype, device,
+                  cdt=None) -> Tree:
+    """A group's leaves stacked ``[repeats, ...]``: each layer is drawn
+    as a per-layer init draws it (what ``jax.vmap`` stacks), copied into
+    the stacked leaves and dropped, so the peak is the stacked tree plus
+    one layer.  ``cdt`` casts each layer's weight matrices as
+    :func:`cast_params` does before they are stored."""
+    out: Optional[Tree] = None
+    for l in range(g.repeats):
+        layer = {f"b{i}": block_params(gen, b, cfg, dtype, device)
+                 for i, b in enumerate(g.blocks)}
+        if cdt is not None:
+            layer = _cast_params(layer, cdt)
+        if out is None:
+            out = _map(lambda a: a.new_empty((g.repeats, *a.shape)), layer)
+        _map2(lambda dst, src, l=l: dst[l].copy_(src), out, layer)
+        del layer
+    return out
+
+
+def _map2(fn, a: Tree, b: Tree) -> None:
+    for k, v in a.items():
+        if isinstance(v, dict):
+            _map2(fn, v, b[k])
+        else:
+            fn(v, b[k])
+
+
+def _init_tree(key: Union[int, torch.Generator], cfg: ModelConfig, dev,
+               cdt=None) -> Tree:
+    """The parameter tree of :func:`init_params`, each weight matrix cast
+    to ``cdt`` as soon as it is drawn when ``cdt`` is given."""
+    _check_blocks(cfg)
+    if isinstance(key, torch.Generator):
+        gen = key
+    elif dev.type == "meta":
+        gen = None
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(key))
+    dtype = dtype_of(cfg.param_dtype)
+
+    def top(a):
+        return a if cdt is None else _cast_params({"a": a}, cdt)["a"]
+    p: Tree = {"embed": top(dense_init(gen, (cfg.vocab_padded, cfg.d_model),
+                                       in_axis=1, dtype=dtype, device=dev))}
+    p["final_norm"] = {"w": torch.ones(cfg.d_model, device=dev)}
+    if cfg.norm != "rms":
+        p["final_norm"]["b"] = torch.zeros(cfg.d_model, device=dev)
+    if not cfg.tie_embeddings:
+        p["head"] = top(dense_init(gen, (cfg.d_model, cfg.vocab_padded),
+                                   dtype=dtype, device=dev))
+    if cfg.pos_embed == "learned":
+        p["pos_embed"] = top(dense_init(gen, (cfg.max_seq, cfg.d_model),
+                                        in_axis=1, dtype=dtype, device=dev))
+    for g in cfg.groups:
+        p[f"dec_{g.name}"] = _group_params(gen, g, cfg, dtype, dev, cdt)
+    return p
 
 
 def init_params(key: Union[int, torch.Generator], cfg: ModelConfig, *,
@@ -108,30 +163,20 @@ def init_params(key: Union[int, torch.Generator], cfg: ModelConfig, *,
     package's tree layout; not its random numbers.  ``device="meta"``
     gives the shapes alone; ``trainable`` makes the parameters require
     gradients."""
-    _check_blocks(cfg)
-    dev = resolve_device(device)
-    if isinstance(key, torch.Generator):
-        gen = key
-    elif dev.type == "meta":
-        gen = None
-    else:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(key))
-    dtype = dtype_of(cfg.param_dtype)
-    p: Tree = {"embed": dense_init(gen, (cfg.vocab_padded, cfg.d_model),
-                                   in_axis=1, dtype=dtype, device=dev)}
-    p["final_norm"] = {"w": torch.ones(cfg.d_model, device=dev)}
-    if cfg.norm != "rms":
-        p["final_norm"]["b"] = torch.zeros(cfg.d_model, device=dev)
-    if not cfg.tie_embeddings:
-        p["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_padded),
-                               dtype=dtype, device=dev)
-    if cfg.pos_embed == "learned":
-        p["pos_embed"] = dense_init(gen, (cfg.max_seq, cfg.d_model),
-                                    in_axis=1, dtype=dtype, device=dev)
-    for g in cfg.groups:
-        p[f"dec_{g.name}"] = _group_params(gen, g, cfg, dtype, dev)
-    return ParamTree(p, trainable)
+    return ParamTree(_init_tree(key, cfg, resolve_device(device)),
+                     trainable)
+
+
+def load_params(key: Union[int, torch.Generator], cfg: ModelConfig, *,
+                device="cuda") -> ParamTree:
+    """The serving load: the values of ``cast_params(init_params(key,
+    cfg), cfg)``, with each weight matrix cast to ``cfg.compute_dtype`` as
+    soon as it is drawn.  The peak is the cast tree plus one layer in
+    ``cfg.param_dtype``, where drawing the whole f32 tree first would need
+    both trees at once (qwen3-14b: 59 GB in f32 and 29.5 GB in bf16, over
+    one card's 80 GB)."""
+    return ParamTree(_init_tree(key, cfg, resolve_device(device),
+                                dtype_of(cfg.compute_dtype)))
 
 
 def _cast_params(tree: Tree, cdt: torch.dtype, stacked: bool = False
@@ -336,20 +381,31 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
 
 
 @torch.no_grad()
-def decode_step(params: ParamTree, token, caches: Tree, pos: int,
-                cfg: ModelConfig, rt: Optional[Runtime] = None):
+def decode_step(params: ParamTree, token, caches: Tree,
+                pos: Union[int, torch.Tensor], cfg: ModelConfig,
+                rt: Optional[Runtime] = None):
     """One greedy decode step.  token [B] int; ``pos`` the absolute
     position of the new token (KV-cache writes roll modulo the cache
-    length; every cache is updated in place).  Returns (next_token [B], logits [B, V_padded], caches)."""
+    length; every cache is updated in place).  ``pos`` is a Python int,
+    or a 0-d long tensor on ``rt.device``: then no step reads it on the
+    host, so the step can be captured as a CUDA graph and replayed at the
+    position the tensor holds.  Both give the same values.  Returns
+    (next_token [B], logits [B, V_padded], caches)."""
     rt = _runtime(params, rt)
     _check_blocks(cfg)
     cdt = dtype_of(cfg.compute_dtype)
-    pos = int(pos)
+    if not isinstance(pos, torch.Tensor):
+        pos = int(pos)
     top = _top(params, cdt)
     token = torch.as_tensor(token, device=rt.device).long()
     x = _embed_tokens(top, token, cfg).to(cdt)
     if cfg.pos_embed == "learned":
-        x = x + top["pos_embed"][min(pos, cfg.max_seq - 1)][None].to(cdt)
+        if isinstance(pos, torch.Tensor):
+            row = top["pos_embed"].index_select(
+                0, pos.clamp(max=cfg.max_seq - 1).reshape(1))
+        else:
+            row = top["pos_embed"][min(pos, cfg.max_seq - 1)][None]
+        x = x + row.to(cdt)
     tree = params.tree()
     for g in cfg.groups:
         gc = caches[g.name]

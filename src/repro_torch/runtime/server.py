@@ -59,12 +59,12 @@ retried, contract violations are not degraded around).
 
 The port
 --------
-This module is pure Python: the JAX package's serve loop
+The serve loop is pure Python: the JAX package's serve loop
 (``repro.runtime.server``) line for line, so both packages' servers make
-the same decisions on the same engine.  The JAX package's
-``ProgramDecodeEngine`` (a decode step that is a recorded LPF program,
-on the port's program optimizer and ``ProgramCache``) is not ported yet
-(ROADMAP A11); the model engine is
+the same decisions on the same engine.  Its engines are
+:class:`ProgramDecodeEngine` (a decode step that is a recorded LPF
+program over ``p`` virtual processes, on the port's program optimizer,
+``ProgramCache`` and ``compile_loop``) and the model engine,
 :class:`repro_torch.launch.serve.ModelDecodeEngine`.
 """
 
@@ -80,7 +80,8 @@ from ..core.errors import LPFError, classify
 from .monitor import StragglerMonitor, cache_metrics
 
 __all__ = ["Bucket", "REASONS", "ServeRequest", "ServeOutcome",
-           "ServeRejected", "ServeMetrics", "LPFServer", "synthetic_requests"]
+           "ServeRejected", "ServeMetrics", "LPFServer", "ProgramDecodeEngine",
+           "synthetic_requests"]
 
 #: a decode bucket: (batch rows, cache length == token capacity)
 Bucket = Tuple[int, int]
@@ -555,6 +556,216 @@ class LPFServer:
         snap["stragglers_flagged"] = sum(1 for v in hist if v.straggle)
         return snap
 
+
+# ==========================================================================
+# the pure-LPF decode engine
+# ==========================================================================
+
+class ProgramDecodeEngine:
+    """Decode engine whose per-token step is a recorded LPF superstep
+    program — the serve path the cost model can price exactly.  The JAX
+    package's ``ProgramDecodeEngine`` over ``p`` virtual processes on one
+    device (8 by default, as the JAX tests' 8 host devices).
+
+    Per bucket ``(B, C)`` the per-token step ring-shifts the batch's
+    ``[B, W]`` state tile (``W = max(1, C // 4)``) across the processes
+    and mixes it row-locally; ``n`` tokens roll into one
+    ``ctx.compile_loop`` (on the card its body is captured as a CUDA graph
+    from the second iteration and replayed: ``loop_graph_replays``) with
+    the body's program replayed from this engine's private
+    :class:`~repro_torch.core.ProgramCache` (hot bucket entries pinned
+    after warm-up).  Rows never mix, so a request's token stream is a pure
+    function of its seed.
+
+    Pricing comes from the recorded program's ledger: ``token_seconds``
+    is the per-iteration predicted cost on ``probe({"vp": p},
+    hardware)``, and every decode call's ledger equals prediction by
+    model compliance.  ``quarantine(bucket)`` (or a transient decode
+    failure) flips the bucket to the per-token fallback: the same body
+    recorded and replayed one token at a time through sub-contexts, each
+    token's records folded into the call's ledger — bit-identical values
+    at higher dispatch cost.  The JAX package's persistent program store
+    is not ported (ROADMAP A7): ``persist_dir`` raises."""
+
+    #: decode lengths are bucketed to powers of two (capped by the
+    #: cache length) so distinct request lengths share programs
+    ROUND_POW2 = True
+
+    def __init__(self, buckets: Sequence[Bucket] = ((2, 16), (4, 16)),
+                 persist_dir: Optional[str] = None,
+                 cache_maxsize: int = 256, pin_hot: bool = True, *,
+                 p: int = 8, hardware=None, device="cuda"):
+        from ..core import H100_SXM, PlanCache, ProgramCache, probe
+        from ..core.context import resolve_device
+        self._buckets = tuple(sorted(tuple(b) for b in buckets))
+        self.p = int(p)
+        self.device = resolve_device(device)
+        self.hardware = hardware if hardware is not None else H100_SXM
+        self.plan_cache = PlanCache()
+        self.program_cache = ProgramCache(maxsize=cache_maxsize)
+        if persist_dir is not None:
+            self.program_cache.attach_store(persist_dir)   # raises: A7
+        self.machine = probe({"vp": self.p}, self.hardware)
+        self._step_costs: Dict[Bucket, list] = {}
+        self.quarantined: set = set()
+        self.quarantines = 0
+        #: ``compile_loop`` iterations replayed as a captured body, and
+        #: captures that failed (each ran its loop eagerly), over all calls
+        self.loop_graph_replays = 0
+        self.loop_graph_fallbacks = 0
+        self.loop_graph_errors: List[BaseException] = []
+        self._warmup(pin=pin_hot)
+
+    # -- protocol surface ------------------------------------------------
+    def buckets(self) -> Tuple[Bucket, ...]:
+        return self._buckets
+
+    def token_seconds(self, bucket: Bucket) -> float:
+        """Model-predicted seconds per decoded token: the bucket's
+        recorded per-token program priced on the probed machine."""
+        return sum(c.predicted_seconds(self.machine)
+                   for c in self._step_costs[tuple(bucket)])
+
+    def overhead_seconds(self, bucket: Bucket) -> float:
+        """Per-call overhead on the model clock: zero — the BSP model
+        prices communication; dispatch overhead is a wall-clock concern
+        the benchmarks measure separately."""
+        return 0.0
+
+    def round_tokens(self, bucket: Bucket, n: int) -> int:
+        if not self.ROUND_POW2:
+            return min(n, bucket[1])
+        t = 1
+        while t < n:
+            t *= 2
+        return min(t, bucket[1])
+
+    def ledger_seconds(self, bucket: Bucket, n_tokens: int) -> float:
+        """The decode call's ledger cost on the model clock: equal to
+        ``token_seconds * n_tokens`` by construction (one recorded program
+        replayed per token; the fused and per-token paths ledger
+        identically)."""
+        return self.token_seconds(bucket) * n_tokens
+
+    def quarantine(self, bucket: Bucket) -> None:
+        """Force the per-token fallback path for ``bucket`` (the serve
+        ladder calls this when the fused decode fails)."""
+        self.quarantined.add(tuple(bucket))
+        self.quarantines += 1
+
+    @property
+    def cache_stats(self):
+        """Duck-typed for :func:`~repro_torch.runtime.monitor
+        .cache_metrics`."""
+        return {"plan": self.plan_cache.stats,
+                "program": self.program_cache.stats}
+
+    def flush(self) -> int:
+        """Write back certified programs to a persistent store (the drain
+        hook): 0, the port has none."""
+        return self.program_cache.flush()
+
+    # -- internals -------------------------------------------------------
+    def _width(self, bucket: Bucket) -> int:
+        return max(1, bucket[1] // 4)
+
+    def _run(self, bucket: Bucket, seeds, n_tokens: int, fused: bool):
+        """Decode ``n_tokens`` steps of ``bucket`` from per-row ``seeds``
+        (a float array ``[B]``).  Returns (ys ``[T, B, p * W]``, the
+        processes' tiles side by side as the JAX engine's ``shard_map``
+        lays them out, and the call's ledger records)."""
+        import torch
+        from ..core import LPFContext
+
+        B, _C = bucket
+        W = self._width(bucket)
+        label = f"serve[{B}x{_C}]"
+        caches = dict(plan_cache=self.plan_cache,
+                      program_cache=self.program_cache)
+
+        def body(c2, carry):                       # carry [p, B, W]
+            c2.resize_memory_register(2)
+            c2.resize_message_queue(c2.p)
+            a = c2.register_global("tile", carry)
+            b = c2.register_global("nxt", torch.zeros_like(carry))
+            c2.put(a, b, to=lambda s: (s + 1) % c2.p, size=B * W)
+            c2.sync(label=label)
+            mixed = c2.value(b).reshape(c2.p, B, W)
+            out = 0.5 * carry + 0.25 * mixed + 1.0
+            c2.deregister(a)
+            c2.deregister(b)
+            return out
+
+        ctx = LPFContext(self.p, device=self.device,
+                         hardware=self.hardware, **caches)
+        seeds = torch.as_tensor(seeds, dtype=torch.float32,
+                                device=ctx.device)
+        carry = (seeds[None, :, None] * 1e-3
+                 + torch.arange(W, dtype=torch.float32,
+                                device=ctx.device)[None, None, :] * 1e-2
+                 + ctx.pid.to(torch.float32).reshape(self.p, 1, 1) * 0.1)
+        if fused:
+            _final, ys = ctx.compile_loop(body, carry, n_iters=n_tokens,
+                                          label=label, collect=lambda c: c)
+            self.loop_graph_replays += ctx.loop_graph_replays
+            self.loop_graph_fallbacks += ctx.loop_graph_fallbacks
+            self.loop_graph_errors.extend(ctx.loop_graph_errors)
+        else:
+            # per-token fallback: the same body recorded and replayed one
+            # token at a time — no loop, every program still certified
+            # and cache-served
+            outs = []
+            for _ in range(n_tokens):
+                sub = LPFContext(self.p, device=self.device,
+                                 hardware=self.hardware, _parent=ctx,
+                                 **caches)
+                with sub.program(label):
+                    carry = body(sub, carry)
+                for c in sub.ledger.records:
+                    ctx.ledger.add(c)
+                outs.append(carry)
+            ys = torch.stack(outs)
+        T = ys.shape[0]
+        ys = ys.permute(0, 2, 1, 3).reshape(T, B, self.p * W)
+        return ys, list(ctx.ledger.records)
+
+    def _warmup(self, pin: bool) -> None:
+        """Record/price every bucket's per-token program (one 1-token
+        decode each) and pin the resulting cache entries: the hot serving
+        set must survive any burst of cold signatures."""
+        import numpy as np
+        for bucket in self._buckets:
+            _ys, records = self._run(bucket, np.zeros(bucket[0], np.float32),
+                                     1, fused=True)
+            if not records:       # pragma: no cover - the body always syncs
+                raise LPFError(f"warmup recorded no ledger for {bucket}")
+            self._step_costs[bucket] = list(records)
+        if pin:
+            for key in self.program_cache.keys():
+                self.program_cache.pin(key)
+
+    def decode(self, bucket: Bucket, reqs: Sequence[ServeRequest],
+               n_tokens: int) -> Dict[int, Tuple[int, ...]]:
+        """Decode ``n_tokens`` greedy tokens for up to ``B`` requests
+        sharing ``bucket``.  Rows are seeded per request and never mix:
+        the returned stream for a request is identical whether it decodes
+        alone or fully batched."""
+        import numpy as np
+        bucket = tuple(bucket)
+        B, _C = bucket
+        if len(reqs) > B:
+            raise LPFError(f"batch of {len(reqs)} into bucket {bucket}")
+        seeds = np.zeros(B, np.float32)
+        for i, r in enumerate(reqs):
+            seeds[i] = float(r.seed % 9973) + 1.0
+        ys, _records = self._run(bucket, seeds, n_tokens,
+                                 fused=bucket not in self.quarantined)
+        ys = ys.cpu().numpy()     # [T, B, W * p]
+        # token t of row r: a deterministic digest of the row's state
+        toks = (np.round(ys.sum(axis=2) * 16.0).astype(np.int64)
+                % np.int64(65521))
+        return {r.rid: tuple(int(x) for x in toks[:, i])
+                for i, r in enumerate(reqs)}
 
 
 # ==========================================================================

@@ -19,9 +19,15 @@ so ``grad_sync="lpf"`` is the plain step, as in JAX with one pod; what
 needs pods (``pod_sync``, compressed or bucketed sync, local SGD) raises
 (ROADMAP A10).
 
-*Serving.*  ``step_fn`` is one eager decode step, and ``decode_fn(n)`` is
-the greedy loop over it, so the two run the same calls.  They part when
-the loop is captured as a CUDA graph (later work).
+*Serving.*  ``step_fn`` is one eager decode step.  A bucket's
+``decode_fn(n)`` is the counterpart of the JAX package's one-``While``
+decode loop: on the card its step is captured once as a CUDA graph over
+the bucket's own static caches, token, position and outputs
+(:class:`CapturedDecode`), and an ``n``-token call replays it ``n`` times
+with no host write between replays; the graph itself advances the
+position.  On the CPU ``decode_fn(n)`` is the eager loop over
+``step_fn``.  Both paths give the same tokens bit for bit: the captured
+step runs the eager step's kernels on the same shapes.
 """
 
 from __future__ import annotations
@@ -30,15 +36,17 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
-from ..core.errors import LPFFatalError
+from ..core.errors import LPFError, LPFFatalError, LPFTransientError
 from ..models.blocks import Runtime
 from ..models.config import ModelConfig
-from ..models.lm import ParamTree, decode_step, init_params, loss_fn
+from ..models.lm import (ParamTree, decode_step, init_caches, init_params,
+                         loss_fn)
 from ..optim import AdamWConfig, adamw_init, adamw_update
 
-__all__ = ["TrainStep", "build_train_step", "ServeStep", "build_serve_step",
-           "build_serve_buckets"]
+__all__ = ["TrainStep", "build_train_step", "ServeStep", "CapturedDecode",
+           "build_serve_step", "build_serve_buckets"]
 
 Tree = Dict[str, Any]
 
@@ -148,23 +156,120 @@ def build_train_step(cfg: ModelConfig, *,
 # serving
 # --------------------------------------------------------------------------
 
+class CapturedDecode:
+    """One decode bucket's greedy step as a CUDA graph over static
+    buffers: the caches, the token ``[B]``, the position (a 0-d long
+    tensor) and the outputs ``[C, B]``, all owned by the bucket.  One
+    replay decodes a token at the position the buffer holds, writes it to
+    the outputs' next row, feeds it back as the next input and advances
+    the position, so ``n`` replays decode ``n`` tokens with no host write
+    between them.
+
+    The graph is captured on the first call (and again for another
+    parameter tree, whose addresses it reads): one eager warm-up step on
+    a side stream, then the capture into the graph's own memory pool.  A
+    capture that fails raises :class:`LPFTransientError`, which the serve
+    ladder answers by moving the bucket to the per-token path; it never
+    runs eagerly in its place."""
+
+    def __init__(self, cfg: ModelConfig, rt: Runtime, batch: int,
+                 cache_len: int):
+        self.cfg, self.rt = cfg, rt
+        self.batch, self.cache_len = batch, cache_len
+        dev = rt.device
+        self.caches = init_caches(cfg, batch, cache_len, device=dev)
+        self.tok = torch.zeros(batch, dtype=torch.long, device=dev)
+        self.pos = torch.zeros((), dtype=torch.long, device=dev)
+        #: the outputs' next row (the replay count modulo ``cache_len``)
+        self.row = torch.zeros((), dtype=torch.long, device=dev)
+        self.out = torch.zeros(cache_len, batch, dtype=torch.long,
+                               device=dev)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.params: Optional[ParamTree] = None
+        #: graphs captured, and replays (tokens decoded through a graph)
+        self.captures = 0
+        self.replays = 0
+
+    def _step(self) -> None:
+        nxt, _logits, _ = decode_step(self.params, self.tok, self.caches,
+                                      self.pos, self.cfg, self.rt)
+        self.out.index_copy_(0, self.row.reshape(1), nxt[None])
+        self.tok.copy_(nxt)
+        self.pos.add_(1)
+        self.row.copy_((self.row + 1) % self.cache_len)
+
+    def _capture(self, params: ParamTree) -> None:
+        self.graph = None             # the old graph and its pool go first
+        self.params = params
+        try:
+            side = torch.cuda.Stream(self.rt.device)
+            side.wait_stream(torch.cuda.current_stream(self.rt.device))
+            with torch.cuda.stream(side):
+                self._step()          # warm-up: handles, workspaces, pool
+            torch.cuda.current_stream(self.rt.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self._step()
+        except LPFError:
+            self.params = None
+            raise
+        except Exception as e:
+            self.params = None
+            raise LPFTransientError(
+                f"decode bucket ({self.batch}, {self.cache_len}) of "
+                f"{self.cfg.name}: the CUDA-graph capture of its step "
+                f"failed: {type(e).__name__}: {e}") from e
+        self.graph = graph
+        self.captures += 1
+
+    def decode(self, params: ParamTree, tok0, pos0, n_tokens: int):
+        """``n_tokens`` greedy tokens from ``tok0`` [B] at position
+        ``pos0``, from zeroed caches.  Returns (toks [n_tokens, B], the
+        bucket's caches, valid until its next call)."""
+        if self.graph is None or params is not self.params:
+            self._capture(params)
+        for c in pytree.tree_leaves(self.caches):
+            c.zero_()
+        self.tok.copy_(torch.as_tensor(tok0))
+        self.pos.copy_(torch.as_tensor(pos0))
+        self.row.zero_()
+        C, toks = self.cache_len, []
+        for k in range(1, n_tokens + 1):
+            self.graph.replay()
+            self.replays += 1
+            if k % C == 0 or k == n_tokens:
+                # the rows written since the last read
+                toks.append(self.out[:(k - 1) % C + 1].clone())
+        out = torch.cat(toks) if toks else self.out[:0].clone()
+        return out, self.caches
+
 
 @dataclasses.dataclass
 class ServeStep:
-    #: (params, caches, token [B], pos) -> (next_token [B], caches)
+    #: (params, caches, token [B], pos) -> (next_token [B], caches): one
+    #: eager step
     step_fn: Callable
     rt: Runtime
-    #: (n_tokens) -> fn(params, caches, tok0 [B], pos0) ->
-    #: (toks [n_tokens, B], caches): the greedy loop over ``step_fn``
+    #: (n_tokens) -> fn(params, tok0 [B], pos0) -> (toks [n_tokens, B],
+    #: caches): the greedy loop from zeroed caches of the bucket's shape,
+    #: on the card the bucket's captured step replayed (the JAX package's
+    #: takes the caller's caches and donates them; no caller here has any)
     decode_fn: Callable
+    #: the bucket's captured step on the card, None on the CPU
+    graph: Optional[CapturedDecode] = None
 
 
-def build_serve_step(cfg: ModelConfig, *, device="cuda") -> ServeStep:
-    """One decode bucket's step functions on ``device`` (the card unless
-    the caller asks for the CPU).  Eager steps take any batch and cache
-    length, so the JAX package's ``global_batch``/``cache_len`` shape
-    arguments have no counterpart: the caller allocates the caches."""
+def build_serve_step(cfg: ModelConfig, *, global_batch: int,
+                     cache_len: int, device="cuda") -> ServeStep:
+    """One ``(global_batch, cache_len)`` decode bucket's step functions on
+    ``device`` (the card unless the caller asks for the CPU).  On the card
+    ``decode_fn`` replays the bucket's captured step
+    (:class:`CapturedDecode`); on the CPU it is the eager loop over
+    ``step_fn``."""
     rt = Runtime(device)
+    graph = None
+    if rt.device.type == "cuda":
+        graph = CapturedDecode(cfg, rt, global_batch, cache_len)
 
     def serve(params, caches, token, pos):
         nxt, _logits, caches = decode_step(params, token, caches, pos, cfg,
@@ -172,24 +277,32 @@ def build_serve_step(cfg: ModelConfig, *, device="cuda") -> ServeStep:
         return nxt, caches
 
     def decode_fn(n_tokens: int):
-        """Greedy decode of ``n_tokens`` tokens from ``tok0`` at ``pos0``
-        (caches written in place)."""
-        def decode(params, caches, tok0, pos0):
+        """Greedy decode of ``n_tokens`` tokens from ``tok0`` at ``pos0``,
+        from zeroed caches."""
+        def eager(params, tok0, pos0):
+            caches = init_caches(cfg, global_batch, cache_len,
+                                 device=rt.device)
             tok, toks = tok0, []
             for i in range(n_tokens):
                 tok, caches = serve(params, caches, tok, int(pos0) + i)
                 toks.append(tok)
             return torch.stack(toks), caches      # [n_tokens, B]
 
-        return decode
+        def captured(params, tok0, pos0):
+            return graph.decode(params, tok0, pos0, n_tokens)
 
-    return ServeStep(step_fn=serve, rt=rt, decode_fn=decode_fn)
+        return eager if graph is None else captured
+
+    return ServeStep(step_fn=serve, rt=rt, decode_fn=decode_fn, graph=graph)
 
 
 def build_serve_buckets(cfg: ModelConfig,
                         buckets: Sequence[Tuple[int, int]], *,
                         device="cuda") -> Dict[Tuple[int, int], ServeStep]:
     """The continuous-batching server's decode buckets: one
-    :class:`ServeStep` per ``(global_batch, cache_len)`` shape.  Buckets
-    never share KV buffers: each decode call allocates its own."""
-    return {tuple(b): build_serve_step(cfg, device=device) for b in buckets}
+    :class:`ServeStep` per ``(global_batch, cache_len)`` shape, each with
+    its own captured step on the card.  Buckets never share buffers: each
+    owns its caches, token, position, outputs, graph and memory pool, so
+    quarantining one bucket's captured path cannot corrupt another's."""
+    return {(b, c): build_serve_step(cfg, device=device, global_batch=b,
+                                     cache_len=c) for b, c in buckets}

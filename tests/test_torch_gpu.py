@@ -13,10 +13,16 @@ largest |o_plain|; lse within 1e-4) and the two ``flash_attention_bwd`` kernels
 (each gradient within 5e-4 of the largest plain one in f32; in bf16 each
 row within 2^-6 of the row's largest |plain|) and ``ssd_scan`` (y and the
 final state within 1e-4 of the plain version's largest |value|, and each
-of its passes' scratch within 1e-4 of ``ssd_scan_passes``).  The FFT
+of its passes' scratch within 1e-4 of ``ssd_scan_passes``), the forward
+also at qwen3-14b's and qwen1.5-110b's prefill attention.  The FFT
 path, the llama3.2-1b serving and training paths (smoke config: prefill,
 the ``LPFServer`` loop, train steps) and the mamba2-130m serving path
-(smoke config) are driven through their entry points on the card.  Every
+(smoke config) are driven through their entry points on the card; each
+bucket's decode step captured as a CUDA graph decodes the eager
+per-token path's tokens bit for bit (llama3.2-1b, mamba2-130m and
+gemma2-9b smoke configs), a failed capture moves its bucket to the
+per-token path, and the pure-LPF ``ProgramDecodeEngine`` replays its
+captured loop body and equals its per-token fallback.  Every
 superstep method, every BSP collective and a small PageRank run on the
 card against the same calls on the CPU: bit-equal where no sum is
 reordered, else within 1e-6 relative (PageRank within 1e-5, with the
@@ -1146,3 +1152,118 @@ def test_pagerank_captured_loop_matches_eager_on_card(cuda):
         gctx.loop_graph_fallbacks == 0
     assert [dataclasses.asdict(r) for r in gctx.ledger.records] == \
         [dataclasses.asdict(r) for r in ectx.ledger.records]
+
+
+# ---------------------------------------------------------------------------
+# serving: the captured decode step, the program engine, and the dense
+# configs' attention shapes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-130m", "gemma2-9b"])
+def test_captured_decode_matches_eager_per_token(cuda, arch):
+    """A bucket's step captured once and replayed once a token decodes the
+    eager per-token path's tokens bit for bit: 12 tokens into an 8-slot
+    cache (the slots roll), then 5 from reset buffers, one capture."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_caches, load_params
+    from repro_torch.runtime.train_step import build_serve_buckets
+    cfg = get_config(arch, smoke=True)
+    params = load_params(0, cfg)
+    ss = build_serve_buckets(cfg, [(4, 8)])[(4, 8)]
+    tok0 = torch.tensor([1, 5, 77, 300], device=cuda)
+    for n in (12, 5):
+        got, _ = ss.decode_fn(n)(params, tok0, 0)
+        caches = init_caches(cfg, 4, 8)
+        tok, want = tok0, []
+        for pos in range(n):
+            tok, caches = ss.step_fn(params, caches, tok, pos)
+            want.append(tok)
+        assert torch.equal(got, torch.stack(want)), n
+    assert (ss.graph.captures, ss.graph.replays) == (1, 17)
+
+
+def test_model_engine_serves_captured_and_checks_per_token(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ModelDecodeEngine, serve
+    eng = ModelDecodeEngine(get_config("gemma2-9b", smoke=True),
+                            [(2, 16), (4, 16)], calibrate_tokens=3)
+    assert eng.captures == 2 and eng.replays > 0
+    out = serve(eng, requests=8, seed=0, max_tokens=16, check=True,
+                verbose=False)
+    assert out["completed"] >= 1 and out["quarantines"] == 0
+    assert out["solo_identical"] == out["per_token_identical"] == \
+        out["completed"]
+    assert out["health"]["deadline_misses"] == 0
+    assert eng.captures == 2 and eng.quarantined == set()
+
+
+def test_failed_capture_moves_the_bucket_to_per_token(cuda, monkeypatch):
+    """A capture that fails raises a transient error, never an eager run;
+    behind the server the ladder quarantines the bucket and the request
+    completes on the per-token path with the captured path's tokens."""
+    from repro_torch.core import LPFTransientError
+    from repro_torch.launch.serve import ModelDecodeEngine
+    from repro_torch.runtime import train_step
+    from repro_torch.runtime.server import LPFServer, ServeRequest
+    eng = ModelDecodeEngine(smoke_cfg(), [(2, 16)], calibrate_tokens=2)
+    r = ServeRequest(rid=0, n_tokens=6, deadline_s=10.0, seed=4242)
+    want = eng.decode((2, 16), [r], 6)[0]
+    real = train_step.decode_step
+
+    def reads_pos_on_host(params, token, caches, pos, cfg, rt):
+        if isinstance(pos, torch.Tensor) and \
+                torch.cuda.is_current_stream_capturing():
+            pos.item()                 # a host read: refused under capture
+        return real(params, token, caches, pos, cfg, rt)
+
+    monkeypatch.setattr(train_step, "decode_step", reads_pos_on_host)
+    eng._steps[(2, 16)].graph.graph = None          # capture again
+    with pytest.raises(LPFTransientError, match="capture"):
+        eng.decode((2, 16), [r], 6)
+    srv = LPFServer(eng, max_queue=4)
+    srv.submit(r)
+    done = srv.step()
+    assert done[0].status == "completed" and done[0].fallback
+    assert done[0].tokens == want
+    assert eng.quarantined == {(2, 16)} and eng.quarantines == 1
+
+
+def test_program_engine_replays_its_loop_graph(cuda):
+    """The pure-LPF engine on the card: the fused decode replays its
+    captured loop body, and equals its per-token fallback, its solo
+    decode and the same engine on the CPU."""
+    from repro_torch.runtime.server import (LPFServer, ProgramDecodeEngine,
+                                            ServeRequest, synthetic_requests)
+    eng = ProgramDecodeEngine(buckets=((2, 8), (4, 8)))
+    reqs = [ServeRequest(rid=i, n_tokens=8, deadline_s=1.0, seed=s)
+            for i, s in enumerate((1234, 777, 5))]
+    fused = eng.decode((4, 8), reqs, 8)
+    assert (eng.loop_graph_replays, eng.loop_graph_fallbacks) == (7, 0)
+    assert eng.decode((4, 8), reqs[:1], 8)[0] == fused[0]
+    cpu = ProgramDecodeEngine(buckets=((4, 8),), device="cpu")
+    assert cpu.decode((4, 8), reqs, 8) == fused
+    eng.quarantine((4, 8))
+    assert eng.decode((4, 8), reqs, 8) == fused
+    eng.quarantined.clear()
+    srv = LPFServer(eng, max_queue=8)
+    for r in synthetic_requests(10, 3, eng.buckets(),
+                                token_cost_s=eng.token_seconds((4, 8))):
+        srv.submit(r)
+    srv.run_until_idle()
+    h = srv.drain()
+    assert h["deadline_misses"] == 0 and h["program_pinned"] >= 2
+    assert eng.loop_graph_fallbacks == 0
+
+
+#: qwen3-14b's prefill attention (40 heads over 8: a GQA group of 5) and
+#: qwen1.5-110b's (64 over 8), bf16 causal at S 2048
+DENSE_FLASH = [(4, 40, 8, 2048, 128, True, None, None, torch.bfloat16),
+               (1, 64, 8, 2048, 128, True, None, None, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window,softcap,dtype",
+                         DENSE_FLASH, ids=["qwen3-14b", "qwen1.5-110b"])
+def test_flash_kernel_matches_plain_version_at_dense_shapes(
+        cuda, B, H, Hkv, S, D, causal, window, softcap, dtype):
+    test_flash_kernel_matches_plain_version(cuda, B, H, Hkv, S, D, causal,
+                                            window, softcap, dtype)

@@ -144,6 +144,21 @@ def test_serving_entry_points_refuse_without_a_card():
                    Runtime("cpu")).device.type == "cpu"
 
 
+def test_loading_and_program_engine_refuse_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points run on it")
+    from repro_torch.configs import get_config
+    from repro_torch.models import load_params
+    from repro_torch.runtime.server import ProgramDecodeEngine
+    cfg = get_config("gemma2-9b", smoke=True)
+    for call in (lambda: load_params(0, cfg),
+                 lambda: ProgramDecodeEngine(buckets=((2, 8),))):
+        with pytest.raises(tlpf.LPFFatalError, match="cuda"):
+            call()
+    assert ProgramDecodeEngine(buckets=((2, 8),),
+                               device="cpu").device.type == "cpu"
+
+
 def test_training_entry_points_refuse_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points run on it")
