@@ -251,10 +251,47 @@ the next) add, after (o):
     least two programs pinned, no quarantine; p50/p99 of wall and
     model-clock latency per bucket; then one bucket's streams solo,
     batched and on the per-token fallback, bit-identical.
+
+The MoE slice (seed-0 weights from ``load_params``, bf16 compute; each
+model's config as the launchers build it on one card, ``ep_degree=1``)
+adds, after (s); (b) and (j) gain its kernel shapes (granite's attention
+[4, 24, 8, 2048, 64], jamba's [1, 32, 8, 8192, 128]; jamba's scan [1,
+8192, 128, 64], G 1, N 16, chunk 128, in f32 and bf16):
+
+(t) mamba2-130m training at its published width, uncut: (h)'s loop and
+    checks with the ``ssd_scan`` kernel in place of flash attention and
+    the chunked path (``impl="chunked"``) as the reference: every loss
+    finite, the step-0 loss within 1e-2 of the chunked path's, exactly 48
+    ``ssd_scan`` calls (192 CUDA launches) a step (24 forward, 24 in the
+    remat recompute) and no flash launch, the B 1 gradients against the
+    chunked path's (``GRAD_BARS``, or twice the chunked path's own spread
+    at chunk 64 against 128 where wider, as in (k)), the loss witness;
+    step ms, tokens/s, model TFLOP/s, peak memory, one step's memory by
+    stage, and one profiled step with the device time inside the SSD
+    scan's VJP (the ``ssd_scan.vjp`` range) and its share;
+(u) granite-moe-3b-a800m whole, this slice's main path (32 layers, 40
+    experts top-8): load seconds and peak; one MoE layer at B 1 x S 512 in
+    f32 on the card against the same call on the CPU (within 1e-5, the
+    same tokens routed to each expert); prefill at B 4 x S 2048 as in (p)
+    (32 flash launches, the reference and both sides of the gate checked;
+    the gate widens to twice the sound run's reading for an MoE model:
+    a bf16 rounding difference can route a near-tie token to another
+    expert), its capacity drops, host ms, tokens/s and profile with the
+    MoE block's share (the ``moe_single`` range); 64 teacher-forced decode
+    steps at a capacity that drops nothing (``raised_capacity``, both
+    sides) with the published factor's drops of the prompt beside;
+    serving as in (e); one eager against one captured step with the MoE
+    block's share of each;
+(v) jamba-v0.1-52b at its published widths with its depth cut to one
+    8-layer period (7 Mamba and 1 attention layer, 4 MoE and 4 dense
+    FFNs; 13.27 B; 103 GB of bf16 weights at full depth do not fit): the
+    same as (u) at prefill B 1 x S 8192 (1 flash launch and 7
+    ``ssd_scan`` calls, the reference taking the chunked scan too).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -379,6 +416,29 @@ GEMMA_ARCH, GEMMA_B, GEMMA_S = "gemma2-9b", 1, 8192
 QWEN3_ARCH, QWEN3_B, QWEN3_S = "qwen3-14b", 4, 2048
 QWEN110_ARCH, QWEN110_B, QWEN110_S, QWEN110_LAYERS = "qwen1.5-110b", 1, \
     2048, 4
+# the MoE configs (u)-(v): granite-moe-3b-a800m whole (32 layers, 40
+# experts top-8 at ep_degree 1) with its prefill at B 4 x S 2048, one MoE
+# layer card against CPU at B 1 x S 512; jamba-v0.1-52b's published widths
+# with its depth cut from 4 periods of 8 layers to JAMBA_PERIODS (103 GB of
+# bf16 weights at full depth, over one card's 80 GB), prefill at B 1 x S
+# 8192
+GRANITE_ARCH, GRANITE_B, GRANITE_S, MOE_LAYER_S = "granite-moe-3b-a800m", \
+    4, 2048, 512
+JAMBA_ARCH, JAMBA_B, JAMBA_S, JAMBA_PERIODS = "jamba-v0.1-52b", 1, 8192, 1
+# one MoE layer on the card against the same call on the CPU, in f32
+MOE_LAYER_BAR = 1e-5
+# their attention in (b): granite's 24 heads over 8 (group 3, head dim
+# 64) and jamba's 32 over 8 (group 4, head dim 128, no RoPE), causal
+MOE_FWD_SHAPES = [
+    (GRANITE_B, 24, 8, GRANITE_S, 64, True, None, None, "bfloat16"),
+    (JAMBA_B, 32, 8, JAMBA_S, 128, True, None, None, "bfloat16"),
+]
+# jamba's scan in (j): 128 heads of 64, N 16, chunk 128, in f32 (what the
+# model hands the kernel) and bf16
+JAMBA_SSD_SHAPES = [
+    (JAMBA_B, JAMBA_S, 128, 64, 1, 16, 128, "float32"),
+    (JAMBA_B, JAMBA_S, 128, 64, 1, 16, 128, "bfloat16"),
+]
 
 
 def check(cond: bool, what: str) -> None:
@@ -721,20 +781,32 @@ def flash_bwd_phase(rng, dev, build_log: str,
     return rows
 
 
-def train_phases(dev) -> dict:
-    """(h)-(i): llama3.2-1b training at full width."""
+def train_phases(dev, arch: str = ARCH) -> dict:
+    """(h)-(i): llama3.2-1b training at full width, flash attention
+    against reference attention; (t) mamba2-130m's, the ``ssd_scan``
+    kernel against the chunked path (``chunked_mamba``), whose own
+    spread (the chunked path at chunk 64 against 128, the same algebra
+    summed in another order) widens the B 1 gradient bars as in (k)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticStream
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import count_params, loss_fn, model_flops
     from repro_torch.optim import AdamWConfig, global_norm, warmup_cosine
     from repro_torch.runtime.train_loop import TrainLoopConfig, train_loop
     from repro_torch.runtime.train_step import build_train_step
 
-    cfg = dataclasses.replace(get_config(ARCH), attn_impl="flash")
-    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    mamba = arch == MAMBA_ARCH
+    if mamba:
+        label, cfg = "mamba2 train", get_config(arch)
+        ref_cfg, reference = cfg, chunked_mamba
+        ranges = (ssd_ops.VJP_RANGE,)
+    else:
+        label = "train"
+        cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+        ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+        reference, ranges = contextlib.nullcontext, ()
     check(cfg.remat == "full" and cfg.param_dtype == "float32"
           and cfg.compute_dtype == "bfloat16", "training config")
     ts = build_train_step(cfg, opt_cfg=AdamWConfig(
@@ -743,14 +815,15 @@ def train_phases(dev) -> dict:
                                         global_batch=TRAIN_B, seed=0))
     out = {}
 
-    # the reference-attention loss of step 0's batch at the initial weights
-    # (train_loop starts from the same seed-0 parameters), and the flash
+    # the reference's loss of step 0's batch at the initial weights
+    # (train_loop starts from the same seed-0 parameters), and the kernel
     # model's loss at those weights on each step's batch, the baseline
     # that says how much of a step's loss is its batch
     params = ts.init_fn(0)[0]
     b0 = {k: torch.from_numpy(v).to(dev) for k, v in stream.batch(0).items()}
     with torch.no_grad():
-        ref_loss0 = loss_fn(params, b0, ref_cfg, ts.rt).item()
+        with reference():
+            ref_loss0 = loss_fn(params, b0, ref_cfg, ts.rt).item()
         init_losses = [loss_fn(params, {
             k: torch.from_numpy(v).to(dev)
             for k, v in stream.batch(i).items()}, cfg, ts.rt).item()
@@ -758,50 +831,45 @@ def train_phases(dev) -> dict:
     del params
     torch.cuda.empty_cache()
 
-    # (h) the training loop, counts set to 0 just before it ---------------
-    kernels = (fa_kernel.flash_attention_fwd,
-               fa_kernel.flash_attention_bwd_dkv,
-               fa_kernel.flash_attention_bwd_dq)
-    for fn in kernels:
-        fn.launches = 0
+    # the training loop, counts set to 0 just before it ------------------
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = train_loop(ts, stream, TrainLoopConfig(steps=TRAIN_STEPS),
                      on_step=lambda step, loss, v: print(
-                         f"train step {step}: loss {loss:.5f} "
+                         f"{label} step {step}: loss {loss:.5f} "
                          f"{v.duration * 1e3:.2f} ms", flush=True))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = res["losses"]
     step_ms = statistics.median(
         v.duration * 1e3 for v in list(res["monitor"])[TRAIN_WARMUP:])
     tokens = TRAIN_B * TRAIN_S
-    per_step = dict(flash_attention_fwd=2 * cfg.n_layers,
-                    flash_attention_bwd_dkv=cfg.n_layers,
-                    flash_attention_bwd_dq=cfg.n_layers)
+    # remat="full": each step runs the forward twice (the recompute)
+    per_step = expected_counts(cfg, forward_calls=2, backward=True)
     out["train"] = dict(
-        batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
+        arch=arch, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
         n_params=count_params(cfg), losses=losses,
         ref_loss0=ref_loss0,
         loss0_rel_vs_reference=abs(losses[0] - ref_loss0) / abs(ref_loss0),
-        launches=launches, step_ms=step_ms,
+        launches=launches, launches_per_step=per_step, step_ms=step_ms,
         step_ms_all=[v.duration * 1e3 for v in res["monitor"]],
         tokens_per_s=tokens / (step_ms * 1e-3),
         model_tflops=model_flops(cfg, tokens) / (step_ms * 1e-3) / 1e12,
         peak_mem_gb=peak / 1e9, loop_wall_s=wall_s)
-    print("train " + json.dumps(out["train"]), flush=True)
+    print(f"{label} " + json.dumps(out["train"]), flush=True)
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
-          f"training losses {losses}")
+          f"{label} losses {losses}")
     check(out["train"]["loss0_rel_vs_reference"] < 1e-2,
-          f"step-0 loss {losses[0]} vs reference attention {ref_loss0}")
+          f"{label} step-0 loss {losses[0]} vs the reference {ref_loss0}")
     for name, n in per_step.items():
         check(launches[name] == n * TRAIN_STEPS,
-              f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, "
-              f"not {n} per step")
+              f"{label} {name}: {launches[name]} launches in {TRAIN_STEPS} "
+              f"steps, not {n} per step")
 
-    # (i) profile of one more step, last --------------------------------------
+    # the profile of one more step, last ----------------------------------
     params, opt = res["params"], res["opt"]
     del res
     batch = {k: torch.from_numpy(v).to(dev)
@@ -812,69 +880,80 @@ def train_phases(dev) -> dict:
         _p, _o, m = ts.step_fn(params, opt, batch)
         float(m["loss"])
 
-    out["train_profile"] = profile_families("train step (B 4, S 2048)",
-                                            one_step, step_ms)
+    out["train_profile"] = profile_families(
+        f"{label} step (B {TRAIN_B}, S {TRAIN_S})", one_step, step_ms,
+        ranges=ranges)
     del params, opt
     torch.cuda.empty_cache()
 
-    # the flash model's gradients against the reference model's at B 1 ----
+    # the kernel model's gradients against the reference's at B 1 ----------
     params = ts.init_fn(0)[0]
     b1 = {k: v[:1] for k, v in b0.items()}
-    grads = []
-    for c in (cfg, ref_cfg):
-        loss = loss_fn(params, b1, c, ts.rt)
-        grads.append(dict(zip([n for n, _ in params.named_parameters()],
-                              torch.autograd.grad(loss,
-                                                  list(params.parameters())))))
-        del loss
-    g_f, g_r = grads
-    leaf = {n: rel_err(g_f[n], g_r[n]) for n in g_f}
-    n_f, n_r = global_norm(g_f).item(), global_norm(g_r).item()
-    diff = global_norm({n: g_f[n] - g_r[n] for n in g_f}).item() / n_r
-    worst = max(leaf, key=leaf.get)
-    out["grads_b1"] = dict(worst_leaf=worst, worst_leaf_rel=leaf[worst],
-                           norm_flash=n_f, norm_reference=n_r,
-                           norm_rel=abs(n_f - n_r) / n_r, diff_rel=diff,
-                           bars=GRAD_BARS)
-    print("train grads B1 flash vs reference " + json.dumps(out["grads_b1"]),
+    names = [n for n, _ in params.named_parameters()]
+
+    def grads_of(c, ctx):
+        with ctx():
+            loss = loss_fn(params, b1, c, ts.rt)
+            return dict(zip(names, torch.autograd.grad(
+                loss, list(params.parameters()))))
+
+    def compare(g_a, g_b):
+        leaf = {n: rel_err(g_a[n], g_b[n]) for n in g_a}
+        n_a, n_b = global_norm(g_a).item(), global_norm(g_b).item()
+        worst = max(leaf, key=leaf.get)
+        return dict(worst_leaf=worst, leaf=leaf[worst], norm_kernel=n_a,
+                    norm_reference=n_b, norm=abs(n_a - n_b) / n_b,
+                    diff=global_norm({n: g_a[n] - g_b[n] for n in g_a})
+                    .item() / n_b)
+
+    g_r = grads_of(ref_cfg, reference)
+    cmp = compare(grads_of(cfg, contextlib.nullcontext), g_r)
+    bars = dict(GRAD_BARS)
+    if mamba:
+        spread = compare(grads_of(cfg, lambda: chunked_mamba(64)), g_r)
+        cmp["chunked_64_vs_128"] = spread
+        bars = {k: max(v, 2 * spread[k]) for k, v in GRAD_BARS.items()}
+    cmp["bars"] = bars
+    out["grads_b1"] = cmp
+    print(f"{label} grads B1 kernel vs reference " + json.dumps(cmp),
           flush=True)
-    check(leaf[worst] < GRAD_BARS["leaf"]
-          and abs(n_f - n_r) / n_r < GRAD_BARS["norm"]
-          and diff < GRAD_BARS["diff"],
-          f"B1 gradients flash vs reference: {out['grads_b1']}")
-    del params, grads, g_f, g_r
+    check(all(cmp[k] < bars[k] for k in bars),
+          f"{label} B1 gradients kernel vs reference: {cmp}")
+    del params, g_r
     torch.cuda.empty_cache()
 
-    # what makes the loss rise under the 3e-3 peak: the flash and the
-    # reference-attention model from the same weights under the same
-    # schedule at B 1; then the flash model at B 4 under a tenth of the
-    # peak, whose last loss must fall below the initial weights' on the
-    # same batch
+    # what makes the loss rise under the 3e-3 peak: the kernel and the
+    # reference model from the same weights under the same schedule at
+    # B 1; then the kernel model at B 4 under a tenth of the peak, whose
+    # last loss must fall below the initial weights' on the same batch
     b1_stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
                                            global_batch=1, seed=0))
     witness = {"init_weights_b4": init_losses}
-    for name, c, lr, s, B in (
-            ("flash_b1_3e-3", cfg, 3e-3, b1_stream, 1),
-            ("reference_b1_3e-3", ref_cfg, 3e-3, b1_stream, 1),
-            ("flash_b4_3e-4", cfg, 3e-4, stream, TRAIN_B)):
+    for name, c, ctx, lr, s, B in (
+            ("kernel_b1_3e-3", cfg, contextlib.nullcontext, 3e-3,
+             b1_stream, 1),
+            ("reference_b1_3e-3", ref_cfg, reference, 3e-3, b1_stream, 1),
+            ("kernel_b4_3e-4", cfg, contextlib.nullcontext, 3e-4, stream,
+             TRAIN_B)):
         steps = WITNESS_STEPS if B == 1 else TRAIN_STEPS
         ts_w = build_train_step(c, opt_cfg=AdamWConfig(
             lr=warmup_cosine(lr, 10, TRAIN_STEPS)), device=dev)
-        witness[name] = train_loop(ts_w, s,
-                                   TrainLoopConfig(steps=steps))["losses"]
+        with ctx():
+            witness[name] = train_loop(
+                ts_w, s, TrainLoopConfig(steps=steps))["losses"]
         torch.cuda.empty_cache()
-    f1, r1 = witness["flash_b1_3e-3"], witness["reference_b1_3e-3"]
-    witness["flash_vs_reference_rel"] = [abs(a - b) / abs(b)
-                                         for a, b in zip(f1, r1)]
+    f1, r1 = witness["kernel_b1_3e-3"], witness["reference_b1_3e-3"]
+    witness["kernel_vs_reference_rel"] = [abs(a - b) / abs(b)
+                                          for a, b in zip(f1, r1)]
     out["loss_witness"] = witness
-    print("train loss witness " + json.dumps(witness), flush=True)
+    print(f"{label} loss witness " + json.dumps(witness), flush=True)
     check(all(map(math.isfinite, f1 + r1))
-          and max(witness["flash_vs_reference_rel"]) < WITNESS_BAR,
-          f"B1 losses flash {f1} vs reference attention {r1}")
-    low = witness["flash_b4_3e-4"]
+          and max(witness["kernel_vs_reference_rel"]) < WITNESS_BAR,
+          f"{label} B1 losses kernel {f1} vs reference {r1}")
+    low = witness["kernel_b4_3e-4"]
     check(all(map(math.isfinite, low)) and low[-1] < init_losses[-1],
-          f"the flash model's loss under a 3e-4 peak {low} did not fall "
-          f"below the initial weights' {init_losses}")
+          f"{label}: the kernel model's loss under a 3e-4 peak {low} did "
+          f"not fall below the initial weights' {init_losses}")
     return out
 
 
@@ -927,6 +1006,111 @@ def step_memory(ts, params, opt, batch) -> dict:
     return mem
 
 
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count: flash forward and backward
+    (one CUDA launch a call each), ``ssd_scan`` calls and their CUDA
+    launches (four a call)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    return dict(
+        flash_attention_fwd=fa_kernel.flash_attention_fwd.launches,
+        flash_attention_bwd_dkv=fa_kernel.flash_attention_bwd_dkv.launches,
+        flash_attention_bwd_dq=fa_kernel.flash_attention_bwd_dq.launches,
+        ssd_scan=ssd_kernel.ssd_scan.launches,
+        ssd_scan_cuda=ssd_kernel.ssd_scan.cuda_launches)
+
+
+def zero_counts() -> None:
+    """Set every count of :func:`launch_counts` to 0."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    for fn in (fa_kernel.flash_attention_fwd,
+               fa_kernel.flash_attention_bwd_dkv,
+               fa_kernel.flash_attention_bwd_dq):
+        fn.launches = 0
+    ssd_kernel.ssd_scan.launches = ssd_kernel.ssd_scan.cuda_launches = 0
+
+
+def expected_counts(cfg, forward_calls: int = 1, backward: bool = False
+                    ) -> dict:
+    """:func:`launch_counts` of ``forward_calls`` forwards of ``cfg`` (and
+    one backward): a flash launch an attention block a forward, an
+    ``ssd_scan`` call (4 CUDA launches) a Mamba block a forward, and with
+    the backward one launch of each flash backward kernel an attention
+    block (the SSD scan's backward is plain PyTorch)."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    attn = blocks_of(cfg, "attn")
+    mamba = blocks_of(cfg, "mamba")
+    return dict(flash_attention_fwd=forward_calls * attn,
+                flash_attention_bwd_dkv=attn if backward else 0,
+                flash_attention_bwd_dq=attn if backward else 0,
+                ssd_scan=forward_calls * mamba,
+                ssd_scan_cuda=forward_calls * mamba * len(ssd_kernel.PASSES))
+
+
+def blocks_of(cfg, mixer: str) -> int:
+    """The blocks of ``cfg`` whose mixer is ``mixer``."""
+    return sum(g.repeats * sum(b.mixer == mixer for b in g.blocks)
+               for g in cfg.groups)
+
+
+@contextlib.contextmanager
+def chunked_mamba(chunk: int = None):
+    """While open, every Mamba block's scan takes the JAX model's default
+    path (``impl="chunked"``, optionally at another chunk length), a
+    check only: it must launch no ``ssd_scan``.  Models without Mamba
+    blocks are untouched."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.models import blocks
+    real = blocks.mamba_apply
+    blocks.mamba_apply = lambda p, h, mcfg, impl: real(
+        p, h, dataclasses.replace(mcfg, chunk=chunk or mcfg.chunk),
+        impl="chunked")
+    before = ssd_kernel.ssd_scan.launches
+    try:
+        yield
+    finally:
+        blocks.mamba_apply = real
+    check(ssd_kernel.ssd_scan.launches == before,
+          "the chunked path launched ssd_scan")
+
+
+def raised_capacity(cfg):
+    """``cfg`` with every expert taking every token of a call (capacity
+    factor E: cap = T), so no token is dropped.  Capacity drops make a
+    token's output depend on the call's other tokens (the reference's
+    semantics): a 64-token prompt on granite has cap 16 against a mean
+    load of 12.8, where one-token decode (cap = T) never drops.  Decode
+    is held to prefill at this capacity, on both sides."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.padded_experts)))
+
+
+def moe_drops(params, batch, cfg, rt) -> dict:
+    """The (token, expert) pairs one prefill routes, and how many of them
+    its capacity drops: ``expert_load`` on each MoE block's input, summed
+    on the card."""
+    import torch
+    from repro_torch.models import blocks, moe, prefill
+    real = blocks.moe_single
+    dropped, routed = [], []
+
+    def counted(p, x, mcfg):
+        load, cap = moe.expert_load(p, x, mcfg)
+        dropped.append((load - cap).clamp_min(0).sum())
+        routed.append(load.sum())
+        return real(p, x, mcfg)
+
+    blocks.moe_single = counted
+    try:
+        prefill(params, batch, cfg, rt)
+    finally:
+        blocks.moe_single = real
+    return dict(dropped=int(torch.stack(dropped).sum()),
+                routed=int(torch.stack(routed).sum()),
+                moe_blocks=len(dropped))
+
+
 def kernel_family(name: str) -> str:
     n = name.lower()
     if "fa_fwd" in n:
@@ -949,10 +1133,12 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def profile_families(label: str, run, wall_ms: float) -> dict:
+def profile_families(label: str, run, wall_ms: float, ranges=()) -> dict:
     """(f): where one call's device time goes, by kernel family, with its
     kernel launches, and the device's idle share of the call's
-    unprofiled host wall time ``wall_ms``."""
+    unprofiled host wall time ``wall_ms``.  Each ``torch.profiler`` range
+    named in ``ranges`` gets the device time of the kernels its ops
+    launched and that time's share of the busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -962,7 +1148,7 @@ def profile_families(label: str, run, wall_ms: float) -> dict:
     fam: dict = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA \
-                and e.self_device_time_total > 0:
+                and e.self_device_time_total > 0 and e.key not in ranges:
             f = fam.setdefault(kernel_family(e.key),
                                dict(kernels=0, launches=0, device_us=0.0))
             f["kernels"] += 1
@@ -974,8 +1160,20 @@ def profile_families(label: str, run, wall_ms: float) -> dict:
                idle_share=1.0 - busy_us / (wall_ms * 1e3),
                families=dict(sorted(fam.items(),
                                     key=lambda kv: -kv[1]["device_us"])))
+    if ranges:
+        cpu = torch.autograd.DeviceType.CPU
+        out["ranges"] = {}
+        for name in ranges:
+            spans = [e for e in prof.events()
+                     if e.name == name and e.device_type == cpu]
+            us = sum(e.device_time_total for e in spans)
+            out["ranges"][name] = dict(calls=len(spans), device_us=us,
+                                       share_of_busy=us / busy_us)
     print(f"{label} profile " + json.dumps(out), flush=True)
     check(busy_us > 0, f"profiler recorded no device time in {label}")
+    for name, r in out.get("ranges", {}).items():
+        check(r["calls"] > 0 and r["device_us"] > 0,
+              f"{label}: no device time inside the range {name}")
     return out
 
 
@@ -1212,9 +1410,8 @@ def mamba_phases(rng, dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-    from repro_torch.models import (Runtime, blocks, cast_params,
-                                    decode_step, init_caches, init_params,
-                                    prefill)
+    from repro_torch.models import (Runtime, cast_params, decode_step,
+                                    init_caches, init_params, prefill)
 
     cfg = get_config(MAMBA_ARCH)
     check(cfg.compute_dtype == "bfloat16" and cfg.n_layers == 24,
@@ -1227,18 +1424,8 @@ def mamba_phases(rng, dev) -> dict:
         """The same prefill with the blocks' scan through the JAX model's
         default path (``impl="chunked"``, optionally at another chunk
         length), a check only."""
-        real = blocks.mamba_apply
-        blocks.mamba_apply = lambda p_, h, mcfg, impl: real(
-            p_, h, dataclasses.replace(mcfg, chunk=chunk or mcfg.chunk),
-            impl="chunked")
-        try:
-            before = ssd_kernel.ssd_scan.launches
-            out = prefill(p, batch, c, rt)
-            check(ssd_kernel.ssd_scan.launches == before,
-                  "the chunked prefill launched ssd_scan")
-            return out
-        finally:
-            blocks.mamba_apply = real
+        with chunked_mamba(chunk):
+            return prefill(p, batch, c, rt)
 
     # (k) prefill at full width, counts set to 0 just before --------------
     V = cfg.vocab
@@ -1435,11 +1622,12 @@ def serve_paths(label: str, cfg, params, dev, buckets=SERVE_BUCKETS):
 
 
 def step_profiles(label: str, cfg, params, eng, dev,
-                  bucket=SERVE_BUCKETS[-1]) -> tuple:
+                  bucket=SERVE_BUCKETS[-1], ranges=()) -> tuple:
     """One eager decode step and one replay of the bucket's captured step
     at position C / 2 (``torch.profiler``): device time by kernel family,
     kernels launched, and the device's idle share of each one's
-    unprofiled host wall time."""
+    unprofiled host wall time; the eager step's ``ranges`` too (a replay
+    runs no host ops, so none shows in it)."""
     import torch
     from repro_torch.models import Runtime, decode_step, init_caches
     B, C = bucket
@@ -1448,7 +1636,7 @@ def step_profiles(label: str, cfg, params, eng, dev,
     tok = torch.zeros(B, dtype=torch.long, device=dev)
     step = lambda: decode_step(params, tok, caches, C // 2, cfg, rt)
     eager = profile_families(f"{label} eager decode step (B {B}, cache {C})",
-                             step, host_ms(step))
+                             step, host_ms(step), ranges=ranges)
     g = eng.serve_step(bucket).graph
     g.pos.fill_(C // 2)
     replay = g.graph.replay
@@ -1482,18 +1670,21 @@ def load_model(label: str, cfg, dev) -> tuple:
     return params, info
 
 
-def rolled_kv(params, cfg):
-    """``params`` with every layer's K and V projections rolled by one KV
-    head: a prefill on them computes what a flash kernel that reads each
-    query group's keys and values from the next group's head computes."""
+def rolled(params, names, shift: int):
+    """``params`` with each leaf named in ``names`` rolled by ``shift``
+    along its last (output) axis.  K and V projections rolled by one KV
+    head (``("wk", "wv", "bk", "bv")``, head dim): a prefill on them
+    computes what a flash kernel that reads each query group's keys and
+    values from the next group's head computes; Mamba's x projection
+    rolled by one head (``("in_x",)``, the Mamba head dim): what an SSD
+    scan that reads each head's x from the next head computes."""
     from repro_torch.models import ParamTree
     import torch
-    hd = cfg.head_dim or cfg.d_model // cfg.n_heads
 
     def roll(tree):
         return {k: roll(v) if isinstance(v, dict) else (
-            torch.roll(v, hd, dims=-1) if k in ("wk", "wv", "bk", "bv")
-            else v) for k, v in tree.items()}
+            torch.roll(v, shift, dims=-1) if k in names else v)
+            for k, v in tree.items()}
     return ParamTree(roll(params.tree()))
 
 
@@ -1504,87 +1695,140 @@ def without_window(cfg):
                         for b in g.blocks)) for g in cfg.groups))
 
 
-def dense_prefill(label: str, rng, cfg, params, dev, B: int, S: int
-                  ) -> dict:
-    """Prefill at full width with the counts set to 0 just before: one
-    ``flash_attention_fwd`` launch a layer, finite last-position logits
-    within ``DENSE_PREFILL_BAR`` (relative) of the same prefill with
-    ``attn_impl="reference"``; host milliseconds and tokens/s.  The bar's
-    two readings at this shape, each checked: a sound run (the bf16
-    reference prefill against the same prefill in f32 compute on the same
+def dense_prefill(label: str, rng, cfg, params, dev, B: int, S: int,
+                  ranges=None) -> dict:
+    """Prefill at full width with every count set to 0 just before: one
+    ``flash_attention_fwd`` launch an attention block and one ``ssd_scan``
+    call a Mamba block (``expected_counts``), finite last-position logits
+    within the gate of the same prefill with ``attn_impl="reference"`` and
+    the chunked scan (``chunked_mamba``); host milliseconds and tokens/s.
+    The gate's two readings at this shape, each checked: a sound run (the
+    reference prefill in bf16 against the same in f32 compute on the same
     weights: what bf16 rounding alone moves) passes it, and each control
     (a flash prefill of a wrong kernel's function: K/V heads of the next
     group; without the local layers' window where the model has one)
-    fails it."""
+    fails it (and, for a model with Mamba blocks, a prefill whose scan
+    reads each head's x from the next head).  The gate is
+    ``DENSE_PREFILL_BAR``; for an MoE model the bar
+    or twice the sound run's reading, whichever is wider: routing is a
+    top-k, so a rounding difference can send a near-tie token to another
+    expert, which moves its output by a whole expert's share (the
+    smallest move a wrong kernel makes is the controls' reading).  An MoE
+    model also prints the prefill's capacity drops (``moe_drops``).  With
+    ``ranges``, one more prefill is profiled (``profile_families``)."""
     import torch
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.models import Runtime, prefill
     rt = Runtime(dev)
     V = cfg.vocab
     batch = {"tokens": torch.from_numpy(rng.integers(0, V, (B, S))).to(dev)}
-    fa_kernel.flash_attention_fwd.launches = 0
+    zero_counts()
     logits = prefill(params, batch, cfg, rt)
     torch.cuda.synchronize()
-    launches = fa_kernel.flash_attention_fwd.launches
+    counts = launch_counts()
     ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
-    ref = prefill(params, batch, ref_cfg, rt)[:, :V]
+    with chunked_mamba():
+        ref = prefill(params, batch, ref_cfg, rt)[:, :V]
+        f32 = prefill(params, batch, dataclasses.replace(
+            ref_cfg, compute_dtype="float32"), rt)[:, :V]
     rel = rel_err(logits[:, :V], ref)
-    f32 = prefill(params, batch, dataclasses.replace(
-        ref_cfg, compute_dtype="float32"), rt)[:, :V]
     controls = {"kv_heads_rolled": rel_err(prefill(
-        rolled_kv(params, cfg), batch, cfg, rt)[:, :V], ref)}
+        rolled(params, ("wk", "wv", "bk", "bv"), cfg.hd), batch, cfg,
+        rt)[:, :V], ref)}
     if any(b.window for g in cfg.groups for b in g.blocks):
         controls["window_dropped"] = rel_err(prefill(
             params, batch, without_window(cfg), rt)[:, :V], ref)
-    readings = dict(bar=DENSE_PREFILL_BAR,
-                    sound_bf16_vs_f32=rel_err(ref, f32),
+    if blocks_of(cfg, "mamba"):
+        controls["ssd_x_heads_rolled"] = rel_err(prefill(
+            rolled(params, ("in_x",), cfg.mamba.head_dim), batch, cfg,
+            rt)[:, :V], ref)
+    sound = rel_err(ref, f32)
+    gate = DENSE_PREFILL_BAR if cfg.moe is None else max(
+        DENSE_PREFILL_BAR, 2 * sound)
+    readings = dict(bar=DENSE_PREFILL_BAR, gate=gate,
+                    sound_bf16_vs_f32=sound,
                     flash_vs_f32=rel_err(logits[:, :V], f32),
                     controls=controls)
     print(f"{label} prefill bar " + json.dumps(readings), flush=True)
+    want = expected_counts(cfg)
     check(logits.shape == (B, cfg.vocab_padded)
           and bool(torch.isfinite(logits[:, :V]).all()),
           f"{label} prefill logits shape/finite")
-    check(launches == cfg.n_layers,
-          f"{label} prefill launched flash_attention_fwd {launches} times, "
-          f"not {cfg.n_layers}")
-    check(rel < DENSE_PREFILL_BAR,
-          f"{label} prefill flash vs reference rel err {rel}")
-    check(readings["sound_bf16_vs_f32"] < DENSE_PREFILL_BAR,
-          f"{label} prefill bar under a sound run's "
-          f"{readings['sound_bf16_vs_f32']}")
-    check(all(c > DENSE_PREFILL_BAR for c in controls.values()),
-          f"{label} prefill bar passes a control: {controls}")
+    check(counts == want, f"{label} prefill launched {counts}, not {want}")
+    check(rel < gate, f"{label} prefill flash vs reference rel err {rel}, "
+                      f"gate {gate}")
+    check(cfg.moe is not None or sound < gate,
+          f"{label} prefill bar under a sound run's {sound}")
+    check(all(c > gate for c in controls.values()),
+          f"{label} prefill gate {gate} passes a control: {controls}")
     del ref, f32
+    drops = moe_drops(params, batch, cfg, rt) if cfg.moe else None
     torch.cuda.reset_peak_memory_stats()
     ms = host_ms(lambda: prefill(params, batch, cfg, rt), reps=3, warmup=1)
-    out = dict(batch=B, seq=S, layers=cfg.n_layers, flash_launches=launches,
+    out = dict(batch=B, seq=S, layers=cfg.n_layers,
+               flash_launches=counts["flash_attention_fwd"],
+               ssd_launches=counts["ssd_scan"],
+               ssd_cuda_launches=counts["ssd_scan_cuda"],
                rel_err_vs_reference=rel, bar_readings=readings, e2e_ms=ms,
-               tokens_per_s=B * S / (ms * 1e-3),
+               tokens_per_s=B * S / (ms * 1e-3), capacity_drops=drops,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"{label} prefill " + json.dumps(out), flush=True)
+    if ranges is not None:
+        # last, as in (f): a profiler session may slow later host work
+        out["profile"] = profile_families(
+            f"{label} prefill (B {B}, S {S})",
+            lambda: prefill(params, batch, cfg, rt), ms, ranges=ranges)
     return out
 
 
-def teacher_forced(label: str, rng, cfg, params, dev, S: int = TEACHER_S
-                   ) -> dict:
+def teacher_forced(label: str, rng, cfg, params, dev, S: int = TEACHER_S,
+                   published=None) -> dict:
     """``S`` ``decode_step`` calls at B 1 against ``prefill`` of the same
-    prompt: last logits within 0.08 (relative); ms a step."""
+    prompt: last logits within 0.08 (relative); ms a step.  A model with
+    Mamba blocks is held as in (l): in f32 compute within 0.08, in bf16
+    within 0.08 or, where the chunked path's own spread on the same
+    prompt (chunk 16 against the config's) is wider, twice that spread.
+    ``published``: the MoE config whose capacity ``cfg`` raised, whose
+    drops on the same prompt are printed beside."""
     import torch
     from repro_torch.models import Runtime, decode_step, init_caches, prefill
     rt = Runtime(dev)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S))).to(dev)
-    want = prefill(params, {"tokens": toks}, cfg, rt)
-    caches = init_caches(cfg, 1, S, device=dev)
-    t0 = time.perf_counter()
-    for t in range(S):
-        _, got, caches = decode_step(params, toks[:, t], caches, t, cfg, rt)
-    torch.cuda.synchronize()
-    out = dict(prompt=S, rel_err=rel_err(got[:, :cfg.vocab],
-                                         want[:, :cfg.vocab]),
-               decode_ms_per_step_b1=(time.perf_counter() - t0) * 1e3 / S)
+    V = cfg.vocab
+    toks = torch.from_numpy(rng.integers(0, V, (1, S))).to(dev)
+
+    def run(c):
+        want = prefill(params, {"tokens": toks}, c, rt)
+        caches = init_caches(c, 1, S, device=dev)
+        t0 = time.perf_counter()
+        for t in range(S):
+            _, got, caches = decode_step(params, toks[:, t], caches, t, c,
+                                         rt)
+        torch.cuda.synchronize()
+        return (rel_err(got[:, :V], want[:, :V]),
+                (time.perf_counter() - t0) * 1e3 / S)
+
+    rel, step_ms = run(cfg)
+    out = dict(prompt=S, rel_err=rel, decode_ms_per_step_b1=step_ms)
+    bar = 0.08
+    if blocks_of(cfg, "mamba"):
+        out["f32_rel_err"], _ = run(dataclasses.replace(
+            cfg, compute_dtype="float32"))
+        with chunked_mamba(16):
+            fine = prefill(params, {"tokens": toks}, cfg, rt)[:, :V]
+        with chunked_mamba():
+            out["chunked_16_vs_default_rel"] = rel_err(
+                fine, prefill(params, {"tokens": toks}, cfg, rt)[:, :V])
+        bar = max(bar, 2 * out["chunked_16_vs_default_rel"])
+        check(out["f32_rel_err"] < 0.08,
+              f"{label} f32 teacher-forced decode vs prefill rel err "
+              f"{out['f32_rel_err']}")
+    if published is not None:
+        out["capacity_factor"] = cfg.moe.capacity_factor
+        out["published_factor_drops"] = moe_drops(
+            params, {"tokens": toks}, published, rt)
+    out["bar"] = bar
     print(f"{label} teacher-forced decode " + json.dumps(out), flush=True)
-    check(out["rel_err"] < 0.08, f"{label} teacher-forced decode vs prefill "
-                                 f"rel err {out['rel_err']}")
+    check(rel < bar, f"{label} teacher-forced decode vs prefill rel err "
+                     f"{rel}, bar {bar}")
     return out
 
 
@@ -1625,6 +1869,94 @@ def dense_phases(dev) -> dict:
                                  QWEN110_B, QWEN110_S))
     del params
     torch.cuda.empty_cache()
+    return out
+
+
+def moe_layer_check(params, cfg, rng, dev) -> dict:
+    """One MoE layer (layer 0's weights, upcast to f32) at B 1 x S
+    ``MOE_LAYER_S`` in f32 on the card against the same call on the CPU:
+    the output within ``MOE_LAYER_BAR`` (relative), the tokens routed to
+    each expert equal, and the card's milliseconds for it."""
+    import torch
+    from repro_torch.models import moe
+    tree = params.tree()["dec_body"]["b0"]["moe"]
+    p = {k: v[0].float() for k, v in tree.items()}
+    p_cpu = {k: v.cpu() for k, v in p.items()}
+    x = torch.from_numpy(rng.standard_normal(
+        (1, MOE_LAYER_S, cfg.d_model), dtype=np.float32))
+    xd = x.to(dev)
+    y = moe.moe_single(p, xd, cfg.moe)
+    load, cap = moe.expert_load(p, xd, cfg.moe)
+    y_cpu = moe.moe_single(p_cpu, x, cfg.moe)
+    load_cpu, _ = moe.expert_load(p_cpu, x, cfg.moe)
+    out = dict(shape=[1, MOE_LAYER_S, cfg.d_model],
+               experts=p["w_gate"].shape[0], top_k=cfg.moe.top_k,
+               capacity=cap, rel_err=rel_err(y.cpu(), y_cpu),
+               bar=MOE_LAYER_BAR, routed=load.tolist(),
+               same_routing=load.cpu().tolist() == load_cpu.tolist(),
+               dropped=int((load - cap).clamp_min(0).sum()),
+               ms_f32=cuda_ms(lambda: moe.moe_single(p, xd, cfg.moe)))
+    print(f"{cfg.name} one MoE layer card vs CPU " + json.dumps(out),
+          flush=True)
+    check(out["rel_err"] < MOE_LAYER_BAR and out["same_routing"],
+          f"{cfg.name}: one MoE layer on the card vs the CPU {out}")
+    return out
+
+
+def moe_phases(dev) -> dict:
+    """(u) granite-moe-3b-a800m whole, this slice's main path; (v)
+    jamba-v0.1-52b at its published widths, its depth cut to
+    ``JAMBA_PERIODS`` of 4 periods.  Each model freed before the next."""
+    import torch
+    from repro_torch.launch import one_card_config
+    from repro_torch.models import Group, count_params, moe
+    out = {}
+    for arch, B, S, seed in ((GRANITE_ARCH, GRANITE_B, GRANITE_S, 10),
+                             (JAMBA_ARCH, JAMBA_B, JAMBA_S, 11)):
+        rng = np.random.default_rng([SEED, seed])
+        cfg = dataclasses.replace(one_card_config(arch, smoke=False),
+                                  attn_impl="flash")
+        res = {}
+        if arch == JAMBA_ARCH:
+            cfg = dataclasses.replace(cfg, groups=tuple(
+                Group(g.name, g.blocks, JAMBA_PERIODS) for g in cfg.groups))
+            print(f"{arch}: published widths, depth cut to {JAMBA_PERIODS} "
+                  f"of 4 periods of 8 layers ({cfg.n_layers} layers, "
+                  f"{count_params(cfg) / 1e9:.2f} B parameters; 103 GB of "
+                  f"bf16 weights at full depth, over one card's 80 GB)",
+                  flush=True)
+        check(cfg.moe.padded_experts == cfg.moe.n_experts,
+              f"{arch}: {cfg.moe.padded_experts} experts on one card, not "
+              f"{cfg.moe.n_experts}")
+        params, res["load"] = load_model(arch, cfg, dev)
+        if arch == GRANITE_ARCH:
+            res["moe_layer"] = moe_layer_check(params, cfg, rng, dev)
+        ranges = (moe.MOE_RANGE,)
+        res["prefill"] = dense_prefill(arch, rng, cfg, params, dev, B, S,
+                                       ranges=ranges)
+        # decode against prefill at a capacity that drops nothing (a
+        # 64-token prompt drops at the published factor; one-token decode
+        # never does), beside the published factor's drops of that prompt
+        res["teacher"] = teacher_forced(arch, rng, raised_capacity(cfg),
+                                        params, dev, published=cfg)
+        res["serve"], eng = serve_paths(arch, cfg, params, dev)
+        res["decode_profile"], res["captured_decode_profile"] = \
+            step_profiles(arch, cfg, params, eng, dev, ranges=ranges)
+        # the MoE block's device time in one eager step over the captured
+        # step's busy time: a replay runs the eager step's kernels
+        moe_us = res["decode_profile"]["ranges"][moe.MOE_RANGE]["device_us"]
+        res["moe_share"] = dict(
+            prefill=res["prefill"]["profile"]["ranges"][moe.MOE_RANGE][
+                "share_of_busy"],
+            eager_step=res["decode_profile"]["ranges"][moe.MOE_RANGE][
+                "share_of_busy"],
+            captured_step=moe_us / res["captured_decode_profile"][
+                "device_busy_us"])
+        print(f"{arch} MoE share of device time " +
+              json.dumps(res["moe_share"]), flush=True)
+        out[arch] = res
+        del params, eng
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2400,6 +2732,15 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {kind} count {torch.cuda.device_count()}", flush=True)
 
+    # the host seconds each group of phases took, printed as they end and
+    # together before the result lines
+    marks = {}
+    start = time.perf_counter()
+
+    def done(group: str) -> None:
+        marks[group] = time.perf_counter() - start - sum(marks.values())
+        print(f"phases {group}: {marks[group]:.1f} s", flush=True)
+
     # 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     built = build.build(["fft_stage", "flash_attention_fwd",
@@ -2449,8 +2790,12 @@ def main() -> int:
                 check(launches <= 2, f"fft_planes {batch}x{n}: {launches} "
                                      f"CUDA launches a call, more than 2")
             del y_k, y_p
-    flash_rows = flash_phase(np.random.default_rng([SEED, 1]), dev,
-                             built["flash_attention_fwd"].log)
+    flash_rows = flash_phase(
+        np.random.default_rng([SEED, 1]), dev,
+        built["flash_attention_fwd"].log,
+        FLASH_SHAPES + GEMMA_FWD_SHAPES + DENSE_FWD_SHAPES + MOE_FWD_SHAPES)
+
+    done("1-3, b")
 
     # 4. README quickstart through exec_ on the card -------------------------
     def quickstart(ctx, s, p, args):
@@ -2549,19 +2894,23 @@ def main() -> int:
 
     # 6. (g, l) of the virtual-process link ----------------------------------
     fit = fit_link(dev)
+    done("4-6")
 
     # (c)-(f) the llama3.2-1b serving path ---------------------------------
     serving = serving_phases(np.random.default_rng([SEED, 2]), dev)
+    done("c-f")
 
     # (g)-(i) the llama3.2-1b training path ---------------------------------
     bwd_rows = flash_bwd_phase(np.random.default_rng([SEED, 3]), dev,
                                built["flash_attention_bwd"].log)
     training = train_phases(dev)
+    done("g-i")
 
     # (j)-(l) the mamba2-130m serving path -----------------------------------
     ssd_rows = ssd_phase(np.random.default_rng([SEED, 4]), dev,
-                         built["ssd_scan"].log)
+                         built["ssd_scan"].log, SSD_SHAPES + JAMBA_SSD_SHAPES)
     mamba = mamba_phases(np.random.default_rng([SEED, 5]), dev)
+    done("j-l")
 
     # (m) the BSP collectives, (n) PageRank, (o) the canned programs ------
     # one process-wide program cache across (m) and (n), emptied only
@@ -2577,37 +2926,64 @@ def main() -> int:
     programs_replayed(lpf, "pagerank", seen)
     program_phase(dev, fit)
     cache_footprint(lpf, "collectives and pagerank", base)
+    done("m-o")
 
     # (p)-(r) the dense configs at full width (gemma2-9b's serving is this
     # slice's main path), (s) the pure-LPF program engine -------------------
     torch.cuda.empty_cache()
     dense = dense_phases(dev)
+    done("p-r")
     program_engine_phase(fit)
+    done("s")
+
+    # (t) mamba2-130m training, (u) granite-moe-3b-a800m (this slice's
+    # main path), (v) jamba-v0.1-52b ---------------------------------------
+    mamba_train = train_phases(dev, MAMBA_ARCH)
+    done("t")
+    moes = moe_phases(dev)
+    done("u-v")
 
     # 7. result lines ----------------------------------------------------------
     big = [r for r in rows if r["n"] == N_MAIN // P_MAIN and not r["inverse"]][0]
     bound_ms, bound_by = fft_bound_ms(big["batch"], big["n"])
     # "replaces" names each TPU kernel's pallas_call line; "launches" is
     # the count from each kernel's own path: fft_planes the BSP FFT (5),
-    # flash_attention_fwd this slice's main path, the gemma2-9b prefill
-    # (p), with every other path's count beside it, the backward kernels
-    # the training loop (h), ssd_scan the mamba2-130m prefill (k).  The
-    # flash rows' times are the llama3.2-1b prefill's shape, chosen by
-    # shape, as in earlier slices; ``shapes`` adds the dense configs'
+    # flash_attention_fwd this slice's main path, the granite-moe-3b-a800m
+    # prefill (u), with every other path's count beside it, the backward
+    # kernels the training loop (h), ssd_scan the mamba2-130m training
+    # loop (t), with its other paths beside it.  The flash and ssd_scan
+    # rows' times are the llama3.2-1b and mamba2-130m prefills' shapes,
+    # chosen by shape, as in earlier slices; ``shapes`` adds the other
+    # configs'
     train_launches = training["train"]["launches"]
+    mamba_launches = mamba_train["train"]["launches"]
     main_fwd = [r for r in flash_rows if r["shape"] == MAIN_FWD_SHAPE
                 and r["dtype"] == "bfloat16"][0]
+    slice_shapes = [list(sh[:5]) for sh in
+                    GEMMA_FWD_SHAPES + DENSE_FWD_SHAPES + MOE_FWD_SHAPES]
     slice_fwd = [dict((k, r[k]) for k in (
         "shape", "causal", "window", "softcap", "max_abs_err", "row_err",
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
         for r in flash_rows if r["dtype"] == "bfloat16"
-        and r["shape"][3:] in ([8192, 256], [2048, 128])]
+        and r["shape"] in slice_shapes]
     prefill_launches = {
         "llama3.2-1b prefill (c)": serving["prefill"]["flash_launches"],
         "llama3.2-1b training step (h)":
             train_launches["flash_attention_fwd"],
         **{f"{arch} prefill": dense[arch]["prefill"]["flash_launches"]
-           for arch in (GEMMA_ARCH, QWEN3_ARCH, QWEN110_ARCH)}}
+           for arch in (GEMMA_ARCH, QWEN3_ARCH, QWEN110_ARCH)},
+        **{f"{arch} prefill": moes[arch]["prefill"]["flash_launches"]
+           for arch in (GRANITE_ARCH, JAMBA_ARCH)}}
+    ssd_launches = {
+        "mamba2-130m prefill (k)": mamba["prefill"]["ssd_launches"],
+        f"mamba2-130m training, {TRAIN_STEPS} steps (t)":
+            mamba_launches["ssd_scan"],
+        f"{JAMBA_ARCH} prefill (v)":
+            moes[JAMBA_ARCH]["prefill"]["ssd_launches"]}
+    jamba_ssd = [dict((k, r[k]) for k in (
+        "shape", "chunk", "dtype", "max_abs_err", "ms", "plain_ms",
+        "chunked_ms", "bound_ms", "bound_by"))
+        for r in ssd_rows if r["shape"] == list(JAMBA_SSD_SHAPES[0][:6])]
     main_bwd = [r for r in bwd_rows if r["shape"] == MAIN_BWD_SHAPE
                 and r["dtype"] == "bfloat16"][0]
     main_ssd = [r for r in ssd_rows if r["shape"] == MAIN_SSD_SHAPE
@@ -2624,7 +3000,7 @@ def main() -> int:
         name="flash_attention_fwd", route="cuda",
         source="src/repro_torch/csrc/flash_attention_fwd.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:111",
-        launches=dense[GEMMA_ARCH]["prefill"]["flash_launches"],
+        launches=moes[GRANITE_ARCH]["prefill"]["flash_launches"],
         launches_by_path=prefill_launches,
         max_abs_err=main_fwd["max_abs_err"], ms=main_fwd["ms"],
         plain_ms=main_fwd["plain_ms"], bound_ms=main_fwd["bound_ms"],
@@ -2648,13 +3024,15 @@ def main() -> int:
         name="ssd_scan", route="cuda",
         source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:101",
-        launches=mamba["prefill"]["ssd_launches"],
-        cuda_launches=mamba["prefill"]["ssd_cuda_launches"],
+        launches=mamba_launches["ssd_scan"],
+        cuda_launches=mamba_launches["ssd_scan_cuda"],
+        launches_by_path=ssd_launches, shapes=jamba_ssd,
         max_abs_err=main_ssd["max_abs_err"], ms=main_ssd["ms"],
         plain_ms=main_ssd["plain_ms"], chunked_ms=main_ssd["chunked_ms"],
         bound_ms=main_ssd["bound_ms"], bound_by=main_ssd["bound_by"],
         bound_rate=main_ssd["bound_rate"], library_ms=None,
         build=main_ssd["build"])]}
+    print("phase seconds " + json.dumps(marks), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@ decode buckets, on one device.
 
 ``python -m repro_torch.launch.serve --device cpu --check`` serves the
 llama3.2-1b smoke config on the CPU (``--arch`` picks another registered
-model: ``gemma2-9b``, ``qwen3-14b``, ``qwen1.5-110b`` or ``mamba2-130m``,
-whose decode carries a recurrent state in place of a KV cache); without
+model: ``gemma2-9b``, ``qwen3-14b``, ``qwen1.5-110b``, ``mamba2-130m``,
+whose decode carries a recurrent state in place of a KV cache, the MoE
+model ``granite-moe-3b-a800m`` or the hybrid ``jamba-v0.1-52b``; the
+config is one card's, ``ep_degree=1``); without
 ``--device`` it runs on the card (and refuses to start without one), and
 ``--no-smoke`` serves the full-width model, loaded with the weights cast
 as they are drawn (:func:`repro_torch.models.load_params`).  Requests are
@@ -33,7 +35,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..configs import get_config
+from . import one_card_config
 from ..models.lm import ParamTree, init_caches, load_params
 from ..runtime.server import LPFServer, synthetic_requests
 from ..runtime.train_step import build_serve_buckets
@@ -292,7 +294,7 @@ def main(argv=None):
                          "assert the batched stream is bit-identical")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch, smoke=args.smoke)
+    cfg = one_card_config(args.arch, args.smoke)
     cache_len = max(args.cache_len, args.tokens)
     buckets = sorted({(max(1, args.batch // 2), cache_len),
                       (args.batch, cache_len)})

@@ -3,10 +3,11 @@
 Trains ``--arch`` on the deterministic synthetic stream with AdamW under a
 warmup-cosine schedule, on the card unless ``--device cpu``.  The smoke
 config is the default; ``--no-smoke`` trains the published geometry (on
-the card: llama3.2-1b at B 4 x S 2048 fits one 80 GB H100 with
-``remat="full"``).  The JAX launcher's multi-device options need a mesh or
-pods: ``--mesh`` other than ``1x1``, ``--compress`` and ``--sync-every``
-raise (ROADMAP A10); ``--grad-sync lpf`` on one card is the plain step.
+the card: llama3.2-1b and mamba2-130m at B 4 x S 2048 fit one 80 GB H100
+with ``remat="full"``).  The config is one card's (``ep_degree=1``).
+The JAX launcher's multi-device options need a mesh or pods: ``--mesh``
+other than ``1x1``, ``--compress`` and ``--sync-every`` raise (ROADMAP
+A10); ``--grad-sync lpf`` on one card is the plain step.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import argparse
 import dataclasses
 import time
 
-from ..configs import get_config
+from . import one_card_config
 from ..core.errors import LPFFatalError
 from ..data import DataConfig, SyntheticStream
 from ..models import count_params, model_flops
@@ -56,7 +57,7 @@ def main(argv=None):
             "--mesh other than 1x1, --compress and --sync-every need a "
             "device mesh or pods, which the one-card port does not have "
             "yet (ROADMAP A10)")
-    cfg = get_config(args.arch, smoke=args.smoke)
+    cfg = one_card_config(args.arch, args.smoke)
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     ts = build_train_step(

@@ -1,9 +1,9 @@
-"""The model stack on one device: dense attention blocks and Mamba-2
-blocks assembled into a decoder-only LM (llama3.2-1b, qwen3-14b,
-gemma2-9b, qwen1.5-110b, mamba2-130m), the training loss with autograd
-through the flash-attention kernels, prefill (through the flash-attention
-or ``ssd_scan`` kernel) and greedy decode against a rolling KV cache or a
-recurrent state."""
+"""The model stack on one device: attention and Mamba-2 mixers with dense
+or MoE feed-forward blocks assembled into a decoder-only LM (llama3.2-1b,
+qwen3-14b, gemma2-9b, qwen1.5-110b, mamba2-130m, granite-moe-3b-a800m,
+jamba-v0.1-52b), the training loss with autograd through the kernels,
+prefill (through the flash-attention or ``ssd_scan`` kernel) and greedy
+decode against a rolling KV cache or a recurrent state."""
 
 from .blocks import Runtime
 from .config import BlockCfg, Group, MLACfg, ModelConfig

@@ -3,11 +3,13 @@
 All blocks are pre-norm residual (``post_norms`` adds gemma-2's sandwich
 norms).  A block's parameters are a plain dict of tensors named as in the
 JAX tree (``attn.wq``, ``mlp.w_gate``, ``ln1.w``, ...), weight matrices
-in the ``[in, out]`` layout (``x @ w``).  The port runs the dense
-attention block (``mixer="attn"``, ``ffn="dense"``) with GQA, qk-norm,
-QKV bias, RoPE, sliding windows and soft-capping, and the Mamba-2 block
-(``mixer="mamba"``).  MLA, MoE and cross-attention blocks raise
-:class:`LPFFatalError` naming the ROADMAP item that ports them.
+in the ``[in, out]`` layout (``x @ w``).  The port runs the attention
+mixer (``mixer="attn"``) with GQA, qk-norm, QKV bias, RoPE, sliding
+windows and soft-capping, the Mamba-2 mixer (``mixer="mamba"``), and the
+dense and MoE feed-forward blocks (``ffn="dense"``, ``ffn="moe"`` with an
+optional shared expert; MoE on one device, :func:`~.moe.moe_single`).
+MLA and cross-attention blocks raise :class:`LPFFatalError` naming the
+ROADMAP item that ports them.
 
 One deliberate departure from the JAX package: a Mamba block calls
 ``mamba_apply(..., impl="kernel")``, where the JAX block takes the
@@ -24,6 +26,7 @@ returns an updated copy.  The values are the same.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Tuple
 
@@ -36,6 +39,7 @@ from .common import apply_rope, dense_init, layer_norm, rms_norm
 from .config import BlockCfg, ModelConfig
 from .mamba import (mamba_apply, mamba_decode_step, mamba_init_cache,
                     mamba_params)
+from .moe import moe_params, moe_single
 
 __all__ = ["block_params", "block_apply", "block_decode",
            "block_init_cache", "Runtime"]
@@ -63,9 +67,6 @@ def _unported(bcfg: BlockCfg) -> None:
     """Raise for the block kinds this slice does not port."""
     if bcfg.mixer == "mla":
         raise LPFFatalError("mixer='mla' blocks are not ported yet "
-                            "(ROADMAP A8)")
-    if bcfg.ffn == "moe":
-        raise LPFFatalError("ffn='moe' blocks are not ported yet "
                             "(ROADMAP A8)")
     if bcfg.cross_attn:
         raise LPFFatalError("cross-attention blocks (encoder-decoder) are "
@@ -129,6 +130,14 @@ def block_params(gen: torch.Generator, bcfg: BlockCfg, cfg: ModelConfig,
     if bcfg.ffn == "dense":
         p["mlp"] = _mlp_params(gen, cfg, dtype, device)
         p["ln2"] = _norm_params(cfg.d_model, cfg.norm, device)
+    elif bcfg.ffn == "moe":
+        p["moe"] = moe_params(gen, cfg.moe, dtype, device)
+        p["ln2"] = _norm_params(cfg.d_model, cfg.norm, device)
+        if cfg.shared_expert:
+            # the shared expert is expert-sized (cfg.moe.d_ff), not d_ff
+            p["shared_mlp"] = _mlp_params(
+                gen, dataclasses.replace(cfg, d_ff=cfg.moe.d_ff), dtype,
+                device)
     if cfg.post_norms and bcfg.ffn != "none":
         p["post_ln2"] = _norm_params(cfg.d_model, cfg.norm, device)
     return p
@@ -141,6 +150,17 @@ def block_params(gen: torch.Generator, bcfg: BlockCfg, cfg: ModelConfig,
 def _mlp(p, x):
     return (torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])) \
         @ p["w_down"]
+
+
+def _ffn_fwd(p, h, cfg: ModelConfig, bcfg: BlockCfg) -> torch.Tensor:
+    """The feed-forward half of a block on h [B, S, D]: the dense MLP, or
+    the MoE block (plus the shared expert where the config has one)."""
+    if bcfg.ffn == "dense":
+        return _mlp(p["mlp"], h)
+    out = moe_single(p["moe"], h, cfg.moe)
+    if cfg.shared_expert:
+        out = out + _mlp(p["shared_mlp"], h)
+    return out
 
 
 def _attn_fwd(p, h, cfg: ModelConfig, bcfg: BlockCfg, positions):
@@ -184,7 +204,7 @@ def block_apply(p: Tree, x: torch.Tensor, bcfg: BlockCfg, cfg: ModelConfig,
         x = x + mamba_apply(p["mamba"], h, cfg.mamba, impl="kernel")
     if bcfg.ffn != "none":
         h = _norm(x, p["ln2"], cfg.norm, plus_one)
-        o = _mlp(p["mlp"], h)
+        o = _ffn_fwd(p, h, cfg, bcfg)
         if cfg.post_norms:
             o = _norm(o, p["post_ln2"], cfg.norm, plus_one)
         x = x + o
@@ -279,7 +299,7 @@ def block_decode(p: Tree, x: torch.Tensor, cache: Tree, bcfg: BlockCfg,
         x = x + o
     if bcfg.ffn != "none":
         h = _norm(x, p["ln2"], cfg.norm, plus_one)
-        o = _mlp(p["mlp"], h)
+        o = _ffn_fwd(p, h[:, None], cfg, bcfg)[:, 0]
         if cfg.post_norms:
             o = _norm(o, p["post_ln2"], cfg.norm, plus_one)
         x = x + o

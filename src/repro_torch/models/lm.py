@@ -1,6 +1,6 @@
 """The language model on one device: embed -> block groups -> head, with
 the training loss, prefill and single-token greedy decode (decoder-only:
-dense attention blocks and Mamba-2 blocks).
+attention and Mamba-2 mixers, dense and MoE feed-forward blocks).
 
 Parameters live in a :class:`ParamTree`, an ``nn.Module`` whose
 parameters are named as in the JAX tree (``embed``, ``final_norm.w``,
@@ -98,21 +98,25 @@ def _stack_trees(trees: List[Tree]) -> Tree:
 
 def _group_params(gen, g: Group, cfg: ModelConfig, dtype, device,
                   cdt=None) -> Tree:
-    """A group's leaves stacked ``[repeats, ...]``: each layer is drawn
-    as a per-layer init draws it (what ``jax.vmap`` stacks), copied into
-    the stacked leaves and dropped, so the peak is the stacked tree plus
-    one layer.  ``cdt`` casts each layer's weight matrices as
-    :func:`cast_params` does before they are stored."""
-    out: Optional[Tree] = None
+    """A group's leaves stacked ``[repeats, ...]``: each layer's blocks
+    are drawn in order as a per-layer init draws them (what ``jax.vmap``
+    stacks), each block copied into the stacked leaves and dropped, so
+    the peak is the stacked tree plus one block (a jamba period is 8
+    blocks, 13.3 B parameters; one of its MoE blocks 2.8 B).  ``cdt``
+    casts each block's weight matrices as :func:`cast_params` does
+    before they are stored."""
+    out: Tree = {}
     for l in range(g.repeats):
-        layer = {f"b{i}": block_params(gen, b, cfg, dtype, device)
-                 for i, b in enumerate(g.blocks)}
-        if cdt is not None:
-            layer = _cast_params(layer, cdt)
-        if out is None:
-            out = _map(lambda a: a.new_empty((g.repeats, *a.shape)), layer)
-        _map2(lambda dst, src, l=l: dst[l].copy_(src), out, layer)
-        del layer
+        for i, b in enumerate(g.blocks):
+            blk = block_params(gen, b, cfg, dtype, device)
+            if cdt is not None:
+                blk = _cast_params(blk, cdt)
+            if l == 0:
+                out[f"b{i}"] = _map(
+                    lambda a: a.new_empty((g.repeats, *a.shape)), blk)
+            _map2(lambda dst, src, l=l: dst[l].copy_(src), out[f"b{i}"],
+                  blk)
+            del blk
     return out
 
 
@@ -171,7 +175,7 @@ def load_params(key: Union[int, torch.Generator], cfg: ModelConfig, *,
                 device="cuda") -> ParamTree:
     """The serving load: the values of ``cast_params(init_params(key,
     cfg), cfg)``, with each weight matrix cast to ``cfg.compute_dtype`` as
-    soon as it is drawn.  The peak is the cast tree plus one layer in
+    soon as it is drawn.  The peak is the cast tree plus one block in
     ``cfg.param_dtype``, where drawing the whole f32 tree first would need
     both trees at once (qwen3-14b: 59 GB in f32 and 29.5 GB in bf16, over
     one card's 80 GB)."""
@@ -265,10 +269,12 @@ def _head(top: Tree, x, cfg: ModelConfig):
 def _apply_layer(layer_p: Tree, x, g: Group, cfg: ModelConfig, rt: Runtime,
                  positions, cdt) -> torch.Tensor:
     """One layer of group ``g``; its weights cast to ``cdt`` here, inside
-    whatever checkpoint wraps the layer, as the JAX scan body does."""
-    layer_p = _cast_params(layer_p, cdt)
+    whatever checkpoint wraps the layer, as the JAX scan body does, one
+    block at a time (the same values; a cast copy of one block at a time,
+    where a jamba period's f32 copy would not fit the card)."""
     for i, b in enumerate(g.blocks):
-        x = block_apply(layer_p[f"b{i}"], x, b, cfg, rt, positions)
+        x = block_apply(_cast_params(layer_p[f"b{i}"], cdt), x, b, cfg, rt,
+                        positions)
     return x
 
 
@@ -411,11 +417,10 @@ def decode_step(params: ParamTree, token, caches: Tree,
         gc = caches[g.name]
         for l, layer_p in enumerate(_layers(tree[f"dec_{g.name}"],
                                             g.repeats)):
-            layer_p = _cast_params(layer_p, cdt)
             for i, b in enumerate(g.blocks):
                 cache_l = {k: c[l] for k, c in gc[f"b{i}"].items()}
-                x, _ = block_decode(layer_p[f"b{i}"], x, cache_l, b, cfg,
-                                    rt, pos)
+                x, _ = block_decode(_cast_params(layer_p[f"b{i}"], cdt), x,
+                                    cache_l, b, cfg, rt, pos)
     x = _final_norm(x, top["final_norm"], cfg)
     logits = _head(top, x, cfg)
     # torch.argmax returns the first maximal index, as jnp.argmax does
@@ -427,16 +432,25 @@ def decode_step(params: ParamTree, token, caches: Tree,
 # accounting
 # --------------------------------------------------------------------------
 
-def count_params(cfg: ModelConfig) -> int:
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """The parameter count, from the tree's shapes (built on the meta
-    device: nothing is allocated).  MoE blocks are not ported, so every
-    parameter is active: the JAX package's ``active_only`` count is the
-    same number."""
+    device: nothing is allocated).  ``active_only``: the JAX package's
+    rule, each leaf under ``moe`` whose name starts ``w_`` (the experts,
+    padded ones included) counted at ``top_k / n_experts``."""
     params = init_params(0, cfg, device="meta")
-    return sum(p.numel() for p in params.parameters())
+    total = moe_total = 0
+    for name, p in params.named_parameters():
+        total += p.numel()
+        keys = name.split(".")
+        if "moe" in keys and any(k.startswith("w_") for k in keys):
+            moe_total += p.numel()
+    if not active_only or cfg.moe is None:
+        return total
+    frac = cfg.moe.top_k / cfg.moe.n_experts
+    return int(total - moe_total + moe_total * frac)
 
 
 def model_flops(cfg: ModelConfig, tokens: int) -> float:
-    """6*N*D useful-training flops; for serve cells the caller divides by
-    3 (forward only)."""
-    return 6.0 * count_params(cfg) * tokens
+    """6*N*D useful-training flops (6*N_active*D for MoE); for serve cells
+    the caller divides by 3 (forward only)."""
+    return 6.0 * count_params(cfg, active_only=True) * tokens

@@ -86,7 +86,7 @@ def test_count_params_matches_jax_at_full_width(arch):
 
 def test_unported_arch_is_refused_naming_a8():
     with pytest.raises(KeyError, match="A8"):
-        get_config("granite-moe-3b-a800m")
+        get_config("deepseek-v3-671b")
 
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])

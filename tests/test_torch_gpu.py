@@ -14,13 +14,15 @@ largest |o_plain|; lse within 1e-4) and the two ``flash_attention_bwd`` kernels
 row within 2^-6 of the row's largest |plain|) and ``ssd_scan`` (y and the
 final state within 1e-4 of the plain version's largest |value|, and each
 of its passes' scratch within 1e-4 of ``ssd_scan_passes``), the forward
-also at qwen3-14b's and qwen1.5-110b's prefill attention.  The FFT
+also at qwen3-14b's, qwen1.5-110b's, granite-moe-3b-a800m's and
+jamba-v0.1-52b's prefill attention, the scan at jamba's shape, and the
+MoE block against the same call on the CPU.  The FFT
 path, the llama3.2-1b serving and training paths (smoke config: prefill,
 the ``LPFServer`` loop, train steps) and the mamba2-130m serving path
 (smoke config) are driven through their entry points on the card; each
 bucket's decode step captured as a CUDA graph decodes the eager
-per-token path's tokens bit for bit (llama3.2-1b, mamba2-130m and
-gemma2-9b smoke configs), a failed capture moves its bucket to the
+per-token path's tokens bit for bit (llama3.2-1b, mamba2-130m,
+gemma2-9b, granite-moe-3b-a800m and jamba-v0.1-52b smoke configs), a failed capture moves its bucket to the
 per-token path, and the pure-LPF ``ProgramDecodeEngine`` replays its
 captured loop body and equals its per-token fallback.  Every
 superstep method, every BSP collective and a small PageRank run on the
@@ -1159,7 +1161,8 @@ def test_pagerank_captured_loop_matches_eager_on_card(cuda):
 # configs' attention shapes
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-130m", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-130m", "gemma2-9b",
+                                  "granite-moe-3b-a800m", "jamba-v0.1-52b"])
 def test_captured_decode_matches_eager_per_token(cuda, arch):
     """A bucket's step captured once and replayed once a token decodes the
     eager per-token path's tokens bit for bit: 12 tokens into an 8-slot
@@ -1267,3 +1270,63 @@ def test_flash_kernel_matches_plain_version_at_dense_shapes(
         cuda, B, H, Hkv, S, D, causal, window, softcap, dtype):
     test_flash_kernel_matches_plain_version(cuda, B, H, Hkv, S, D, causal,
                                             window, softcap, dtype)
+
+
+# ---------------------------------------------------------------------------
+# the MoE configs: their kernel shapes, the MoE block on the card
+# ---------------------------------------------------------------------------
+
+#: granite-moe-3b-a800m's prefill attention (24 heads over 8: a GQA group
+#: of 3, head dim 64, B 4 x S 2048) and jamba-v0.1-52b's (32 over 8, head
+#: dim 128, B 1 x S 8192), bf16 causal
+MOE_FLASH = [(4, 24, 8, 2048, 64, True, None, None, torch.bfloat16),
+             (1, 32, 8, 8192, 128, True, None, None, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window,softcap,dtype",
+                         MOE_FLASH, ids=["granite-moe-3b", "jamba-v0.1"])
+def test_flash_kernel_matches_plain_version_at_moe_shapes(
+        cuda, B, H, Hkv, S, D, causal, window, softcap, dtype):
+    test_flash_kernel_matches_plain_version(cuda, B, H, Hkv, S, D, causal,
+                                            window, softcap, dtype)
+
+
+def test_ssd_kernel_matches_plain_version_at_jamba_shape(cuda):
+    """jamba-v0.1-52b's scan: 128 heads of 64, N 16 (padded to no more
+    than 16), chunk 128, S 8192 (64 chunks), in f32 as the model hands
+    it, and in bf16 within the bar plus half a bf16 ulp of each y."""
+    test_ssd_kernel_matches_plain_version(cuda, 1, 8192, 128, 64, 1, 16,
+                                          128)
+    args = ssd_inputs(8192 + 16, 1, 8192, 128, 64, 1, 16, torch.bfloat16,
+                      cuda)
+    out = ssd_kernel._run(*args, chunk=128)
+    y32, st32 = ssd_ref.ssd_scan_plain(*[t.float() for t in args],
+                                       chunk=128)
+    over = (out["y"].float() - y32).abs() - 2.0 ** -8 * y32.abs()
+    assert out["y"].dtype == torch.bfloat16
+    assert over.max().item() / y32.abs().max().item() < 1e-4
+    assert rel_max(out["state"], st32) < 1e-4
+
+
+@pytest.mark.parametrize("case", ["granite-smoke", "padded", "drops"])
+def test_moe_block_on_card_matches_cpu(cuda, case):
+    """The MoE block in f32 on the card against the same call on the CPU
+    (within 1e-5, the same tokens routed to each expert), at the granite
+    smoke config's widths, with its expert count padded, and with a
+    capacity that drops tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    mcfg = dataclasses.replace(
+        get_config("granite-moe-3b-a800m", smoke=True).moe,
+        **{"granite-smoke": {}, "padded": dict(ep_degree=4),
+           "drops": dict(capacity_factor=0.5)}[case])
+    gen = torch.Generator().manual_seed(3)
+    p = moe.moe_params(gen, mcfg, torch.float32, "cpu")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 64, mcfg.d_model)).astype(np.float32))
+    want = moe.moe_single(p, x, mcfg)
+    pd = {k: v.to(cuda) for k, v in p.items()}
+    got = moe.moe_single(pd, x.to(cuda), mcfg)
+    assert rel(got.cpu(), want) < 1e-5
+    assert moe.expert_load(pd, x.to(cuda), mcfg)[0].cpu().tolist() == \
+        moe.expert_load(p, x, mcfg)[0].tolist()

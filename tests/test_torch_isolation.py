@@ -71,6 +71,8 @@ def test_fresh_interpreter_loads_no_jax():
     assert {"repro_torch.bsp", "repro_torch.bsp.collectives",
             "repro_torch.algorithms.graphs",
             "repro_torch.algorithms.pagerank"} <= set(PORT_MODULES)
+    assert {"repro_torch.models.moe", "repro_torch.configs.granite_moe_3b",
+            "repro_torch.configs.jamba_v01_52b"} <= set(PORT_MODULES)
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -142,6 +144,25 @@ def test_serving_entry_points_refuse_without_a_card():
             call()
     assert prefill(params, {"tokens": [[1, 2]]}, cfg,
                    Runtime("cpu")).device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "jamba-v0.1-52b"])
+def test_moe_models_refuse_without_a_card(arch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points run on it")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models import load_params, prefill
+    from repro_torch.runtime.train_step import build_train_step
+    cfg = get_config(arch, smoke=True)
+    params = load_params(0, cfg, device="cpu")
+    for call in (lambda: load_params(0, cfg),
+                 lambda: prefill(params, {"tokens": [[1, 2]]}, cfg),
+                 lambda: build_train_step(cfg),
+                 lambda: serve.main(["--arch", arch, "--requests", "1"]),
+                 lambda: train.main(["--arch", arch, "--steps", "1"])):
+        with pytest.raises(tlpf.LPFFatalError, match="cuda"):
+            call()
 
 
 def test_loading_and_program_engine_refuse_without_a_card():

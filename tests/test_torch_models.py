@@ -82,11 +82,11 @@ def test_config_matches_jax(smoke):
 
 def test_other_archs_refused_until_ported():
     with pytest.raises(KeyError, match="A8"):
-        get_config("granite-moe-3b-a800m")
+        get_config("deepseek-v3-671b")
     cfg = dataclasses.replace(
         get_config(ARCH, smoke=True),
-        groups=(Group("body", (BlockCfg("attn", "moe"),), 1),))
-    with pytest.raises(LPFFatalError, match="ROADMAP"):
+        groups=(Group("body", (BlockCfg("mla", "dense"),), 1),))
+    with pytest.raises(LPFFatalError, match="ROADMAP A8"):
         init_params(0, cfg, device="cpu")
 
 
