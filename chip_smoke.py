@@ -221,15 +221,17 @@ phase 6's fitted (g, l) of the ``"vp"`` link:
     launches a kernel of ``csrc/``: the ``kernels`` line keeps its five
     rows.
 
-The dense configs at full width (seed-0 weights drawn by
+The dense configs at their published widths (seed-0 weights drawn by
 ``load_params``, each matrix cast to bf16 as it is drawn; each model's
 load seconds and peak device memory printed, and each model freed before
-the next) add, after (o):
+the next; their depth cut to keep the whole script inside its time, every
+block kind kept) add, after (o):
 
-(p) gemma2-9b, this slice's main path (42 layers alternating local,
-    window 4096, and global attention, soft-caps 50 and 30, sandwich
-    norms, head dim 256): prefill at B 1 x S 8192 with the counts set to
-    0 just before, 42 ``flash_attention_fwd`` launches, last-position
+(p) gemma2-9b, its depth cut to ``GEMMA_LAYERS`` of 42 layers (whole
+    pairs of local, window 4096, and global attention; soft-caps 50 and
+    30, sandwich norms, head dim 256): prefill at B 1 x S 8192 with the
+    counts set to 0 just before, one ``flash_attention_fwd`` launch a
+    layer, last-position
     logits within 5e-2 (relative) of ``attn_impl="reference"``, host ms and
     tokens/s; the bar's readings at this shape: the bf16 reference
     prefill against the same in f32 compute must pass it, and flash
@@ -238,11 +240,12 @@ the next) add, after (o):
     teacher-forced decode steps at B 1 within 0.08 of
     prefill; serving as in (e), and one eager against one captured decode
     step as in (f);
-(q) qwen3-14b (40 heads over 8 kv heads, qk-norm): the same at prefill B
-    4 x S 2048 (40 launches);
-(r) qwen1.5-110b at its published widths with the depth cut to 4 of its
-    80 layers (its 222 GB of bf16 weights do not fit one card): prefill
-    only, B 1 x S 2048 (4 launches), against reference attention;
+(q) qwen3-14b (40 heads over 8 kv heads, qk-norm), its depth cut to
+    ``QWEN3_LAYERS`` of 40: the same at prefill B 4 x S 2048;
+(r) qwen1.5-110b at its published widths with the depth cut to
+    ``QWEN110_LAYERS`` of its 80 layers (its 222 GB of bf16 weights do
+    not fit one card): prefill only, B 1 x S 2048, against reference
+    attention;
 (s) ``ProgramDecodeEngine`` at p = 8 on ``scripts/serve_latency.py``'s
     workload (120 requests in bursts of 6, buckets (2, 16), (4, 16), (4,
     32)), priced on H100_SXM with phase 6's fitted link: zero deadline
@@ -287,6 +290,51 @@ adds, after (s); (b) and (j) gain its kernel shapes (granite's attention
     FFNs; 13.27 B; 103 GB of bf16 weights at full depth do not fit): the
     same as (u) at prefill B 1 x S 8192 (1 flash launch and 7
     ``ssd_scan`` calls, the reference taking the chunked scan too).
+
+The rest of the model stack (seed-0 weights from ``load_params``, bf16
+compute, each model freed before the next, the card's name and power
+limit printed with each phase's numbers) adds, after (v); (b) gains
+llava's attention [4, 32, 8, 2048, 128] causal and whisper's encoder
+[16, 8, 8, 1500, 64] non-causal (1500 = 11 x 128 + 92 keys: the last key
+tile masked by length alone) and its decoder's, causal:
+
+(w) llava-next-mistral-7b whole, this slice's main path (32 layers, d
+    4096, GQA 32/8, head dim 128, 7.24 B): load seconds and peak; prefill
+    at B 4 x S 2048, the 576-position vision prefix (``embeds``) drawn by
+    ``SyntheticStream`` from the numpy seed before 1472 text tokens, with
+    the counts set to 0 just before: 32 flash launches, the gate of (p)
+    with both its sides (controls: K/V heads rolled, and the prefix
+    rolled along the batch, which shows that the prefix is read), host
+    ms, tokens/s and the profile by kernel family; 64 teacher-forced
+    decode steps against a text-only prefill (the JAX package's decode
+    takes no prefix); serving as in (e); one eager against one captured
+    step;
+(x) whisper-base whole (6 + 6 layers, d 512, 0.100 B): prefill at B 16
+    with 1500 frames and 1500 tokens from the stream (as many frames as
+    tokens: the reference's blocked attention builds its mask from the
+    query length), 18 flash launches (6 encoder, 6 decoder, 6
+    cross-attention), the gate with its controls (the frames rolled along
+    the batch; the encoder's K/V heads rolled); teacher-forced decode at B
+    1 over all 1500 positions under ``attn_impl="blocked"`` (the flash
+    kernel takes no key length other than the query's: decode's
+    cross-attention has one query) with the prefill's own encoder output
+    of 1500 frames as ``enc_out``, against the flash prefill; serving
+    through ``ModelDecodeEngine`` (64 zero frames, as the JAX engine
+    feeds), captured and per token, streams bit-identical; one eager
+    against one captured step;
+(y) deepseek-v3-671b at its published widths (d 7168, 128 heads of MLA,
+    q_lora 1536, kv_lora 512, 256 experts top-8 and the shared expert,
+    vocab 129280) with its depth cut to one dense MLA layer, one MoE MLA
+    layer and the MTP block (25.55 B, 51.1 GB of bf16 weights; 682.6 B
+    at full depth): load seconds and peak (under the card's memory); one
+    dense MLA layer at B 1 x S 512 in f32 on the card against the same
+    call on the CPU (within 1e-5); the forward at B 1 x S 4096, blocked
+    (MLA's value width differs from its query/key width, which the flash
+    kernel does not take: no kernel of ``csrc/`` launches), its logits and
+    the MTP head's finite, the capacity drops, host ms and tokens/s; 64
+    teacher-forced steps of the absorbed decode against the decompressed
+    prefill at ``raised_capacity``; serving as in (e); one eager against
+    one captured step.
 """
 
 from __future__ import annotations
@@ -412,10 +460,14 @@ WITNESS_STEPS, WITNESS_BAR = 4, 5e-2
 # compute) reads 1.0-1.7e-2 and the flash prefill 1.2-1.96e-2, a wrong
 # kernel's function 0.59-1.47; dense_prefill checks both sides each run
 DENSE_PREFILL_BAR = 5e-2
-GEMMA_ARCH, GEMMA_B, GEMMA_S = "gemma2-9b", 1, 8192
-QWEN3_ARCH, QWEN3_B, QWEN3_S = "qwen3-14b", 4, 2048
+# gemma2-9b and qwen3-14b are cut in depth too (every block kind and
+# width kept), to keep the whole script inside its time limit: gemma2-9b
+# to GEMMA_LAYERS of 42 (whole local/global pairs), qwen3-14b to
+# QWEN3_LAYERS of 40
+GEMMA_ARCH, GEMMA_B, GEMMA_S, GEMMA_LAYERS = "gemma2-9b", 1, 8192, 10
+QWEN3_ARCH, QWEN3_B, QWEN3_S, QWEN3_LAYERS = "qwen3-14b", 4, 2048, 10
 QWEN110_ARCH, QWEN110_B, QWEN110_S, QWEN110_LAYERS = "qwen1.5-110b", 1, \
-    2048, 4
+    2048, 2
 # the MoE configs (u)-(v): granite-moe-3b-a800m whole (32 layers, 40
 # experts top-8 at ep_degree 1) with its prefill at B 4 x S 2048, one MoE
 # layer card against CPU at B 1 x S 512; jamba-v0.1-52b's published widths
@@ -438,6 +490,25 @@ MOE_FWD_SHAPES = [
 JAMBA_SSD_SHAPES = [
     (JAMBA_B, JAMBA_S, 128, 64, 1, 16, 128, "float32"),
     (JAMBA_B, JAMBA_S, 128, 64, 1, 16, 128, "bfloat16"),
+]
+# the rest of the model stack (w)-(y): llava-next-mistral-7b whole (its
+# 576-position vision prefix before 1472 text tokens, B 4), whisper-base
+# whole (B 16, 1500 frames and 1500 tokens: the repo's encoder length),
+# deepseek-v3-671b's published widths with its depth cut to one dense and
+# one MoE MLA layer and the MTP block (682.6 B at full depth), its forward
+# at B 1 x S 4096
+LLAVA_ARCH, LLAVA_B, LLAVA_TEXT = "llava-next-mistral-7b", 4, 1472
+WHISPER_ARCH, WHISPER_B, WHISPER_S = "whisper-base", 16, 1500
+DEEPSEEK_ARCH, DEEPSEEK_B, DEEPSEEK_S = "deepseek-v3-671b", 1, 4096
+# one dense MLA layer on the card against the same call on the CPU, f32
+MLA_LAYER_S, MLA_LAYER_BAR = 512, 1e-5
+# their attention in (b): llava's 32 heads over 8 (group 4, head dim 128)
+# causal, whisper's 8 heads of 64 at 1500 keys non-causal (the encoder)
+# and causal (the decoder)
+STACK_FWD_SHAPES = [
+    (LLAVA_B, 32, 8, 2048, 128, True, None, None, "bfloat16"),
+    (WHISPER_B, 8, 8, WHISPER_S, 64, False, None, None, "bfloat16"),
+    (WHISPER_B, 8, 8, WHISPER_S, 64, True, None, None, "bfloat16"),
 ]
 
 
@@ -1039,7 +1110,7 @@ def expected_counts(cfg, forward_calls: int = 1, backward: bool = False
     the backward one launch of each flash backward kernel an attention
     block (the SSD scan's backward is plain PyTorch)."""
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-    attn = blocks_of(cfg, "attn")
+    attn = blocks_of(cfg, "attn") + blocks_of(cfg, "cross_attn")
     mamba = blocks_of(cfg, "mamba")
     return dict(flash_attention_fwd=forward_calls * attn,
                 flash_attention_bwd_dkv=attn if backward else 0,
@@ -1049,9 +1120,12 @@ def expected_counts(cfg, forward_calls: int = 1, backward: bool = False
 
 
 def blocks_of(cfg, mixer: str) -> int:
-    """The blocks of ``cfg`` whose mixer is ``mixer``."""
-    return sum(g.repeats * sum(b.mixer == mixer for b in g.blocks)
-               for g in cfg.groups)
+    """The blocks of ``cfg`` (decoder and encoder) whose mixer is
+    ``mixer``; ``"cross_attn"`` counts the cross-attention blocks."""
+    def has(b):
+        return b.cross_attn if mixer == "cross_attn" else b.mixer == mixer
+    return sum(g.repeats * sum(has(b) for b in g.blocks)
+               for g in cfg.groups + cfg.encoder_groups)
 
 
 @contextlib.contextmanager
@@ -1634,7 +1708,8 @@ def step_profiles(label: str, cfg, params, eng, dev,
     rt = Runtime(dev)
     caches = init_caches(cfg, B, C, device=dev)
     tok = torch.zeros(B, dtype=torch.long, device=dev)
-    step = lambda: decode_step(params, tok, caches, C // 2, cfg, rt)
+    enc = eng._enc[tuple(bucket)]          # an encoder-decoder's zeros
+    step = lambda: decode_step(params, tok, caches, C // 2, cfg, rt, *enc)
     eager = profile_families(f"{label} eager decode step (B {B}, cache {C})",
                              step, host_ms(step), ranges=ranges)
     g = eng.serve_step(bucket).graph
@@ -1670,10 +1745,12 @@ def load_model(label: str, cfg, dev) -> tuple:
     return params, info
 
 
-def rolled(params, names, shift: int):
+def rolled(params, names, shift: int, under: str = None):
     """``params`` with each leaf named in ``names`` rolled by ``shift``
-    along its last (output) axis.  K and V projections rolled by one KV
-    head (``("wk", "wv", "bk", "bv")``, head dim): a prefill on them
+    along its last (output) axis (only inside the top-level subtree
+    ``under``, where given: ``"enc_enc"`` is whisper's encoder).  K and
+    V projections rolled by one KV head (``("wk", "wv", "bk", "bv")``,
+    head dim): a prefill on them
     computes what a flash kernel that reads each query group's keys and
     values from the next group's head computes; Mamba's x projection
     rolled by one head (``("in_x",)``, the Mamba head dim): what an SSD
@@ -1685,7 +1762,10 @@ def rolled(params, names, shift: int):
         return {k: roll(v) if isinstance(v, dict) else (
             torch.roll(v, shift, dims=-1) if k in names else v)
             for k, v in tree.items()}
-    return ParamTree(roll(params.tree()))
+    tree = params.tree()
+    if under is None:
+        return ParamTree(roll(tree))
+    return ParamTree({**tree, under: roll(tree[under])})
 
 
 def without_window(cfg):
@@ -1696,7 +1776,7 @@ def without_window(cfg):
 
 
 def dense_prefill(label: str, rng, cfg, params, dev, B: int, S: int,
-                  ranges=None) -> dict:
+                  ranges=None, batch=None, extra_controls=None) -> dict:
     """Prefill at full width with every count set to 0 just before: one
     ``flash_attention_fwd`` launch an attention block and one ``ssd_scan``
     call a Mamba block (``expected_counts``), finite last-position logits
@@ -1715,12 +1795,18 @@ def dense_prefill(label: str, rng, cfg, params, dev, B: int, S: int,
     expert, which moves its output by a whole expert's share (the
     smallest move a wrong kernel makes is the controls' reading).  An MoE
     model also prints the prefill's capacity drops (``moe_drops``).  With
-    ``ranges``, one more prefill is profiled (``profile_families``)."""
+    ``ranges``, one more prefill is profiled (``profile_families``).
+    ``batch``: the prefill's batch on the card (a vision prefix's
+    ``embeds``, an encoder's ``frames``), else ``B x S`` tokens from
+    ``rng``; ``extra_controls``: ``{name: (params, batch)}`` of more flash
+    prefills that must fail the gate."""
     import torch
     from repro_torch.models import Runtime, prefill
     rt = Runtime(dev)
     V = cfg.vocab
-    batch = {"tokens": torch.from_numpy(rng.integers(0, V, (B, S))).to(dev)}
+    if batch is None:
+        batch = {"tokens": torch.from_numpy(rng.integers(0, V, (B, S)))
+                 .to(dev)}
     zero_counts()
     logits = prefill(params, batch, cfg, rt)
     torch.cuda.synchronize()
@@ -1741,6 +1827,9 @@ def dense_prefill(label: str, rng, cfg, params, dev, B: int, S: int,
         controls["ssd_x_heads_rolled"] = rel_err(prefill(
             rolled(params, ("in_x",), cfg.mamba.head_dim), batch, cfg,
             rt)[:, :V], ref)
+    for name, (c_params, c_batch) in (extra_controls or {}).items():
+        controls[name] = rel_err(prefill(c_params, c_batch, cfg, rt)[:, :V],
+                                 ref)
     sound = rel_err(ref, f32)
     gate = DENSE_PREFILL_BAR if cfg.moe is None else max(
         DENSE_PREFILL_BAR, 2 * sound)
@@ -1764,7 +1853,7 @@ def dense_prefill(label: str, rng, cfg, params, dev, B: int, S: int,
     drops = moe_drops(params, batch, cfg, rt) if cfg.moe else None
     torch.cuda.reset_peak_memory_stats()
     ms = host_ms(lambda: prefill(params, batch, cfg, rt), reps=3, warmup=1)
-    out = dict(batch=B, seq=S, layers=cfg.n_layers,
+    out = dict(batch=B, seq=S, layers=cfg.n_layers, card=card_line(),
                flash_launches=counts["flash_attention_fwd"],
                ssd_launches=counts["ssd_scan"],
                ssd_cuda_launches=counts["ssd_scan_cuda"],
@@ -1832,19 +1921,34 @@ def teacher_forced(label: str, rng, cfg, params, dev, S: int = TEACHER_S,
     return out
 
 
+def cut_depth(cfg, layers: int):
+    """``cfg`` with its one group cut to ``layers`` layers (whole units of
+    the group's pattern), every width and block kind kept."""
+    from repro_torch.models import Group
+    (g,) = cfg.groups
+    check(layers % len(g.blocks) == 0, f"{cfg.name}: {layers} layers is not "
+          f"a whole number of its {len(g.blocks)}-block unit")
+    return dataclasses.replace(cfg, groups=(Group(
+        g.name, g.blocks, layers // len(g.blocks)),))
+
+
 def dense_phases(dev) -> dict:
-    """(p)-(r): gemma2-9b (this slice's main path) and qwen3-14b at full
-    width, qwen1.5-110b at its published widths cut in depth; each model
-    freed before the next."""
+    """(p)-(r): gemma2-9b and qwen3-14b at full width and qwen1.5-110b at
+    its published widths, each cut in depth; each model freed before the
+    next."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import Group
     out = {}
-    for arch, B, S, seed in ((GEMMA_ARCH, GEMMA_B, GEMMA_S, 7),
-                             (QWEN3_ARCH, QWEN3_B, QWEN3_S, 8)):
+    for arch, B, S, seed, layers, full in (
+            (GEMMA_ARCH, GEMMA_B, GEMMA_S, 7, GEMMA_LAYERS, 42),
+            (QWEN3_ARCH, QWEN3_B, QWEN3_S, 8, QWEN3_LAYERS, 40)):
         rng = np.random.default_rng([SEED, seed])
-        cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+        cfg = cut_depth(dataclasses.replace(get_config(arch),
+                                            attn_impl="flash"), layers)
+        print(f"{arch}: published widths, depth cut to {layers} of {full} "
+              f"layers (every block kind kept), to keep the whole script "
+              f"inside its time", flush=True)
         params, load = load_model(arch, cfg, dev)
         res = dict(load=load)
         res["prefill"] = dense_prefill(arch, rng, cfg, params, dev, B, S)
@@ -1855,9 +1959,8 @@ def dense_phases(dev) -> dict:
         out[arch] = res
         del params, eng
         torch.cuda.empty_cache()
-    cfg = get_config(QWEN110_ARCH)
-    cfg = dataclasses.replace(cfg, attn_impl="flash", groups=tuple(
-        Group(g.name, g.blocks, QWEN110_LAYERS) for g in cfg.groups))
+    cfg = cut_depth(dataclasses.replace(get_config(QWEN110_ARCH),
+                                        attn_impl="flash"), QWEN110_LAYERS)
     print(f"{QWEN110_ARCH}: published widths, depth cut to "
           f"{QWEN110_LAYERS} of 80 layers (222 GB of bf16 weights at full "
           f"depth, over one card's 80 GB)", flush=True)
@@ -1958,6 +2061,200 @@ def moe_phases(dev) -> dict:
         del params, eng
         torch.cuda.empty_cache()
     return out
+
+
+def stack_stream(cfg, B: int, S: int, dev) -> dict:
+    """Step 0 of ``SyntheticStream`` (seed ``SEED``) for ``cfg`` on the
+    card: ``B x S`` tokens and the model's modality stub (a vision
+    prefix's ``embeds``, an encoder's ``frames``), drawn from the numpy
+    seed as the stream draws them."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticStream
+    b = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                   global_batch=B, seed=SEED),
+                        cfg).batch(0)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()
+            if k != "labels"}
+
+
+def llava_phase(dev) -> dict:
+    """(w): llava-next-mistral-7b whole, this slice's main path."""
+    import torch
+    from repro_torch.configs import get_config
+    rng = np.random.default_rng([SEED, 12])
+    cfg = dataclasses.replace(get_config(LLAVA_ARCH), attn_impl="flash")
+    params, load = load_model(LLAVA_ARCH, cfg, dev)
+    res = dict(load=load)
+    batch = stack_stream(cfg, LLAVA_B, LLAVA_TEXT, dev)
+    check(batch["embeds"].shape == (LLAVA_B, cfg.stub_prefix, cfg.d_model),
+          f"{LLAVA_ARCH}: embeds {tuple(batch['embeds'].shape)}")
+    S = cfg.stub_prefix + LLAVA_TEXT
+    res["prefill"] = dense_prefill(
+        LLAVA_ARCH, rng, cfg, params, dev, LLAVA_B, S, ranges=(),
+        batch=batch, extra_controls={"prefix_rolled_along_batch": (
+            params, dict(batch, embeds=torch.roll(batch["embeds"], 1,
+                                                  dims=0)))})
+    res["teacher"] = teacher_forced(LLAVA_ARCH, rng, cfg, params, dev)
+    res["serve"], eng = serve_paths(LLAVA_ARCH, cfg, params, dev)
+    res["decode_profile"], res["captured_decode_profile"] = \
+        step_profiles(LLAVA_ARCH, cfg, params, eng, dev)
+    del params, eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def whisper_teacher(label: str, cfg, params, batch, dev) -> dict:
+    """Teacher-forced decode at B 1 over every position of the prefill's
+    first row, under ``attn_impl="blocked"`` (a decode step's
+    cross-attention has one query, which the flash kernel does not take),
+    each step reading the prefill's own encoder output (all its frames)
+    as ``enc_out``: the last logits against the flash prefill's, within
+    0.08 (relative); ms a step."""
+    import torch
+    from repro_torch.models import Runtime, decode_step, init_caches, prefill
+    from repro_torch.models.lm import _run_encoder
+    rt = Runtime(dev)
+    V = cfg.vocab
+    row = {k: v[:1] for k, v in batch.items()}
+    S = row["tokens"].shape[1]
+    want = prefill(params, row, cfg, rt)
+    dcfg = dataclasses.replace(cfg, attn_impl="blocked")
+    enc = _run_encoder(params, row["frames"], dcfg, rt)
+    caches = init_caches(dcfg, 1, S, device=dev)
+    t0 = time.perf_counter()
+    for t in range(S):
+        _, got, caches = decode_step(params, row["tokens"][:, t], caches, t,
+                                     dcfg, rt, enc)
+    torch.cuda.synchronize()
+    out = dict(prompt=S, enc_frames=enc.shape[1],
+               rel_err=rel_err(got[:, :V], want[:, :V]),
+               decode_ms_per_step_b1=(time.perf_counter() - t0) * 1e3 / S,
+               bar=0.08, card=card_line())
+    print(f"{label} teacher-forced decode " + json.dumps(out), flush=True)
+    check(out["rel_err"] < 0.08, f"{label} teacher-forced decode vs flash "
+                                 f"prefill rel err {out['rel_err']}")
+    return out
+
+
+def whisper_phase(dev) -> dict:
+    """(x): whisper-base whole, an encoder-decoder."""
+    import torch
+    from repro_torch.configs import get_config
+    rng = np.random.default_rng([SEED, 13])
+    cfg = dataclasses.replace(get_config(WHISPER_ARCH), attn_impl="flash")
+    params, load = load_model(WHISPER_ARCH, cfg, dev)
+    res = dict(load=load)
+    batch = stack_stream(cfg, WHISPER_B, WHISPER_S, dev)
+    res["prefill"] = dense_prefill(
+        WHISPER_ARCH, rng, cfg, params, dev, WHISPER_B, WHISPER_S,
+        ranges=(), batch=batch, extra_controls={
+            "frames_rolled_along_batch": (params, dict(
+                batch, frames=torch.roll(batch["frames"], 1, dims=0))),
+            "encoder_kv_heads_rolled": (rolled(
+                params, ("wk", "wv"), cfg.hd, under="enc_enc"), batch)})
+    res["teacher"] = whisper_teacher(WHISPER_ARCH, cfg, params, batch, dev)
+    scfg = dataclasses.replace(cfg, attn_impl="blocked")
+    res["serve"], eng = serve_paths(WHISPER_ARCH, scfg, params, dev)
+    res["decode_profile"], res["captured_decode_profile"] = \
+        step_profiles(WHISPER_ARCH, scfg, params, eng, dev)
+    del params, eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def mla_layer_check(params, cfg, rng, dev) -> dict:
+    """Layer 0 of the dense group (MLA and the dense MLP, upcast to f32) at
+    B 1 x ``MLA_LAYER_S`` in f32 on the card against the same call on the
+    CPU, within ``MLA_LAYER_BAR`` (relative); the card's milliseconds."""
+    import torch
+    from repro_torch.models import Runtime, blocks
+    tree = params.tree()["dec_dense"]["b0"]
+    p = {k: {n: t[0].float() for n, t in v.items()} for k, v in tree.items()}
+    p_cpu = {k: {n: t.cpu() for n, t in v.items()} for k, v in p.items()}
+    bcfg = cfg.groups[0].blocks[0]
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    x = torch.from_numpy(rng.standard_normal(
+        (1, MLA_LAYER_S, cfg.d_model), dtype=np.float32))
+    pos = torch.arange(MLA_LAYER_S)[None]
+    xd, posd, rt = x.to(dev), pos.to(dev), Runtime(dev)
+    y = blocks.block_apply(p, xd, bcfg, f32, rt, posd)
+    y_cpu = blocks.block_apply(p_cpu, x, bcfg, f32, Runtime("cpu"), pos)
+    out = dict(shape=[1, MLA_LAYER_S, cfg.d_model], heads=cfg.n_heads,
+               mla=dataclasses.asdict(cfg.mla),
+               rel_err=rel_err(y.cpu(), y_cpu), bar=MLA_LAYER_BAR,
+               ms_f32=cuda_ms(lambda: blocks.block_apply(
+                   p, xd, bcfg, f32, rt, posd), reps=5, warmup=1),
+               card=card_line())
+    print(f"{cfg.name} one dense MLA layer card vs CPU " + json.dumps(out),
+          flush=True)
+    check(out["rel_err"] < MLA_LAYER_BAR,
+          f"{cfg.name}: one MLA layer on the card vs the CPU {out}")
+    return out
+
+
+def deepseek_phase(dev) -> dict:
+    """(y): deepseek-v3-671b at its published widths, cut in depth."""
+    import torch
+    from repro_torch.launch import one_card_config
+    from repro_torch.models import (Group, Runtime, count_params, forward,
+                                    moe)
+    rng = np.random.default_rng([SEED, 14])
+    full = one_card_config(DEEPSEEK_ARCH, smoke=False)
+    cfg = dataclasses.replace(full, groups=tuple(
+        Group(g.name, g.blocks, 1) for g in full.groups))
+    n = count_params(cfg)
+    cut = dict(layers=cfg.n_layers, parameters_b=n / 1e9,
+               bf16_weights_gb=2 * n / 1e9,
+               full_parameters_b=count_params(full) / 1e9,
+               attn_impl=cfg.attn_impl)
+    print(f"{DEEPSEEK_ARCH}: published widths, depth cut to one dense and "
+          f"one MoE MLA layer and the MTP block " + json.dumps(cut),
+          flush=True)
+    params, load = load_model(DEEPSEEK_ARCH, cfg, dev)
+    total = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    check(load["load_peak_gb"] < total, f"{DEEPSEEK_ARCH}: load peak "
+          f"{load['load_peak_gb']} GB over the card's {total} GB")
+    res = dict(cut=cut, load=load, card_memory_gb=total)
+    res["mla_layer"] = mla_layer_check(params, cfg, rng, dev)
+    rt = Runtime(dev)
+    V = cfg.vocab
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, V, (DEEPSEEK_B, DEEPSEEK_S))).to(dev)}
+    zero_counts()
+    logits, logits_mtp = forward(params, batch, cfg, rt)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(all(c == 0 for c in counts.values()),
+          f"{DEEPSEEK_ARCH}: the blocked MLA forward launched {counts}")
+    finite = dict(
+        logits=bool(torch.isfinite(logits[..., :V]).all()),
+        logits_mtp=bool(torch.isfinite(logits_mtp[..., :V]).all()))
+    shape_ok = logits.shape == logits_mtp.shape == (
+        DEEPSEEK_B, DEEPSEEK_S, cfg.vocab_padded)
+    del logits, logits_mtp
+    torch.cuda.reset_peak_memory_stats()
+    ms = host_ms(lambda: forward(params, batch, cfg, rt), reps=3, warmup=1)
+    res["forward"] = dict(
+        batch=DEEPSEEK_B, seq=DEEPSEEK_S, launches=counts, finite=finite,
+        capacity_drops=moe_drops(params, batch, cfg, rt), e2e_ms=ms,
+        tokens_per_s=DEEPSEEK_B * DEEPSEEK_S / (ms * 1e-3),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, card=card_line())
+    print(f"{DEEPSEEK_ARCH} forward " + json.dumps(res["forward"]),
+          flush=True)
+    check(shape_ok and all(finite.values()),
+          f"{DEEPSEEK_ARCH}: forward logits shape/finite {finite}")
+    res["forward"]["profile"] = profile_families(
+        f"{DEEPSEEK_ARCH} forward (B {DEEPSEEK_B}, S {DEEPSEEK_S})",
+        lambda: forward(params, batch, cfg, rt), ms, ranges=(moe.MOE_RANGE,))
+    res["teacher"] = teacher_forced(DEEPSEEK_ARCH, rng, raised_capacity(cfg),
+                                    params, dev, published=cfg)
+    res["serve"], eng = serve_paths(DEEPSEEK_ARCH, cfg, params, dev)
+    res["decode_profile"], res["captured_decode_profile"] = \
+        step_profiles(DEEPSEEK_ARCH, cfg, params, eng, dev,
+                      ranges=(moe.MOE_RANGE,))
+    del params, eng
+    torch.cuda.empty_cache()
+    return res
 
 
 def program_engine_phase(fit: dict) -> dict:
@@ -2793,7 +3090,8 @@ def main() -> int:
     flash_rows = flash_phase(
         np.random.default_rng([SEED, 1]), dev,
         built["flash_attention_fwd"].log,
-        FLASH_SHAPES + GEMMA_FWD_SHAPES + DENSE_FWD_SHAPES + MOE_FWD_SHAPES)
+        FLASH_SHAPES + GEMMA_FWD_SHAPES + DENSE_FWD_SHAPES + MOE_FWD_SHAPES
+        + STACK_FWD_SHAPES)
 
     done("1-3, b")
 
@@ -2943,13 +3241,22 @@ def main() -> int:
     moes = moe_phases(dev)
     done("u-v")
 
+    # (w) llava-next-mistral-7b (this slice's main path), (x) whisper-base,
+    # (y) deepseek-v3-671b ----------------------------------------------------
+    stack = {LLAVA_ARCH: llava_phase(dev)}
+    done("w")
+    stack[WHISPER_ARCH] = whisper_phase(dev)
+    done("x")
+    stack[DEEPSEEK_ARCH] = deepseek_phase(dev)
+    done("y")
+
     # 7. result lines ----------------------------------------------------------
     big = [r for r in rows if r["n"] == N_MAIN // P_MAIN and not r["inverse"]][0]
     bound_ms, bound_by = fft_bound_ms(big["batch"], big["n"])
     # "replaces" names each TPU kernel's pallas_call line; "launches" is
     # the count from each kernel's own path: fft_planes the BSP FFT (5),
-    # flash_attention_fwd this slice's main path, the granite-moe-3b-a800m
-    # prefill (u), with every other path's count beside it, the backward
+    # flash_attention_fwd this slice's main path, the llava-next-mistral-7b
+    # prefill (w), with every other path's count beside it, the backward
     # kernels the training loop (h), ssd_scan the mamba2-130m training
     # loop (t), with its other paths beside it.  The flash and ssd_scan
     # rows' times are the llama3.2-1b and mamba2-130m prefills' shapes,
@@ -2959,8 +3266,8 @@ def main() -> int:
     mamba_launches = mamba_train["train"]["launches"]
     main_fwd = [r for r in flash_rows if r["shape"] == MAIN_FWD_SHAPE
                 and r["dtype"] == "bfloat16"][0]
-    slice_shapes = [list(sh[:5]) for sh in
-                    GEMMA_FWD_SHAPES + DENSE_FWD_SHAPES + MOE_FWD_SHAPES]
+    slice_shapes = [list(sh[:5]) for sh in GEMMA_FWD_SHAPES
+                    + DENSE_FWD_SHAPES + MOE_FWD_SHAPES + STACK_FWD_SHAPES]
     slice_fwd = [dict((k, r[k]) for k in (
         "shape", "causal", "window", "softcap", "max_abs_err", "row_err",
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))
@@ -2973,7 +3280,11 @@ def main() -> int:
         **{f"{arch} prefill": dense[arch]["prefill"]["flash_launches"]
            for arch in (GEMMA_ARCH, QWEN3_ARCH, QWEN110_ARCH)},
         **{f"{arch} prefill": moes[arch]["prefill"]["flash_launches"]
-           for arch in (GRANITE_ARCH, JAMBA_ARCH)}}
+           for arch in (GRANITE_ARCH, JAMBA_ARCH)},
+        **{f"{arch} prefill": stack[arch]["prefill"]["flash_launches"]
+           for arch in (LLAVA_ARCH, WHISPER_ARCH)},
+        f"{DEEPSEEK_ARCH} forward (blocked MLA)": stack[DEEPSEEK_ARCH][
+            "forward"]["launches"]["flash_attention_fwd"]}
     ssd_launches = {
         "mamba2-130m prefill (k)": mamba["prefill"]["ssd_launches"],
         f"mamba2-130m training, {TRAIN_STEPS} steps (t)":
@@ -3000,7 +3311,7 @@ def main() -> int:
         name="flash_attention_fwd", route="cuda",
         source="src/repro_torch/csrc/flash_attention_fwd.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:111",
-        launches=moes[GRANITE_ARCH]["prefill"]["flash_launches"],
+        launches=stack[LLAVA_ARCH]["prefill"]["flash_launches"],
         launches_by_path=prefill_launches,
         max_abs_err=main_fwd["max_abs_err"], ms=main_fwd["ms"],
         plain_ms=main_fwd["plain_ms"], bound_ms=main_fwd["bound_ms"],

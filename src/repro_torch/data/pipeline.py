@@ -5,18 +5,20 @@ bit-identical to the JAX package's for the same seed and step).
 Every batch is a pure function of ``(seed, step)`` — no state to lose on
 restart beyond the step counter, which rides in the checkpoint.  The
 token stream has learnable structure (a noisy affine next-token rule over
-a zipf-ish marginal) so training loss demonstrably decreases.  The JAX
-package's vision and audio stubs (``embeds``, ``frames``) are left out
-until a ported config has those modalities (ROADMAP A8); the model
-config argument they read goes with them.
+a zipf-ish marginal) so training loss demonstrably decreases.  Given the
+model config, the modality stubs synthesise patch embeddings (``embeds``
+[B, stub_prefix, d_model], vision) or encoder frames (``frames`` [B, S,
+d_model], audio with an encoder) with the same determinism.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
+
+from ..models.config import ModelConfig
 
 __all__ = ["DataConfig", "SyntheticStream"]
 
@@ -33,8 +35,10 @@ class DataConfig:
 class SyntheticStream:
     """Checkpointable iterator: state == step (int)."""
 
-    def __init__(self, cfg: DataConfig):
+    def __init__(self, cfg: DataConfig,
+                 model_cfg: Optional[ModelConfig] = None):
         self.cfg = cfg
+        self.model_cfg = model_cfg
         self.a = 6364136223846793005 % cfg.vocab or 1
         self.c = 1442695040888963407 % cfg.vocab
 
@@ -55,8 +59,16 @@ class SyntheticStream:
             toks[:, t] = np.where(follow[:, t], nxt, rand_draws[:, t])
         labels = np.concatenate(
             [toks[:, 1:], np.full((B, 1), -1, np.int64)], axis=1)
-        return {"tokens": toks.astype(np.int32),
-                "labels": labels.astype(np.int32)}
+        out = {"tokens": toks.astype(np.int32),
+               "labels": labels.astype(np.int32)}
+        mc = self.model_cfg
+        if mc is not None and mc.modality == "vision":
+            out["embeds"] = rng.standard_normal(
+                (B, mc.stub_prefix, mc.d_model)).astype(np.float32)
+        if mc is not None and mc.modality == "audio" and mc.encoder_groups:
+            out["frames"] = rng.standard_normal(
+                (B, S, mc.d_model)).astype(np.float32)
+        return out
 
     # -- checkpointable iterator protocol --------------------------------
     def state(self, step: int) -> dict:

@@ -5,6 +5,12 @@ counterpart of the JAX package's ``custom_vjp`` (``repro/kernels/
 flash_attention/ops.py:26-53``).  Its forward saves q, k, v, o and the
 log-sum-exp ``lse``; its backward computes (dq, dk, dv) from them.
 
+Either route first refuses, by name, shapes that neither the CUDA kernel
+nor the TPU kernel it replaces computes right: keys of another length
+than the queries (the TPU kernel sizes its key blocks from the query
+length, so at one query it reads one key only) and values of another
+width than the keys (MLA's; the TPU kernel's output takes q's shape).
+
 A CUDA tensor goes to the CUDA kernels (:func:`.kernel.flash_attention_fwd`
 forward, :func:`.kernel.flash_attention_bwd` backward) — they launch or
 raise, never fall back.  A CPU tensor goes to the plain versions
@@ -57,9 +63,25 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def _check_shapes(q, k, v) -> None:
+    S, D = q.shape[-2], q.shape[-1]
+    if k.shape[-2] != S or v.shape[-2] != S:
+        raise LPFFatalError(
+            f"flash_attention takes keys as long as the queries (the TPU "
+            f"kernel sizes its key blocks from the query length and at "
+            f"one query reads one key only): S={S}, keys {k.shape[-2]}, "
+            f"values {v.shape[-2]}; run attn_impl='blocked'")
+    if k.shape[-1] != D or v.shape[-1] != D:
+        raise LPFFatalError(
+            f"flash_attention takes q, k and v of one head dim (the TPU "
+            f"kernel's output takes q's shape): q {D}, k {k.shape[-1]}, "
+            f"v {v.shape[-1]}; MLA runs attn_impl='blocked'")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Flash attention: q [B,H,S,D], k/v [B,Hkv,S,D] -> [B,H,S,D]."""
+    _check_shapes(q, k, v)
     return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)

@@ -5,8 +5,10 @@ decode buckets, on one device.
 llama3.2-1b smoke config on the CPU (``--arch`` picks another registered
 model: ``gemma2-9b``, ``qwen3-14b``, ``qwen1.5-110b``, ``mamba2-130m``,
 whose decode carries a recurrent state in place of a KV cache, the MoE
-model ``granite-moe-3b-a800m`` or the hybrid ``jamba-v0.1-52b``; the
-config is one card's, ``ep_degree=1``); without
+models ``granite-moe-3b-a800m`` and ``deepseek-v3-671b`` (MLA against its
+compressed cache), the hybrid ``jamba-v0.1-52b``, the vision-prefix
+``llava-next-mistral-7b`` or the encoder-decoder ``whisper-base``: all
+ten architectures; the config is one card's, ``ep_degree=1``); without
 ``--device`` it runs on the card (and refuses to start without one), and
 ``--no-smoke`` serves the full-width model, loaded with the weights cast
 as they are drawn (:func:`repro_torch.models.load_params`).  Requests are
@@ -57,7 +59,9 @@ class ModelDecodeEngine:
 
     Both give the same stream bit for bit.  ``captures``, ``replays`` and
     ``quarantines`` count graph captures, tokens decoded by a replay and
-    quarantine calls."""
+    quarantine calls.  An encoder-decoder model is fed what the JAX
+    engine feeds it: an encoder output of zeros, ``[B, 64, d_model]`` in
+    bf16, per bucket."""
 
     def __init__(self, cfg, buckets: Sequence[Tuple[int, int]], *,
                  params: Optional[ParamTree] = None, device="cuda",
@@ -68,6 +72,10 @@ class ModelDecodeEngine:
         self.device = next(iter(self._steps.values())).rt.device
         self._params = params if params is not None else load_params(
             seed, cfg, device=self.device)
+        self._enc = {b: (torch.zeros(b[0], 64, cfg.d_model,
+                                     dtype=torch.bfloat16,
+                                     device=self.device),)
+                     if cfg.encoder_groups else () for b in self._steps}
         self.quarantined: set = set()
         self.quarantines = 0
         if per_token:
@@ -133,15 +141,18 @@ class ModelDecodeEngine:
         ss = self._steps[bucket]
         row = [int(s) for s in seed_toks] + [0] * (B - len(seed_toks))
         tok = torch.tensor(row, dtype=torch.long, device=self.device)
+        extra = self._enc[bucket]
         if bucket in self.quarantined:
             caches = init_caches(self._cfg, B, C, device=self.device)
             seq = []
             for pos in range(n_tokens):
-                tok, caches = ss.step_fn(self._params, caches, tok, pos)
+                tok, caches = ss.step_fn(self._params, caches, tok, pos,
+                                         *extra)
                 seq.append(tok)
             out = torch.stack(seq)
         else:
-            out, _caches = ss.decode_fn(n_tokens)(self._params, tok, 0)
+            out, _caches = ss.decode_fn(n_tokens)(self._params, tok, 0,
+                                                  *extra)
         out = out.cpu()                          # [T, B]; waits for the device
         return [tuple(int(t) for t in out[:, i]) for i in range(B)]
 

@@ -1,10 +1,12 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> ...``.
 
-Trains ``--arch`` on the deterministic synthetic stream with AdamW under a
-warmup-cosine schedule, on the card unless ``--device cpu``.  The smoke
-config is the default; ``--no-smoke`` trains the published geometry (on
-the card: llama3.2-1b and mamba2-130m at B 4 x S 2048 fit one 80 GB H100
-with ``remat="full"``).  The config is one card's (``ep_degree=1``).
+Trains ``--arch`` on the deterministic synthetic stream (with the model's
+``embeds`` or ``frames`` where it has a vision prefix or an encoder) with
+AdamW under a warmup-cosine schedule, on the card unless ``--device
+cpu``.  The smoke config is the default; ``--no-smoke`` trains the
+published geometry (on the card: llama3.2-1b and mamba2-130m at B 4 x S
+2048 fit one 80 GB H100 with ``remat="full"``).  The config is one
+card's (``ep_degree=1``).
 The JAX launcher's multi-device options need a mesh or pods: ``--mesh``
 other than ``1x1``, ``--compress`` and ``--sync-every`` raise (ROADMAP
 A10); ``--grad-sync lpf`` on one card is the plain step.
@@ -65,7 +67,7 @@ def main(argv=None):
         grad_sync=args.grad_sync, grad_accum=args.grad_accum,
         device=args.device)
     stream = SyntheticStream(DataConfig(
-        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch))
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch), cfg)
     tokens = args.batch * args.seq
     print(f"{cfg.name}: {count_params(cfg)} parameters, attn_impl "
           f"{cfg.attn_impl}, remat {cfg.remat}, B {args.batch} x S "

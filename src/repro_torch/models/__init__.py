@@ -1,9 +1,10 @@
-"""The model stack on one device: attention and Mamba-2 mixers with dense
-or MoE feed-forward blocks assembled into a decoder-only LM (llama3.2-1b,
-qwen3-14b, gemma2-9b, qwen1.5-110b, mamba2-130m, granite-moe-3b-a800m,
-jamba-v0.1-52b), the training loss with autograd through the kernels,
-prefill (through the flash-attention or ``ssd_scan`` kernel) and greedy
-decode against a rolling KV cache or a recurrent state."""
+"""The model stack on one device: attention, MLA and Mamba-2 mixers,
+cross-attention, dense or MoE feed-forward blocks, assembled into an LM
+with an optional encoder, vision prefix or multi-token-prediction head
+(all ten architectures of ``repro_torch.configs``), the training loss with
+autograd through the kernels, prefill (through the flash-attention or
+``ssd_scan`` kernel) and greedy decode against a rolling KV cache, MLA's
+compressed cache or a recurrent state."""
 
 from .blocks import Runtime
 from .config import BlockCfg, Group, MLACfg, ModelConfig

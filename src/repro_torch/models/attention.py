@@ -12,8 +12,20 @@
   partials the decode step merges (cache, then the new token).
 
 The JAX package's :func:`decode_attention` shards the KV cache over a
-mesh; on one card there is no mesh, and it raises (ROADMAP A8, with the
+mesh; on one card there is no mesh, and it raises (ROADMAP A10, with the
 multi-GPU port).
+
+Two limits of the JAX package's attention hold here too, each refused by
+name where the JAX package fails or goes silently wrong:
+
+* :func:`blocked_attention` builds its mask from the query length, so
+  keys as many as the queries, or a single query (a decode step's
+  cross-attention, whose one-row mask broadcasts over every key); other
+  key lengths fail in the JAX package and raise here;
+* the flash kernel sizes its key blocks from the query length: the JAX
+  kernel at one query reads one key only, the CUDA kernel takes only
+  ``Skv == S``, and ``attn_impl="flash"`` refuses every other key length
+  (and values narrower or wider than the keys, MLA's) on both devices.
 """
 
 from __future__ import annotations
@@ -38,12 +50,19 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       softcap: Optional[float] = None,
                       scale: Optional[float] = None,
                       q_chunk: int = 512) -> torch.Tensor:
-    """q [B, S, H, D]; k/v [B, S, Hkv, D] -> [B, S, H, D].
+    """q [B, S, H, D]; k [B, S, Hkv, D], v [B, S, Hkv, Dv] -> [B, S, H,
+    Dv].  A single query (S = 1) takes keys of any length, all of them
+    unmasked.
 
     Loops over query chunks; scores per chunk are [B, Hkv, g, qc, S].
     GQA folds the head groups instead of repeating K/V."""
     B, S, H, D = q.shape
-    Hkv = k.shape[2]
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if Skv != S and S != 1:
+        raise LPFFatalError(
+            f"blocked_attention builds its mask from the query length, as "
+            f"the JAX package's does: {S} queries take {S} keys (or one "
+            f"query any number), got {Skv}")
     group = H // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qc = min(q_chunk, S)
@@ -55,6 +74,7 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # bf16 products are exact in f32: f32 operands give the f32 scores
     # that the JAX package asks of its bf16 einsum
     kf, vf = k.float(), v.float()
+    # the JAX package's mask, [qc, S]: at S = 1 it broadcasts over the keys
     k_pos = torch.arange(S, device=q.device)
     outs = []
     for i in range(nq):
@@ -115,14 +135,14 @@ def decode_attention(*args, **kwargs):
     decode is :func:`repro_torch.models.blocks._attn_decode`."""
     raise LPFFatalError(
         "decode_attention shards the KV cache over a device mesh; the port "
-        "runs on one card and has no mesh yet (ROADMAP A8, with the "
+        "runs on one card and has no mesh yet (ROADMAP A10, with the "
         "multi-GPU port)")
 
 
 def attention(q, k, v, *, impl: str = "blocked", causal=True, window=None,
               softcap=None, scale=None, q_chunk: int = 512):
     """Dispatch prefill attention by implementation name; q [B,S,H,D],
-    k/v [B,S,Hkv,D] -> [B,S,H,D]."""
+    k [B,Skv,Hkv,D], v [B,Skv,Hkv,Dv] -> [B,S,H,Dv]."""
     if impl in ("flash", "reference"):
         # kernel layout is [B, H, S, D]
         fn = _flash_ops.flash_attention if impl == "flash" \

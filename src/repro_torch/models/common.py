@@ -77,9 +77,11 @@ def dense_init(generator: torch.Generator, shape: Sequence[int],
                scale: float = 1.0, device=None) -> torch.Tensor:
     """Truncated-normal fan-in init: N(0, 1) cut to [-2, 2], times
     ``scale / sqrt(shape[in_axis])``; drawn in f32 from ``generator``
-    (which must live on ``device``)."""
+    (which must live on ``device``).  Scaled in place: the f32 draw is
+    the only full-size temporary (deepseek-v3's expert leaf [256, 7168,
+    2048] is 15 GB in f32)."""
     fan_in = shape[in_axis] if len(shape) else 1
     std = scale / math.sqrt(max(fan_in, 1))
     t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * std).to(dtype)
+    return t.mul_(std).to(dtype)

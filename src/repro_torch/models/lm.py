@@ -1,6 +1,8 @@
 """The language model on one device: embed -> block groups -> head, with
-the training loss, prefill and single-token greedy decode (decoder-only:
-attention and Mamba-2 mixers, dense and MoE feed-forward blocks).
+the training loss, prefill and single-token greedy decode, for
+decoder-only, encoder-decoder (audio) and stub-multimodal (vision)
+architectures: attention, MLA and Mamba-2 mixers, cross-attention, dense
+and MoE feed-forward blocks, and multi-token prediction (MTP).
 
 Parameters live in a :class:`ParamTree`, an ``nn.Module`` whose
 parameters are named as in the JAX tree (``embed``, ``final_norm.w``,
@@ -11,10 +13,20 @@ copy (:func:`repro_torch.interop.params_from_jax`).
 
 Batch conventions (as in ``repro.models.lm``)::
 
-    train:    {"tokens" [B, S] int, "labels" [B, S] int (-1 = masked)}
-    prefill:  {"tokens" [B, S] int}
-    decode:   decode_step(params, token [B] int, caches, pos, cfg, rt)
-              (pos an int, or a 0-d long tensor on the device)
+    train:    {"tokens" [B, S] int, "labels" [B, S] int (-1 = masked),
+               optional "embeds" [B, P, D] (vision stub, prepended; the
+               logits cover the S text positions only),
+               optional "frames" [B, Se, D] (audio stub -> encoder)}
+    prefill:  the same without "labels"
+    decode:   decode_step(params, token [B] int, caches, pos, cfg, rt,
+                          enc_out=None)
+              (pos an int, or a 0-d long tensor on the device; enc_out
+              [B, Se, D] the encoder's output, for an encoder-decoder)
+
+With ``cfg.mtp`` :func:`forward` returns ``(logits, logits_mtp)``: the MTP
+head predicts the token after next from the final hidden state and the
+next token's embedding, and :func:`loss_fn` adds 0.3 times its
+cross-entropy against the labels shifted by one.
 
 Every entry point runs on ``rt.device`` (``Runtime()`` is the card) and
 refuses parameters that live elsewhere.  :func:`loss_fn` runs with
@@ -76,13 +88,6 @@ def _map(fn, tree: Tree) -> Tree:
             for k, v in tree.items()}
 
 
-def _check_blocks(cfg: ModelConfig) -> None:
-    if cfg.encoder_groups or cfg.modality != "none" or cfg.mtp:
-        raise LPFFatalError(
-            f"{cfg.name}: encoder-decoder, modality-stub and multi-token-"
-            f"prediction models are not ported yet (ROADMAP A8)")
-
-
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
@@ -132,7 +137,6 @@ def _init_tree(key: Union[int, torch.Generator], cfg: ModelConfig, dev,
                cdt=None) -> Tree:
     """The parameter tree of :func:`init_params`, each weight matrix cast
     to ``cdt`` as soon as it is drawn when ``cdt`` is given."""
-    _check_blocks(cfg)
     if isinstance(key, torch.Generator):
         gen = key
     elif dev.type == "meta":
@@ -157,6 +161,17 @@ def _init_tree(key: Union[int, torch.Generator], cfg: ModelConfig, dev,
                                         in_axis=1, dtype=dtype, device=dev))
     for g in cfg.groups:
         p[f"dec_{g.name}"] = _group_params(gen, g, cfg, dtype, dev, cdt)
+    for g in cfg.encoder_groups:
+        p[f"enc_{g.name}"] = _group_params(gen, g, cfg, dtype, dev, cdt)
+    if cfg.encoder_groups:
+        p["enc_final_norm"] = {"w": torch.ones(cfg.d_model, device=dev)}
+        if cfg.norm == "layer":
+            p["enc_final_norm"]["b"] = torch.zeros(cfg.d_model, device=dev)
+    if cfg.mtp:
+        p["mtp_proj"] = top(dense_init(gen, (2 * cfg.d_model, cfg.d_model),
+                                       dtype=dtype, device=dev))
+        blk = block_params(gen, cfg.groups[-1].blocks[-1], cfg, dtype, dev)
+        p["mtp_block"] = blk if cdt is None else _cast_params(blk, cdt)
     return p
 
 
@@ -266,15 +281,16 @@ def _head(top: Tree, x, cfg: ModelConfig):
     return logits
 
 
-def _apply_layer(layer_p: Tree, x, g: Group, cfg: ModelConfig, rt: Runtime,
-                 positions, cdt) -> torch.Tensor:
+def _apply_layer(layer_p: Tree, x, enc_out, g: Group, cfg: ModelConfig,
+                 rt: Runtime, positions, cdt) -> torch.Tensor:
     """One layer of group ``g``; its weights cast to ``cdt`` here, inside
     whatever checkpoint wraps the layer, as the JAX scan body does, one
     block at a time (the same values; a cast copy of one block at a time,
-    where a jamba period's f32 copy would not fit the card)."""
+    where a jamba period's f32 copy would not fit the card).  ``enc_out``:
+    the encoder's output for cross-attention blocks, or None."""
     for i, b in enumerate(g.blocks):
         x = block_apply(_cast_params(layer_p[f"b{i}"], cdt), x, b, cfg, rt,
-                        positions)
+                        positions, enc_out)
     return x
 
 
@@ -289,8 +305,8 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _layer(layer_p: Tree, x, g: Group, cfg: ModelConfig, rt: Runtime,
-           positions, cdt) -> torch.Tensor:
+def _layer(layer_p: Tree, x, enc_out, g: Group, cfg: ModelConfig,
+           rt: Runtime, positions, cdt) -> torch.Tensor:
     """One layer, checkpointed per ``cfg.remat`` when autograd records:
     ``"full"`` saves only the layer's input and recomputes the layer in
     the backward, ``"dots"`` also saves its matrix products, ``"none"``
@@ -298,46 +314,98 @@ def _layer(layer_p: Tree, x, g: Group, cfg: ModelConfig, rt: Runtime,
     fn = functools.partial(_apply_layer, g=g, cfg=cfg, rt=rt,
                            positions=positions, cdt=cdt)
     if not torch.is_grad_enabled() or cfg.remat == "none":
-        return fn(layer_p, x)
+        return fn(layer_p, x, enc_out)
     if cfg.remat == "full":
-        return _ckpt.checkpoint(fn, layer_p, x, use_reentrant=False)
+        return _ckpt.checkpoint(fn, layer_p, x, enc_out, use_reentrant=False)
     if cfg.remat == "dots":
         return _ckpt.checkpoint(
-            fn, layer_p, x, use_reentrant=False,
+            fn, layer_p, x, enc_out, use_reentrant=False,
             context_fn=functools.partial(
                 _ckpt.create_selective_checkpoint_contexts, _dots_policy))
     raise LPFFatalError(f"remat={cfg.remat!r}: expected full, dots or none")
 
 
+def _run_groups(tree: Tree, prefix: str, groups, x, enc_out,
+                cfg: ModelConfig, rt: Runtime, positions, cdt):
+    for g in groups:
+        for layer_p in _layers(tree[f"{prefix}{g.name}"], g.repeats):
+            x = _layer(layer_p, x, enc_out, g, cfg, rt, positions, cdt)
+    return x
+
+
+def _run_encoder(params: ParamTree, frames, cfg: ModelConfig,
+                 rt: Runtime) -> torch.Tensor:
+    """The encoder over ``frames`` [B, Se, D] (cast to the compute
+    dtype, sinusoidal positions added, no causal mask), through
+    ``enc_final_norm``: the ``enc_out`` a decoder's cross-attention
+    reads, at prefill and at every decode step."""
+    cdt = dtype_of(cfg.compute_dtype)
+    tree = params.tree()
+    x = torch.as_tensor(frames, device=rt.device).to(cdt)
+    B, S, _ = x.shape
+    x = x + sinusoidal_positions(S, cfg.d_model, rt.device)[None].to(cdt)
+    positions = torch.arange(S, device=rt.device)[None].expand(B, S)
+    x = _run_groups(tree, "enc_", cfg.encoder_groups, x, None, cfg, rt,
+                    positions, cdt)
+    return _final_norm(x, tree["enc_final_norm"], cfg)
+
+
 def _hidden(params: ParamTree, batch: dict, cfg: ModelConfig, rt: Runtime,
-            top: Tree) -> torch.Tensor:
-    """Embed and run every block group; the final hidden states [B, S, D]
-    before the final norm."""
-    _check_blocks(cfg)
+            top: Tree):
+    """Embed (the vision stub's ``embeds`` before the tokens), run the
+    encoder on ``frames`` where the model has one, and every decoder
+    group; returns the final hidden states [B, S, D] before the final
+    norm, the positions [B, S] and the prefix length (0 without
+    ``embeds``)."""
     cdt = dtype_of(cfg.compute_dtype)
     tokens = torch.as_tensor(batch["tokens"], device=rt.device).long()
     x = _embed_tokens(top, tokens, cfg).to(cdt)
+    n_prefix = 0
+    if cfg.modality == "vision" and "embeds" in batch:
+        emb = torch.as_tensor(batch["embeds"], device=rt.device).to(cdt)
+        n_prefix = emb.shape[1]
+        x = torch.cat([emb, x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=rt.device)[None].expand(B, S)
     if cfg.pos_embed == "learned":
         x = x + top["pos_embed"][:S][None].to(cdt)
     elif cfg.pos_embed == "sinusoidal":
         x = x + sinusoidal_positions(S, cfg.d_model, rt.device)[None].to(cdt)
-    tree = params.tree()
-    for g in cfg.groups:
-        for layer_p in _layers(tree[f"dec_{g.name}"], g.repeats):
-            x = _layer(layer_p, x, g, cfg, rt, positions, cdt)
-    return x
+    enc_out = None
+    if cfg.encoder_groups:
+        enc_out = _run_encoder(params, batch["frames"], cfg, rt)
+    x = _run_groups(params.tree(), "dec_", cfg.groups, x, enc_out, cfg, rt,
+                    positions, cdt)
+    return x, positions, n_prefix
+
+
+def _logits(top: Tree, x, batch: dict, positions, n_prefix: int,
+            cfg: ModelConfig, rt: Runtime):
+    """The final norm and head over the text positions; with MTP also the
+    MTP head's logits (the final hidden state joined with the next
+    token's embedding, one more block of the last group's kind)."""
+    cdt = dtype_of(cfg.compute_dtype)
+    x = _final_norm(x, top["final_norm"], cfg)[:, n_prefix:]
+    logits = _head(top, x, cfg)
+    if not cfg.mtp:
+        return logits
+    tokens = torch.as_tensor(batch["tokens"], device=rt.device).long()
+    emb_next = torch.roll(_embed_tokens(top, tokens, cfg), -1, dims=1)
+    h = torch.cat([x.to(cdt), emb_next.to(cdt)], dim=-1) @ top["mtp_proj"]
+    h = block_apply(top["mtp_block"], h, cfg.groups[-1].blocks[-1], cfg, rt,
+                    positions)
+    return logits, _head(top, _final_norm(h, top["final_norm"], cfg), cfg)
 
 
 @torch.no_grad()
 def forward(params: ParamTree, batch: dict, cfg: ModelConfig,
             rt: Optional[Runtime] = None) -> torch.Tensor:
-    """Prefill forward -> logits [B, S, V_padded] (f32)."""
+    """Prefill forward -> logits [B, S, V_padded] (f32) over the text
+    positions; with MTP ``(logits, logits_mtp)``."""
     rt = _runtime(params, rt)
     top = _top(params, dtype_of(cfg.compute_dtype))
-    x = _hidden(params, batch, cfg, rt, top)
-    return _head(top, _final_norm(x, top["final_norm"], cfg), cfg)
+    x, positions, n_prefix = _hidden(params, batch, cfg, rt, top)
+    return _logits(top, x, batch, positions, n_prefix, cfg, rt)
 
 
 @torch.no_grad()
@@ -345,28 +413,39 @@ def prefill(params: ParamTree, batch: dict, cfg: ModelConfig,
             rt: Optional[Runtime] = None) -> torch.Tensor:
     """Last-position logits [B, V_padded] (f32).  The final norm and head
     are row-wise, so they run on the last position only: the same numbers
-    as ``forward(...)[:, -1]`` without the [B, S, V] logits."""
+    as ``forward(...)[:, -1]`` (its first output with MTP, whose head a
+    prefill does not need) without the [B, S, V] logits."""
     rt = _runtime(params, rt)
     top = _top(params, dtype_of(cfg.compute_dtype))
-    x = _hidden(params, batch, cfg, rt, top)[:, -1]
+    x = _hidden(params, batch, cfg, rt, top)[0][:, -1]
     return _head(top, _final_norm(x, top["final_norm"], cfg), cfg)
 
 
 def loss_fn(params: ParamTree, batch: dict, cfg: ModelConfig,
             rt: Optional[Runtime] = None) -> torch.Tensor:
     """Mean next-token cross-entropy over the labels that are not -1 (a
-    0-d f32 tensor), with autograd.  The label's logit is gathered: the
-    value the JAX package's one-hot einsum computes, without the
-    ``[B, S, V]`` one-hot."""
+    0-d f32 tensor), with autograd; with MTP plus 0.3 times the MTP
+    head's against the labels shifted by one.  The label's logit is
+    gathered: the value the JAX package's one-hot einsum computes,
+    without the ``[B, S, V]`` one-hot."""
     rt = _runtime(params, rt)
     top = _top(params, dtype_of(cfg.compute_dtype))
-    x = _hidden(params, batch, cfg, rt, top)
-    logits = _head(top, _final_norm(x, top["final_norm"], cfg), cfg)
+    x, positions, n_prefix = _hidden(params, batch, cfg, rt, top)
+    out = _logits(top, x, batch, positions, n_prefix, cfg, rt)
     labels = torch.as_tensor(batch["labels"], device=rt.device).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
-    mask = (labels >= 0).float()
-    return ((lse - picked) * mask).sum() / mask.sum().clamp_min(1.0)
+
+    def xent(logits, labels):
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        return ((lse - picked) * mask).sum() / mask.sum().clamp_min(1.0)
+
+    if not cfg.mtp:
+        return xent(out, labels)
+    logits, logits_mtp = out
+    labels2 = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)],
+                        dim=1)
+    return xent(logits, labels) + 0.3 * xent(logits_mtp, labels2)
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
@@ -374,8 +453,9 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
     """Zeroed caches ``{group: {"b<i>": {...}}}`` in the JAX layout, each
     leaf ``[repeats, batch, ...]``: an attention block's ``k``, ``v``
     ``[.., cache_len, n_kv, hd]``; a Mamba block's ``ssm`` state
-    ``[.., H, N, P]`` (f32) and ``conv`` window ``[.., 3, conv_dim]``."""
-    _check_blocks(cfg)
+    ``[.., H, N, P]`` (f32) and ``conv`` window ``[.., 3, conv_dim]``; an
+    MLA block's compressed ``ckv`` ``[.., cache_len, kv_lora]`` and
+    ``krope`` ``[.., cache_len, dh_rope]``."""
     dev = resolve_device(device)
     dtype = dtype or dtype_of(cfg.compute_dtype)
     caches: Tree = {}
@@ -389,16 +469,17 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
 @torch.no_grad()
 def decode_step(params: ParamTree, token, caches: Tree,
                 pos: Union[int, torch.Tensor], cfg: ModelConfig,
-                rt: Optional[Runtime] = None):
+                rt: Optional[Runtime] = None, enc_out=None):
     """One greedy decode step.  token [B] int; ``pos`` the absolute
     position of the new token (KV-cache writes roll modulo the cache
     length; every cache is updated in place).  ``pos`` is a Python int,
     or a 0-d long tensor on ``rt.device``: then no step reads it on the
     host, so the step can be captured as a CUDA graph and replayed at the
-    position the tensor holds.  Both give the same values.  Returns
-    (next_token [B], logits [B, V_padded], caches)."""
+    position the tensor holds.  Both give the same values.  ``enc_out``
+    [B, Se, D]: an encoder-decoder's encoder output, from which every
+    cross-attention block recomputes its K/V.  Returns (next_token [B],
+    logits [B, V_padded], caches)."""
     rt = _runtime(params, rt)
-    _check_blocks(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     if not isinstance(pos, torch.Tensor):
         pos = int(pos)
@@ -420,7 +501,7 @@ def decode_step(params: ParamTree, token, caches: Tree,
             for i, b in enumerate(g.blocks):
                 cache_l = {k: c[l] for k, c in gc[f"b{i}"].items()}
                 x, _ = block_decode(_cast_params(layer_p[f"b{i}"], cdt), x,
-                                    cache_l, b, cfg, rt, pos)
+                                    cache_l, b, cfg, rt, pos, enc_out)
     x = _final_norm(x, top["final_norm"], cfg)
     logits = _head(top, x, cfg)
     # torch.argmax returns the first maximal index, as jnp.argmax does

@@ -27,7 +27,10 @@ the bucket's own static caches, token, position and outputs
 with no host write between replays; the graph itself advances the
 position.  On the CPU ``decode_fn(n)`` is the eager loop over
 ``step_fn``.  Both paths give the same tokens bit for bit: the captured
-step runs the eager step's kernels on the same shapes.
+step runs the eager step's kernels on the same shapes.  An
+encoder-decoder's steps take the encoder output ``enc_out`` [B, Se, D],
+as the JAX package's do; the captured step reads it from a buffer of its
+own, into which each call copies it.
 """
 
 from __future__ import annotations
@@ -175,6 +178,9 @@ class CapturedDecode:
     def __init__(self, cfg: ModelConfig, rt: Runtime, batch: int,
                  cache_len: int):
         self.cfg, self.rt = cfg, rt
+        #: the encoder output the graph reads (an encoder-decoder's),
+        #: allocated by the first call that brings one, of its shape
+        self.enc: Optional[torch.Tensor] = None
         self.batch, self.cache_len = batch, cache_len
         dev = rt.device
         self.caches = init_caches(cfg, batch, cache_len, device=dev)
@@ -192,7 +198,7 @@ class CapturedDecode:
 
     def _step(self) -> None:
         nxt, _logits, _ = decode_step(self.params, self.tok, self.caches,
-                                      self.pos, self.cfg, self.rt)
+                                      self.pos, self.cfg, self.rt, self.enc)
         self.out.index_copy_(0, self.row.reshape(1), nxt[None])
         self.tok.copy_(nxt)
         self.pos.add_(1)
@@ -222,10 +228,24 @@ class CapturedDecode:
         self.graph = graph
         self.captures += 1
 
-    def decode(self, params: ParamTree, tok0, pos0, n_tokens: int):
+    def decode(self, params: ParamTree, tok0, pos0, n_tokens: int,
+               enc_out: Optional[torch.Tensor] = None):
         """``n_tokens`` greedy tokens from ``tok0`` [B] at position
-        ``pos0``, from zeroed caches.  Returns (toks [n_tokens, B], the
-        bucket's caches, valid until its next call)."""
+        ``pos0``, from zeroed caches; an encoder-decoder's ``enc_out`` is
+        copied into the bucket's own buffer first (a buffer of another
+        shape or dtype is replaced, and the step captured again).
+        Returns (toks [n_tokens, B], the bucket's caches, valid until its
+        next call)."""
+        if bool(self.cfg.encoder_groups) != (enc_out is not None):
+            raise LPFFatalError(
+                f"{self.cfg.name}: an encoder-decoder's decode takes "
+                f"enc_out, any other model's none")
+        if enc_out is not None:
+            if self.enc is None or self.enc.shape != enc_out.shape \
+                    or self.enc.dtype != enc_out.dtype:
+                self.graph = None
+                self.enc = torch.empty_like(enc_out, device=self.rt.device)
+            self.enc.copy_(enc_out)
         if self.graph is None or params is not self.params:
             self._capture(params)
         for c in pytree.tree_leaves(self.caches):
@@ -246,12 +266,13 @@ class CapturedDecode:
 
 @dataclasses.dataclass
 class ServeStep:
-    #: (params, caches, token [B], pos) -> (next_token [B], caches): one
-    #: eager step
+    #: (params, caches, token [B], pos, enc_out=None) -> (next_token [B],
+    #: caches): one eager step
     step_fn: Callable
     rt: Runtime
-    #: (n_tokens) -> fn(params, tok0 [B], pos0) -> (toks [n_tokens, B],
-    #: caches): the greedy loop from zeroed caches of the bucket's shape,
+    #: (n_tokens) -> fn(params, tok0 [B], pos0, enc_out=None) -> (toks
+    #: [n_tokens, B], caches): the greedy loop from zeroed caches of the
+    #: bucket's shape,
     #: on the card the bucket's captured step replayed (the JAX package's
     #: takes the caller's caches and donates them; no caller here has any)
     decode_fn: Callable
@@ -271,25 +292,26 @@ def build_serve_step(cfg: ModelConfig, *, global_batch: int,
     if rt.device.type == "cuda":
         graph = CapturedDecode(cfg, rt, global_batch, cache_len)
 
-    def serve(params, caches, token, pos):
+    def serve(params, caches, token, pos, enc_out=None):
         nxt, _logits, caches = decode_step(params, token, caches, pos, cfg,
-                                           rt)
+                                           rt, enc_out)
         return nxt, caches
 
     def decode_fn(n_tokens: int):
         """Greedy decode of ``n_tokens`` tokens from ``tok0`` at ``pos0``,
         from zeroed caches."""
-        def eager(params, tok0, pos0):
+        def eager(params, tok0, pos0, enc_out=None):
             caches = init_caches(cfg, global_batch, cache_len,
                                  device=rt.device)
             tok, toks = tok0, []
             for i in range(n_tokens):
-                tok, caches = serve(params, caches, tok, int(pos0) + i)
+                tok, caches = serve(params, caches, tok, int(pos0) + i,
+                                    enc_out)
                 toks.append(tok)
             return torch.stack(toks), caches      # [n_tokens, B]
 
-        def captured(params, tok0, pos0):
-            return graph.decode(params, tok0, pos0, n_tokens)
+        def captured(params, tok0, pos0, enc_out=None):
+            return graph.decode(params, tok0, pos0, n_tokens, enc_out)
 
         return eager if graph is None else captured
 

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import get_config as jax_get_config
 from repro.models import Runtime as JaxRuntime
 from repro.models import count_params as jax_count_params
@@ -32,6 +33,7 @@ from repro.models import init_params as jax_init_params
 from repro.models import prefill as jax_prefill
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.interop import params_from_jax
+from repro_torch.launch import one_card_config
 from repro_torch.models import (Runtime, cast_params, count_params,
                                 decode_step, forward, init_caches,
                                 init_params, load_params, prefill)
@@ -84,9 +86,20 @@ def test_count_params_matches_jax_at_full_width(arch):
                                     "qwen1.5-110b": 111.21}[arch]
 
 
-def test_unported_arch_is_refused_naming_a8():
-    with pytest.raises(KeyError, match="A8"):
-        get_config("deepseek-v3-671b")
+def test_registry_is_the_jax_registry():
+    """The port registers the JAX package's ten architectures, in its
+    order; a name outside them is refused with the known ones listed."""
+    assert ARCHS == JAX_ARCHS and len(ARCHS) == 10
+    with pytest.raises(KeyError, match="whisper-base"):
+        get_config("gpt-2")
+
+
+@pytest.mark.parametrize("arch", JAX_ARCHS)
+def test_one_card_config_matches_jax(arch):
+    """Each architecture's config as the launchers build it on one card
+    (``ep_degree=1``) equals the JAX package's at that degree."""
+    assert dataclasses.asdict(one_card_config(arch, smoke=False)) == \
+        dataclasses.asdict(jax_get_config(arch, ep_degree=1))
 
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])

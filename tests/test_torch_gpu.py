@@ -14,15 +14,19 @@ largest |o_plain|; lse within 1e-4) and the two ``flash_attention_bwd`` kernels
 row within 2^-6 of the row's largest |plain|) and ``ssd_scan`` (y and the
 final state within 1e-4 of the plain version's largest |value|, and each
 of its passes' scratch within 1e-4 of ``ssd_scan_passes``), the forward
-also at qwen3-14b's, qwen1.5-110b's, granite-moe-3b-a800m's and
-jamba-v0.1-52b's prefill attention, the scan at jamba's shape, and the
-MoE block against the same call on the CPU.  The FFT
+also at qwen3-14b's, qwen1.5-110b's, granite-moe-3b-a800m's,
+jamba-v0.1-52b's, llava-next-mistral-7b's and whisper-base's prefill
+attention (whisper's encoder non-causal at a ragged 1500 keys), the scan
+at jamba's shape, the MoE block and deepseek-v3-671b's MLA layer against
+the same call on the CPU.  The FFT
 path, the llama3.2-1b serving and training paths (smoke config: prefill,
 the ``LPFServer`` loop, train steps) and the mamba2-130m serving path
 (smoke config) are driven through their entry points on the card; each
 bucket's decode step captured as a CUDA graph decodes the eager
 per-token path's tokens bit for bit (llama3.2-1b, mamba2-130m,
-gemma2-9b, granite-moe-3b-a800m and jamba-v0.1-52b smoke configs), a failed capture moves its bucket to the
+gemma2-9b, granite-moe-3b-a800m, jamba-v0.1-52b, llava-next-mistral-7b
+and deepseek-v3-671b smoke configs; whisper-base's with ``enc_out`` in
+the step's own buffer), a failed capture moves its bucket to the
 per-token path, and the pure-LPF ``ProgramDecodeEngine`` replays its
 captured loop body and equals its per-token fallback.  Every
 superstep method, every BSP collective and a small PageRank run on the
@@ -1162,7 +1166,9 @@ def test_pagerank_captured_loop_matches_eager_on_card(cuda):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-130m", "gemma2-9b",
-                                  "granite-moe-3b-a800m", "jamba-v0.1-52b"])
+                                  "granite-moe-3b-a800m", "jamba-v0.1-52b",
+                                  "llava-next-mistral-7b",
+                                  "deepseek-v3-671b"])
 def test_captured_decode_matches_eager_per_token(cuda, arch):
     """A bucket's step captured once and replayed once a token decodes the
     eager per-token path's tokens bit for bit: 12 tokens into an 8-slot
@@ -1213,11 +1219,12 @@ def test_failed_capture_moves_the_bucket_to_per_token(cuda, monkeypatch):
     want = eng.decode((2, 16), [r], 6)[0]
     real = train_step.decode_step
 
-    def reads_pos_on_host(params, token, caches, pos, cfg, rt):
+    def reads_pos_on_host(params, token, caches, pos, cfg, rt,
+                          enc_out=None):
         if isinstance(pos, torch.Tensor) and \
                 torch.cuda.is_current_stream_capturing():
             pos.item()                 # a host read: refused under capture
-        return real(params, token, caches, pos, cfg, rt)
+        return real(params, token, caches, pos, cfg, rt, enc_out)
 
     monkeypatch.setattr(train_step, "decode_step", reads_pos_on_host)
     eng._steps[(2, 16)].graph.graph = None          # capture again
@@ -1330,3 +1337,93 @@ def test_moe_block_on_card_matches_cpu(cuda, case):
     assert rel(got.cpu(), want) < 1e-5
     assert moe.expert_load(pd, x.to(cuda), mcfg)[0].cpu().tolist() == \
         moe.expert_load(p, x, mcfg)[0].tolist()
+
+
+# ---------------------------------------------------------------------------
+# the rest of the model stack: whisper-base, llava-next-mistral-7b and
+# deepseek-v3-671b's MLA
+# ---------------------------------------------------------------------------
+
+#: llava-next-mistral-7b's prefill attention (32 heads over 8, head dim
+#: 128, B 4 x S 2048, causal) and whisper-base's at its encoder's 1500
+#: frames (8 heads of 64, B 16; 1500 = 11 x 128 + 92): the encoder's
+#: non-causal attention and the decoder's causal one, bf16
+STACK_FLASH = [(4, 32, 8, 2048, 128, True, None, None, torch.bfloat16),
+               (16, 8, 8, 1500, 64, False, None, None, torch.bfloat16),
+               (16, 8, 8, 1500, 64, True, None, None, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window,softcap,dtype",
+                         STACK_FLASH, ids=["llava", "whisper-encoder",
+                                           "whisper-decoder"])
+def test_flash_kernel_matches_plain_version_at_stack_shapes(
+        cuda, B, H, Hkv, S, D, causal, window, softcap, dtype):
+    test_flash_kernel_matches_plain_version(cuda, B, H, Hkv, S, D, causal,
+                                            window, softcap, dtype)
+
+
+def test_captured_decode_with_enc_out_matches_eager(cuda):
+    """whisper-base (smoke): the captured step reads the encoder output
+    from its own buffer, into which every call copies it: 12 tokens into
+    an 8-slot cache and 5 more, bit-equal to the eager per-token path, one
+    capture; another encoder output changes the stream, a new shape
+    captures again."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_caches, load_params
+    from repro_torch.runtime.train_step import build_serve_buckets
+    cfg = get_config("whisper-base", smoke=True)
+    params = load_params(0, cfg)
+    ss = build_serve_buckets(cfg, [(4, 8)])[(4, 8)]
+    tok0 = torch.tensor([1, 5, 77, 300], device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    encs = [torch.randn(4, 20, 128, generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(2)]
+
+    def eager(n, enc):
+        caches = init_caches(cfg, 4, 8)
+        tok, want = tok0, []
+        for pos in range(n):
+            tok, caches = ss.step_fn(params, caches, tok, pos, enc)
+            want.append(tok)
+        return torch.stack(want)
+
+    outs = []
+    for n, enc in ((12, encs[0]), (5, encs[1])):
+        got, _ = ss.decode_fn(n)(params, tok0, 0, enc)
+        assert torch.equal(got, eager(n, enc)), n
+        outs.append(got)
+    assert (ss.graph.captures, ss.graph.replays) == (1, 17)
+    assert not torch.equal(outs[0][:5], outs[1])
+    got, _ = ss.decode_fn(3)(params, tok0, 0, encs[0][:, :12].contiguous())
+    assert torch.equal(got, eager(3, encs[0][:, :12]))
+    assert ss.graph.captures == 2
+
+
+def test_mla_layer_on_card_matches_cpu(cuda):
+    """deepseek-v3-671b's dense MLA layer (smoke widths) in f32 on the card
+    against the same call on the CPU, prefill and three absorbed decode
+    steps, within 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Runtime, blocks
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b", smoke=True),
+                              compute_dtype="float32")
+    bcfg = cfg.groups[0].blocks[0]
+    p = blocks.block_params(torch.Generator().manual_seed(5), bcfg, cfg,
+                            torch.float32, "cpu")
+    pd = {k: {n: t.to(cuda) for n, t in v.items()} for k, v in p.items()}
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 64, 128)).astype(np.float32))
+    pos = torch.arange(64)[None].expand(2, 64)
+    want = blocks.block_apply(p, x, bcfg, cfg, Runtime("cpu"), pos)
+    got = blocks.block_apply(pd, x.to(cuda), bcfg, cfg, Runtime(cuda),
+                             pos.to(cuda))
+    assert rel(got.cpu(), want) < 1e-5
+    c = blocks.block_init_cache(bcfg, cfg, 2, 8, torch.float32, "cpu")
+    cd = blocks.block_init_cache(bcfg, cfg, 2, 8, torch.float32, cuda)
+    for t in range(3):
+        w, _ = blocks.block_decode(p, x[:, t], c, bcfg, cfg, Runtime("cpu"),
+                                   t)
+        g, _ = blocks.block_decode(pd, x[:, t].to(cuda), cd, bcfg, cfg,
+                                   Runtime(cuda), torch.tensor(t, device=cuda))
+        assert rel(g.cpu(), w) < 1e-5, t
+    assert rel(cd["ckv"].cpu(), c["ckv"]) < 1e-5

@@ -73,6 +73,9 @@ def test_fresh_interpreter_loads_no_jax():
             "repro_torch.algorithms.pagerank"} <= set(PORT_MODULES)
     assert {"repro_torch.models.moe", "repro_torch.configs.granite_moe_3b",
             "repro_torch.configs.jamba_v01_52b"} <= set(PORT_MODULES)
+    assert {"repro_torch.configs.deepseek_v3_671b",
+            "repro_torch.configs.llava_next_mistral_7b",
+            "repro_torch.configs.whisper_base"} <= set(PORT_MODULES)
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import get_config as jax_get_config
 from repro.models import Runtime as JaxRuntime
 from repro.models import common as jax_common
@@ -80,14 +81,16 @@ def test_config_matches_jax(smoke):
         dataclasses.asdict(jax_get_config(ARCH, smoke=smoke))
 
 
-def test_other_archs_refused_until_ported():
-    with pytest.raises(KeyError, match="A8"):
-        get_config("deepseek-v3-671b")
-    cfg = dataclasses.replace(
-        get_config(ARCH, smoke=True),
-        groups=(Group("body", (BlockCfg("mla", "dense"),), 1),))
-    with pytest.raises(LPFFatalError, match="ROADMAP A8"):
-        init_params(0, cfg, device="cpu")
+@pytest.mark.parametrize("arch", JAX_ARCHS)
+def test_every_jax_arch_resolves_in_the_port(arch):
+    """Every architecture of the JAX registry resolves here, smoke and
+    full, with the JAX config field for field, and its smoke model
+    builds (the MLA, encoder, vision and MTP blocks included)."""
+    for smoke in (True, False):
+        assert dataclasses.asdict(get_config(arch, smoke=smoke)) == \
+            dataclasses.asdict(jax_get_config(arch, smoke=smoke))
+    params = init_params(0, get_config(arch, smoke=True), device="meta")
+    assert sum(p.numel() for p in params.parameters()) > 0
 
 
 def test_params_round_trip_exactly(jax_tree, port_params):

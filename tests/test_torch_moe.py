@@ -54,7 +54,7 @@ from repro.models.moe import moe_params as jax_moe_params
 from repro.optim import AdamWConfig as JaxAdamWConfig
 from repro.optim import adamw_init as jax_adamw_init
 from repro.runtime.train_step import build_train_step as jax_build_train_step
-from repro_torch.configs import ARCHS, NOT_PORTED, get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import LPFFatalError
 from repro_torch.data import DataConfig, SyntheticStream
 from repro_torch.interop import (opt_state_from_jax, params_from_jax,
@@ -162,7 +162,7 @@ def tokens(seed, B, S, vocab=512):
 @pytest.mark.parametrize("smoke", [True, False])
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_config_matches_jax(arch, smoke):
-    assert arch in ARCHS and arch not in NOT_PORTED
+    assert arch in ARCHS
     assert dataclasses.asdict(get_config(arch, smoke=smoke)) == \
         dataclasses.asdict(jax_get_config(arch, smoke=smoke))
     assert dataclasses.asdict(get_config(arch, ep_degree=1)) == \
@@ -261,14 +261,34 @@ def test_load_params_equals_cast_of_init(arch):
     assert routers and all(got[n].dtype == torch.bfloat16 for n in routers)
 
 
-def test_other_blocks_still_refused():
-    with pytest.raises(KeyError, match="A8"):
-        get_config("whisper-base")
-    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m", smoke=True),
-                              groups=(Group("body", (BlockCfg(
-                                  "attn", "moe", cross_attn=True),), 1),))
-    with pytest.raises(LPFFatalError, match="A8"):
-        init_params(0, cfg, device="cpu")
+@pytest.mark.parametrize("block", [
+    BlockCfg("attn", "moe", cross_attn=True), BlockCfg("mla", "moe")],
+    ids=["cross_attn", "mla"])
+def test_moe_with_other_mixers_matches_jax(block):
+    """An MoE block behind cross-attention or MLA (the mixers that used to
+    be refused) builds as the JAX package's does and its block apply
+    matches the JAX package's in f32."""
+    jcfg, cfg = configs("granite-moe-3b-a800m", compute_dtype="float32")
+    mla = get_config("deepseek-v3-671b", smoke=True).mla
+    kw = dict(groups=(Group("body", (block,), 1),), mla=mla)
+    jcfg = dataclasses.replace(jcfg, **kw)
+    cfg = dataclasses.replace(cfg, **kw)
+    jp = jax.tree.map(np.asarray, jax_block_params(
+        jax.random.PRNGKey(3), block, jcfg, jnp.float32))
+    tp = params_from_jax(jp, device="cpu").tree()
+    mine = blocks.block_params(torch.Generator().manual_seed(0), block,
+                               cfg, torch.float32, "cpu")
+    assert flat(mine).keys() == flat(tp).keys()
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 16, 128)).astype(np.float32)
+    enc = rng.standard_normal((2, 16, 128)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(16), (2, 16))
+    want = jax_block_apply(jp, jnp.asarray(x), block, jcfg, JaxRuntime(),
+                           jnp.asarray(pos), jnp.asarray(enc))
+    got = blocks.block_apply(tp, torch.from_numpy(x), block, cfg, CPU,
+                             torch.from_numpy(pos.copy()),
+                             torch.from_numpy(enc))
+    assert rel(got, want) < MOE_F32_BAR * 10
 
 
 def test_moe_apply_needs_a_mesh():
