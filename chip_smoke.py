@@ -71,7 +71,8 @@ bf16) adds, between phases 6 and 7:
     classified, every completed stream bit-identical to a solo re-decode
     on the captured path and to one on the per-token path (one eager step
     a token); ms per token of each bucket on each path (a full batch of
-    64 tokens, the median of 3 calls, the two paths' streams equal),
+    64 tokens, the median of 3 calls captured and one call per token,
+    the two paths' streams equal),
     beside each engine's admission price, and tokens/s (``serve_paths``);
 (f) last, ``torch.profiler`` over one prefill, one eager decode step and
     one replay of the captured step: device time by kernel family,
@@ -334,7 +335,35 @@ tile masked by length alone) and its decoder's, causal:
     the MTP head's finite, the capacity drops, host ms and tokens/s; 64
     teacher-forced steps of the absorbed decode against the decompressed
     prefill at ``raised_capacity``; serving as in (e); one eager against
-    one captured step.
+    one captured step;
+(z) granite-moe-3b-a800m training at full width (``one_card_config``:
+    ``ep_degree=1``; f32 masters, bf16 compute, AdamW, ``remat="full"``,
+    flash attention at its GQA group of 3), ``GRANITE_TRAIN_STEPS`` steps
+    at B ``GRANITE_TRAIN_B`` x S 2048 with the counts set to 0 just
+    before: 64 forward, 32 dK/dV and 32 dQ launches a step, every loss
+    finite, the step-0 loss within 1e-2 of ``attn_impl="reference"`` on
+    the same batch; the step ms, the peak memory and step 0's MoE drop
+    share; the B 1 gradients against reference attention with every
+    expert routed (a bf16 top-k flips near-tie tokens) under (h)'s bars;
+    the steps donate their state (AdamW in place), so 52.8 GB of f32
+    state is held once;
+(aa) the paper's main path warm-starting from disk: ``bsp_fft`` at N =
+    2^24, p = 8, ``use_kernel=True`` in a context with ``persist_dir`` a
+    fresh directory, then with new plan and program caches on the same
+    directory: output bit-equal, equal ledger, every stored program a
+    disk hit certified again, no program- or plan-cache miss; cold and
+    warm ms to the first flush; then ``scripts/warm_start.py --device
+    cuda`` (its recording and its warm child processes);
+(ab) fault plans on the card: ``python -m repro_torch.runtime.faults
+    --smoke`` and ``--chaos --seeds 16`` (``--device cuda``), every run
+    ``identical`` or ``classified``; a child process of (aa)'s
+    ``bsp_fft`` under ``LPF_FAULT_PLAN="compile@0;straggler@1=0.005"``
+    (bit-equal output and ledger, the program quarantined to the
+    dispatched path) and one under ``persist_load@0:bitflip`` over (aa)'s
+    store (``invalidated`` >= 1, bit-equal);
+(ac) ``python -m repro_torch.analysis`` on the port's machine (exit 0),
+    then ``--record-cache`` and ``--cache-dir`` on one directory (exit 0,
+    every entry verified).
 """
 
 from __future__ import annotations
@@ -372,7 +401,9 @@ PREFILL_B, PREFILL_S = 4, 2048          # the serving path's prefill
 TEACHER_S, ROLL_S, ROLL_C = 64, 96, 64  # phase (d) prompts and cache
 SERVE_BUCKETS = [(2, 256), (4, 256)]
 # serve_paths' ms per token: full-batch decodes of DECODE_TOKENS tokens,
-# the median of DECODE_CALLS calls on each path
+# the median of DECODE_CALLS calls on the captured path and one call on
+# the per-token path (whose repeats took ~200 s of the script on a slow
+# host: one eager step a token, 9 models, 2 buckets)
 DECODE_TOKENS, DECODE_CALLS = 64, 3
 # the JAX kernel tests' sweep (tests/test_kernels.py), then the prefill's
 # main shape; B, H, Hkv, S, D, causal, window, softcap, dtype
@@ -464,8 +495,8 @@ DENSE_PREFILL_BAR = 5e-2
 # width kept), to keep the whole script inside its time limit: gemma2-9b
 # to GEMMA_LAYERS of 42 (whole local/global pairs), qwen3-14b to
 # QWEN3_LAYERS of 40
-GEMMA_ARCH, GEMMA_B, GEMMA_S, GEMMA_LAYERS = "gemma2-9b", 1, 8192, 10
-QWEN3_ARCH, QWEN3_B, QWEN3_S, QWEN3_LAYERS = "qwen3-14b", 4, 2048, 10
+GEMMA_ARCH, GEMMA_B, GEMMA_S, GEMMA_LAYERS = "gemma2-9b", 1, 8192, 4
+QWEN3_ARCH, QWEN3_B, QWEN3_S, QWEN3_LAYERS = "qwen3-14b", 4, 2048, 4
 QWEN110_ARCH, QWEN110_B, QWEN110_S, QWEN110_LAYERS = "qwen1.5-110b", 1, \
     2048, 2
 # the MoE configs (u)-(v): granite-moe-3b-a800m whole (32 layers, 40
@@ -477,6 +508,12 @@ QWEN110_ARCH, QWEN110_B, QWEN110_S, QWEN110_LAYERS = "qwen1.5-110b", 1, \
 GRANITE_ARCH, GRANITE_B, GRANITE_S, MOE_LAYER_S = "granite-moe-3b-a800m", \
     4, 2048, 512
 JAMBA_ARCH, JAMBA_B, JAMBA_S, JAMBA_PERIODS = "jamba-v0.1-52b", 1, 8192, 1
+# (z) granite-moe-3b-a800m training at S TRAIN_S: 3.30 B parameters, so
+# 52.8 GB of f32 masters, gradients and AdamW moments before activations
+# (its steps donate their state: one copy of it).  A step's peak on an
+# NVIDIA H100 80GB HBM3 (700 W) is 56.9 GB at B 2 and 4 and 58.7 GB at B
+# 8, where the allocator reserves 80.2 GB; B 4 keeps the script in time
+GRANITE_TRAIN_B, GRANITE_TRAIN_STEPS = 4, 4
 # one MoE layer on the card against the same call on the CPU, in f32
 MOE_LAYER_BAR = 1e-5
 # their attention in (b): granite's 24 heads over 8 (group 3, head dim
@@ -857,48 +894,67 @@ def train_phases(dev, arch: str = ARCH) -> dict:
     against reference attention; (t) mamba2-130m's, the ``ssd_scan``
     kernel against the chunked path (``chunked_mamba``), whose own
     spread (the chunked path at chunk 64 against 128, the same algebra
-    summed in another order) widens the B 1 gradient bars as in (k)."""
+    summed in another order) widens the B 1 gradient bars as in (k);
+    (z) granite-moe-3b-a800m's at ``one_card_config`` (``ep_degree=1``,
+    flash against reference attention, B ``GRANITE_TRAIN_B``), its steps
+    donating their state (AdamW in place: 52.8 GB of f32 state fits the
+    card once, not twice), with the MoE drop share of step 0's batch, and
+    neither the step profile nor the loss witness; its B 1 gradients
+    compare with every expert routed (a bf16 top-k flips near-tie tokens
+    between flash and reference attention)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticStream
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import one_card_config
     from repro_torch.models import count_params, loss_fn, model_flops
     from repro_torch.optim import AdamWConfig, global_norm, warmup_cosine
     from repro_torch.runtime.train_loop import TrainLoopConfig, train_loop
     from repro_torch.runtime.train_step import build_train_step
 
-    mamba = arch == MAMBA_ARCH
+    mamba, moe = arch == MAMBA_ARCH, arch == GRANITE_ARCH
+    B, steps = (GRANITE_TRAIN_B, GRANITE_TRAIN_STEPS) if moe else \
+        (TRAIN_B, TRAIN_STEPS)
     if mamba:
         label, cfg = "mamba2 train", get_config(arch)
         ref_cfg, reference = cfg, chunked_mamba
         ranges = (ssd_ops.VJP_RANGE,)
     else:
-        label = "train"
-        cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+        label = "granite train" if moe else "train"
+        base = one_card_config(arch, smoke=False) if moe else \
+            get_config(arch)
+        cfg = dataclasses.replace(base, attn_impl="flash")
         ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
         reference, ranges = contextlib.nullcontext, ()
     check(cfg.remat == "full" and cfg.param_dtype == "float32"
           and cfg.compute_dtype == "bfloat16", "training config")
     ts = build_train_step(cfg, opt_cfg=AdamWConfig(
-        lr=warmup_cosine(3e-3, 10, TRAIN_STEPS)), device=dev)
+        lr=warmup_cosine(3e-3, 10, steps)), donate=moe, device=dev)
     stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
-                                        global_batch=TRAIN_B, seed=0))
+                                        global_batch=B, seed=0))
     out = {}
 
     # the reference's loss of step 0's batch at the initial weights
     # (train_loop starts from the same seed-0 parameters), and the kernel
     # model's loss at those weights on each step's batch, the baseline
-    # that says how much of a step's loss is its batch
+    # that says how much of a step's loss is its batch (the witness's);
+    # for the MoE model the capacity drops of step 0's batch
     params = ts.init_fn(0)[0]
     b0 = {k: torch.from_numpy(v).to(dev) for k, v in stream.batch(0).items()}
     with torch.no_grad():
         with reference():
             ref_loss0 = loss_fn(params, b0, ref_cfg, ts.rt).item()
-        init_losses = [loss_fn(params, {
+        init_losses = [] if moe else [loss_fn(params, {
             k: torch.from_numpy(v).to(dev)
             for k, v in stream.batch(i).items()}, cfg, ts.rt).item()
-            for i in range(TRAIN_STEPS)]
+            for i in range(steps)]
+        if moe:
+            drops = moe_drops(params, b0, cfg, ts.rt)
+            drops["share"] = drops["dropped"] / drops["routed"]
+            out["moe_drops_step0"] = drops
+            print(f"{label} step-0 MoE drops " + json.dumps(drops),
+                  flush=True)
     del params
     torch.cuda.empty_cache()
 
@@ -906,7 +962,7 @@ def train_phases(dev, arch: str = ARCH) -> dict:
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = train_loop(ts, stream, TrainLoopConfig(steps=TRAIN_STEPS),
+    res = train_loop(ts, stream, TrainLoopConfig(steps=steps),
                      on_step=lambda step, loss, v: print(
                          f"{label} step {step}: loss {loss:.5f} "
                          f"{v.duration * 1e3:.2f} ms", flush=True))
@@ -917,11 +973,11 @@ def train_phases(dev, arch: str = ARCH) -> dict:
     losses = res["losses"]
     step_ms = statistics.median(
         v.duration * 1e3 for v in list(res["monitor"])[TRAIN_WARMUP:])
-    tokens = TRAIN_B * TRAIN_S
+    tokens = B * TRAIN_S
     # remat="full": each step runs the forward twice (the recompute)
     per_step = expected_counts(cfg, forward_calls=2, backward=True)
     out["train"] = dict(
-        arch=arch, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
+        arch=arch, batch=B, seq=TRAIN_S, steps=steps,
         n_params=count_params(cfg), losses=losses,
         ref_loss0=ref_loss0,
         loss0_rel_vs_reference=abs(losses[0] - ref_loss0) / abs(ref_loss0),
@@ -929,16 +985,27 @@ def train_phases(dev, arch: str = ARCH) -> dict:
         step_ms_all=[v.duration * 1e3 for v in res["monitor"]],
         tokens_per_s=tokens / (step_ms * 1e-3),
         model_tflops=model_flops(cfg, tokens) / (step_ms * 1e-3) / 1e12,
-        peak_mem_gb=peak / 1e9, loop_wall_s=wall_s)
+        peak_mem_gb=peak / 1e9, loop_wall_s=wall_s, donated=moe)
     print(f"{label} " + json.dumps(out["train"]), flush=True)
-    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
           f"{label} losses {losses}")
     check(out["train"]["loss0_rel_vs_reference"] < 1e-2,
           f"{label} step-0 loss {losses[0]} vs the reference {ref_loss0}")
     for name, n in per_step.items():
-        check(launches[name] == n * TRAIN_STEPS,
-              f"{label} {name}: {launches[name]} launches in {TRAIN_STEPS} "
+        check(launches[name] == n * steps,
+              f"{label} {name}: {launches[name]} launches in {steps} "
               f"steps, not {n} per step")
+
+    if moe:
+        del res
+        torch.cuda.empty_cache()
+        # every expert routed at B 1: no top-k flip between the two
+        # attentions, so every leaf compares
+        dense = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, top_k=cfg.moe.n_experts))
+        out["grads_b1"] = grads_b1(label, ts, b0, dense, dataclasses.replace(
+            dense, attn_impl="reference"), reference, GRAD_BARS)
+        return out
 
     # the profile of one more step, last ----------------------------------
     params, opt = res["params"], res["opt"]
@@ -958,40 +1025,9 @@ def train_phases(dev, arch: str = ARCH) -> dict:
     torch.cuda.empty_cache()
 
     # the kernel model's gradients against the reference's at B 1 ----------
-    params = ts.init_fn(0)[0]
-    b1 = {k: v[:1] for k, v in b0.items()}
-    names = [n for n, _ in params.named_parameters()]
-
-    def grads_of(c, ctx):
-        with ctx():
-            loss = loss_fn(params, b1, c, ts.rt)
-            return dict(zip(names, torch.autograd.grad(
-                loss, list(params.parameters()))))
-
-    def compare(g_a, g_b):
-        leaf = {n: rel_err(g_a[n], g_b[n]) for n in g_a}
-        n_a, n_b = global_norm(g_a).item(), global_norm(g_b).item()
-        worst = max(leaf, key=leaf.get)
-        return dict(worst_leaf=worst, leaf=leaf[worst], norm_kernel=n_a,
-                    norm_reference=n_b, norm=abs(n_a - n_b) / n_b,
-                    diff=global_norm({n: g_a[n] - g_b[n] for n in g_a})
-                    .item() / n_b)
-
-    g_r = grads_of(ref_cfg, reference)
-    cmp = compare(grads_of(cfg, contextlib.nullcontext), g_r)
-    bars = dict(GRAD_BARS)
-    if mamba:
-        spread = compare(grads_of(cfg, lambda: chunked_mamba(64)), g_r)
-        cmp["chunked_64_vs_128"] = spread
-        bars = {k: max(v, 2 * spread[k]) for k, v in GRAD_BARS.items()}
-    cmp["bars"] = bars
-    out["grads_b1"] = cmp
-    print(f"{label} grads B1 kernel vs reference " + json.dumps(cmp),
-          flush=True)
-    check(all(cmp[k] < bars[k] for k in bars),
-          f"{label} B1 gradients kernel vs reference: {cmp}")
-    del params, g_r
-    torch.cuda.empty_cache()
+    out["grads_b1"] = grads_b1(
+        label, ts, b0, cfg, ref_cfg, reference, GRAD_BARS,
+        spread=(lambda: chunked_mamba(64)) if mamba else None)
 
     # what makes the loss rise under the 3e-3 peak: the kernel and the
     # reference model from the same weights under the same schedule at
@@ -1026,6 +1062,52 @@ def train_phases(dev, arch: str = ARCH) -> dict:
           f"{label}: the kernel model's loss under a 3e-4 peak {low} did "
           f"not fall below the initial weights' {init_losses}")
     return out
+
+
+def grads_b1(label: str, ts, b0, cfg, ref_cfg, reference, bars,
+             spread=None) -> dict:
+    """The kernel model's gradients against the reference's at B 1 from
+    the seed-0 weights: the worst leaf's relative error, the global norms'
+    and the difference's norm, each under its bar.  ``spread`` (a context
+    for a second reference run) widens the bars to twice that run's
+    reading."""
+    import torch
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import global_norm
+    params = ts.init_fn(0)[0]
+    b1 = {k: v[:1] for k, v in b0.items()}
+    names = [n for n, _ in params.named_parameters()]
+
+    def grads_of(c, ctx):
+        with ctx():
+            loss = loss_fn(params, b1, c, ts.rt)
+            return dict(zip(names, torch.autograd.grad(
+                loss, list(params.parameters()))))
+
+    def compare(g_a, g_b):
+        leaf = {n: rel_err(g_a[n], g_b[n]) for n in g_a}
+        n_a, n_b = global_norm(g_a).item(), global_norm(g_b).item()
+        worst = max(leaf, key=leaf.get)
+        return dict(worst_leaf=worst, leaf=leaf[worst], norm_kernel=n_a,
+                    norm_reference=n_b, norm=abs(n_a - n_b) / n_b,
+                    diff=global_norm({n: g_a[n] - g_b[n] for n in g_a})
+                    .item() / n_b)
+
+    g_r = grads_of(ref_cfg, reference)
+    cmp = compare(grads_of(cfg, contextlib.nullcontext), g_r)
+    bars = dict(bars)
+    if spread is not None:
+        wide = compare(grads_of(cfg, spread), g_r)
+        cmp["chunked_64_vs_128"] = wide
+        bars = {k: max(v, 2 * wide[k]) for k, v in bars.items()}
+    cmp["bars"] = bars
+    print(f"{label} grads B1 kernel vs reference " + json.dumps(cmp),
+          flush=True)
+    check(all(cmp[k] < bars[k] for k in bars),
+          f"{label} B1 gradients kernel vs reference: {cmp}")
+    del params, g_r
+    torch.cuda.empty_cache()
+    return cmp
 
 
 def step_memory(ts, params, opt, batch) -> dict:
@@ -1617,9 +1699,9 @@ def mamba_phases(rng, dev) -> dict:
     return out
 
 
-def timed_decode(eng, bucket) -> tuple:
+def timed_decode(eng, bucket, calls: int = DECODE_CALLS) -> tuple:
     """Host ms per token of a full-batch ``DECODE_TOKENS``-token decode of
-    ``bucket`` through ``eng``: the median of ``DECODE_CALLS`` calls (each
+    ``bucket`` through ``eng``: the median of ``calls`` calls (each
     waiting for its tokens) and each call's, and the streams of the last
     call."""
     from repro_torch.runtime.server import ServeRequest
@@ -1627,7 +1709,7 @@ def timed_decode(eng, bucket) -> tuple:
     reqs = [ServeRequest(rid=i, n_tokens=n, deadline_s=1.0, seed=1000 + i)
             for i in range(bucket[0])]
     ts = []
-    for _ in range(DECODE_CALLS):
+    for _ in range(calls):
         t0 = time.perf_counter()
         streams = eng.decode(bucket, reqs, n)
         ts.append(time.perf_counter() - t0)
@@ -1641,7 +1723,8 @@ def serve_paths(label: str, cfg, params, dev, buckets=SERVE_BUCKETS):
     replayed once a token), and beside it one whose buckets are all
     quarantined (one eager step a token).  Each bucket's ms per token on
     each path is ``timed_decode``'s (a full batch, ``DECODE_TOKENS``
-    tokens, the median of ``DECODE_CALLS`` calls), whose streams must be
+    tokens; the median of ``DECODE_CALLS`` calls captured, one call per
+    token), whose streams must be
     the same on both paths; each engine's admission price (the slope and
     intercept its warm-up calibration fits) is printed beside it.
     8 ``synthetic_requests`` (seed 0, at most 32 tokens) through the
@@ -1659,7 +1742,7 @@ def serve_paths(label: str, cfg, params, dev, buckets=SERVE_BUCKETS):
     ms = {}
     for b in eng.buckets():
         cap_ms, cap_calls, cap = timed_decode(eng, b)
-        pt_ms, pt_calls, pt = timed_decode(per_token, b)
+        pt_ms, pt_calls, pt = timed_decode(per_token, b, calls=1)
         check(cap == pt, f"{label} bucket {b}: the captured {DECODE_TOKENS}"
                          f"-token decode differs from the per-token one")
         ms[str(b)] = dict(
@@ -2255,6 +2338,176 @@ def deepseek_phase(dev) -> dict:
     del params, eng
     torch.cuda.empty_cache()
     return res
+
+
+def warm_start_script():
+    """``scripts/warm_start.py`` as a module: the bsp_fft workload, its
+    input and the child processes of (aa)-(ab)."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import warm_start
+    return warm_start
+
+
+def store_phase(dev) -> dict:
+    """(aa) the paper's main path warm-starting from disk: ``bsp_fft`` at
+    N = 2^24, p = 8 through ``fft_planes``, first in a context with a new
+    ``PlanCache`` and ``ProgramCache`` and ``persist_dir`` a fresh
+    directory, then again with new caches on the same directory: the
+    second run's output bit-equal (SHA-256 of its bytes), its ledger equal,
+    every program a disk hit certified again before it replays, no program
+    or plan cache miss (no schedule search, no re-plan); cold and warm ms
+    to the end of the first flush.  Then ``scripts/warm_start.py`` as its
+    two child processes on the card."""
+    import tempfile
+    from repro_torch import core as lpf
+    ws = warm_start_script()
+    store = tempfile.mkdtemp(prefix="lpf_fft_store_")
+    runs = {}
+    for name in ("cold", "warm"):
+        runs[name] = ws.run_workload(
+            "bsp_fft", dev, N_MAIN.bit_length() - 1,
+            plan_cache=lpf.PlanCache(), program_cache=lpf.ProgramCache(),
+            persist_dir=store)
+        print(f"store {name} " + json.dumps(
+            {k: v for k, v in runs[name].items() if k != "ledger"}),
+            flush=True)
+    cold, warm = runs["cold"], runs["warm"]
+    check(cold["device"].startswith(str(dev)) and cold["program_misses"]
+          == cold["programs"] >= 1 and cold["program_disk_hits"] == 0,
+          f"store: the cold run searched {cold['program_misses']} of "
+          f"{cold['programs']} programs")
+    check(warm["program_misses"] == 0 and warm["plan_misses"] == 0,
+          f"store: the warm run searched {warm['program_misses']} programs "
+          f"and planned {warm['plan_misses']} supersteps")
+    check(warm["program_disk_hits"] == warm["programs"] == cold["programs"]
+          and warm["certified"] == warm["programs"]
+          and warm["program_invalidated"] == 0,
+          f"store: {warm['program_disk_hits']} disk hits, "
+          f"{warm['certified']} certified of {warm['programs']} programs")
+    check(warm["digest"] == cold["digest"] and warm["ledger"]
+          == cold["ledger"], "store: the warm run's output or ledger "
+          "differs from the cold run's")
+    out = dict(cold_first_flush_ms=cold["first_flush_ms"],
+               warm_first_flush_ms=warm["first_flush_ms"],
+               cold_wall_ms=cold["wall_ms"], warm_wall_ms=warm["wall_ms"],
+               programs=warm["programs"], flushes=len(warm["ledger"]),
+               disk_hits=warm["program_disk_hits"], store=store,
+               digest=cold["digest"], ledger=cold["ledger"])
+    print(f"bsp_fft from the store: cold {cold['first_flush_ms']:.3f} ms, "
+          f"warm {warm['first_flush_ms']:.3f} ms to the first flush",
+          flush=True)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.join(
+        HERE, "scripts", "warm_start.py"), "--device", str(dev)],
+        capture_output=True, text=True, timeout=300)
+    print(res.stdout + res.stderr, flush=True)
+    check(res.returncode == 0, f"scripts/warm_start.py exited "
+          f"{res.returncode}")
+    line = [x for x in res.stdout.splitlines()
+            if x.startswith("warm_start {")][-1]
+    out["script"] = json.loads(line.split(" ", 1)[1])
+    out["script"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def fault_phase(dev, store: dict) -> dict:
+    """(ab) fault plans on the card: ``python -m repro_torch.runtime.faults
+    --smoke --device cuda`` (its ``chaos_main``, in this process: each of
+    the 15 ``SMOKE_PLANS`` must end ``identical`` or ``classified``) and
+    ``--chaos --seeds 16``; then two child processes of (aa)'s bsp_fft at
+    once: ``LPF_FAULT_PLAN="compile@0;straggler@1=0.005"`` on a fresh
+    store (output and ledger bit-equal to (aa)'s, ``compile_fallbacks`` >=
+    1, the program quarantined to the dispatched path, both faults fired)
+    and ``persist_load@0:bitflip`` over (aa)'s store (``invalidated`` >=
+    1, the same output and ledger)."""
+    import io
+    import tempfile
+    from repro_torch.runtime import faults
+    import shutil
+    out = {}
+    for mode, argv in (("smoke", ["--smoke"]),
+                       ("chaos", ["--chaos", "--seeds", "16"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = faults.chaos_main(argv + ["--device", str(dev)])
+        text = buf.getvalue()
+        print(text, flush=True)
+        tally = json.loads(text.rsplit("chaos summary: ", 1)[1]
+                           .splitlines()[0].replace("'", '"'))
+        out[mode] = tally
+        check(rc == 0 and set(tally) <= {"identical", "classified"},
+              f"faults --{mode}: exit {rc}, verdicts {tally}")
+    check(sum(out["smoke"].values()) == len(faults.SMOKE_PLANS),
+          f"faults --smoke ran {out['smoke']}")
+    check(faults.active() is None, "a fault plan stayed armed")
+    ws = warm_start_script()
+    log2n = N_MAIN.bit_length() - 1
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {"compile_straggler": ("compile@0;straggler@1=0.005",
+                                      os.path.join(tmp, "store")),
+                "load_bitflip": ("persist_load@0:bitflip", store["store"])}
+        procs = {}
+        for name, (plan, cache_dir) in jobs.items():
+            env = dict(os.environ, LPF_PROGRAM_CACHE_DIR=cache_dir,
+                       LPF_FAULT_PLAN=plan)
+            procs[name] = subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "scripts",
+                                              "warm_start.py"),
+                 "--phase", "run", "--workload", "bsp_fft", "--log2n",
+                 str(log2n), "--device", str(dev), "--out",
+                 os.path.join(tmp, f"{name}.json")], env=env)
+        for name, proc in procs.items():
+            check(proc.wait(timeout=300) == 0, f"fault child {name} "
+                  f"exited {proc.returncode}")
+            with open(os.path.join(tmp, f"{name}.json")) as fh:
+                out[name] = json.load(fh)
+    for name in jobs:
+        r = out[name]
+        print(f"fault child {name} " + json.dumps(
+            {k: v for k, v in r.items() if k != "ledger"}), flush=True)
+        check(r["digest"] == store["digest"] and r["ledger"]
+              == store["ledger"], f"fault child {name}: output or ledger "
+              f"differs from the unfaulted run's")
+        del r["ledger"]
+    cs, lb = out["compile_straggler"], out["load_bitflip"]
+    check(cs["compile_fallbacks"] >= 1 and cs["quarantined"] >= 1
+          and ["compile", 0, "default"] in cs["faults_fired"]
+          and ["straggler", 1, "default"] in cs["faults_fired"],
+          f"compile/straggler child: {cs}")
+    check(lb["program_invalidated"] >= 1
+          and ["persist_load", 0, "bitflip"] in lb["faults_fired"],
+          f"bitflip child: {lb}")
+    shutil.rmtree(store["store"])
+    return out
+
+
+def analysis_phase() -> dict:
+    """(ac) the analysis CLI on the port's machine (the ``"vp"`` link of 8
+    processes on one H100): ``python -m repro_torch.analysis`` (its
+    ``main``, in this process: every canned trace lints, optimizes and
+    verifies), then ``--record-cache`` and ``--cache-dir`` on one
+    directory: exit 0 each, every entry verified."""
+    import io
+    import tempfile
+    from repro_torch.analysis.__main__ import main as analysis_main
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in (("lint_verify", []),
+                           ("record", ["--record-cache", tmp]),
+                           ("audit", ["--cache-dir", tmp])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = analysis_main(argv)
+            print(buf.getvalue(), flush=True)
+            out[name] = rc
+            check(rc == 0, f"python -m repro_torch.analysis {argv}: exit "
+                           f"{rc}")
+        audit = re.search(r"cache audit: (\d+) entries, (\d+) verified",
+                          buf.getvalue())
+        check(audit is not None and audit.group(1) == audit.group(2)
+              != "0", f"cache audit: {audit and audit.group(0)}")
+        out["entries"] = int(audit.group(1))
+    return out
 
 
 def program_engine_phase(fit: dict) -> dict:
@@ -3250,6 +3503,20 @@ def main() -> int:
     stack[DEEPSEEK_ARCH] = deepseek_phase(dev)
     done("y")
 
+    # (z) granite-moe-3b-a800m training (this slice's kernel path), (aa)
+    # bsp_fft from the persistent store, (ab) fault plans, (ac) the
+    # analysis CLI (this slice's main path) -----------------------------------
+    granite_train = train_phases(dev, GRANITE_ARCH)
+    done("z")
+    store = store_phase(dev)
+    persisted = dict(store=store, faults=fault_phase(dev, store),
+                     analysis=analysis_phase())
+    print("store and faults " + json.dumps(
+        {k: v for k, v in persisted.items() if k != "store"}
+        | {"store": {k: v for k, v in store.items() if k != "ledger"}}),
+        flush=True)
+    done("aa-ac")
+
     # 7. result lines ----------------------------------------------------------
     big = [r for r in rows if r["n"] == N_MAIN // P_MAIN and not r["inverse"]][0]
     bound_ms, bound_by = fft_bound_ms(big["batch"], big["n"])
@@ -3284,7 +3551,9 @@ def main() -> int:
         **{f"{arch} prefill": stack[arch]["prefill"]["flash_launches"]
            for arch in (LLAVA_ARCH, WHISPER_ARCH)},
         f"{DEEPSEEK_ARCH} forward (blocked MLA)": stack[DEEPSEEK_ARCH][
-            "forward"]["launches"]["flash_attention_fwd"]}
+            "forward"]["launches"]["flash_attention_fwd"],
+        f"{GRANITE_ARCH} training, {GRANITE_TRAIN_STEPS} steps (z)":
+            granite_train["train"]["launches"]["flash_attention_fwd"]}
     ssd_launches = {
         "mamba2-130m prefill (k)": mamba["prefill"]["ssd_launches"],
         f"mamba2-130m training, {TRAIN_STEPS} steps (t)":
@@ -3322,6 +3591,11 @@ def main() -> int:
             source="src/repro_torch/csrc/flash_attention_bwd.cu",
             replaces=f"src/repro/kernels/flash_attention/kernel.py:{line}",
             launches=train_launches[name],
+            launches_by_path={
+                f"llama3.2-1b training, {TRAIN_STEPS} steps (h)":
+                    train_launches[name],
+                f"{GRANITE_ARCH} training, {GRANITE_TRAIN_STEPS} steps (z)":
+                    granite_train["train"]["launches"][name]},
             max_abs_err=max(main_bwd["max_abs_err"][g] for g in grads),
             ms=main_bwd["ms"][name], plain_ms=main_bwd["plain_ms"],
             bound_ms=main_bwd["bound"][name][0],

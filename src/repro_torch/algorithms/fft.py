@@ -150,13 +150,14 @@ def bsp_fft(x, *, p: int = 8, ordered: bool = True,
             use_kernel: bool = False, inverse: bool = False,
             attrs: SyncAttributes = LPF_SYNC_DEFAULT,
             return_ledger: bool = False, device="cuda",
-            hardware: HardwareModel = H100_SXM):
+            hardware: HardwareModel = H100_SXM, **caches):
     """Whole-vector entry point: ``lpf_exec`` the immortal FFT over ``p``
     virtual processes on ``device`` (the card unless the caller asks for
     the CPU).  ``x`` (a tensor or numpy array of length n) is laid out
     cyclically, the SPMD FFT runs, and the naturally-ordered result is
     returned as a 1-D tensor on the device.  A real input is cast to
-    complex64."""
+    complex64.  ``caches`` (``plan_cache``, ``program_cache``,
+    ``persist_dir``) go to :func:`~repro_torch.core.exec_`."""
     x = torch.as_tensor(x)
     if not x.is_complex():
         x = x.to(torch.complex64)
@@ -169,7 +170,7 @@ def bsp_fft(x, *, p: int = 8, ordered: bool = True,
                             inverse=inverse)
 
     out = exec_(p, spmd, xc, device=device, hardware=hardware,
-                return_ledger=return_ledger)
+                return_ledger=return_ledger, **caches)
     if return_ledger:
         out, ledger = out
     y = out.reshape(-1)

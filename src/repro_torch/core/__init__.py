@@ -29,6 +29,7 @@ from .errors import (LPF_ERR_FATAL, LPF_ERR_OUT_OF_MEMORY,
 from .faultpoints import InjectedFault
 from .machine import H100_SXM, HardwareModel, LinkModel, LPFMachine, probe
 from .memslot import Slot, SlotRegistry, replicate
+from .persist import PersistentStore, PersistError, steps_from_signature
 from .program import (CompiledProgram, OptimizedStep, ProgramCache,
                       ProgramStep, SuperstepProgram, canonical_order,
                       compile_program, dependency_cone,
@@ -63,4 +64,5 @@ __all__ = [
     "CompiledProgram", "compile_program", "trace_slot_map",
     "program_signature", "optimize_program", "global_program_cache",
     "simulate_program", "ValueStore", "execute_schedule",
+    "PersistentStore", "PersistError", "steps_from_signature",
 ]

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -92,6 +93,7 @@ class LPFContext:
                  plan_cache: Optional[PlanCache] = None,
                  program_cache: Optional[ProgramCache] = None,
                  sanitize: Optional[bool] = None,
+                 persist_dir: Optional[str] = None,
                  _parent: Optional["LPFContext"] = None):
         if int(p) < 1:
             raise LPFFatalError(f"a context needs p >= 1, got {p}")
@@ -109,6 +111,18 @@ class LPFContext:
         #: memoised optimized programs; shared process-wide by default
         self.program_cache = program_cache if program_cache is not None \
             else global_program_cache()
+        #: persistent program cache (``persist_dir=`` or the
+        #: ``LPF_PROGRAM_CACHE_DIR`` env var for a root context):
+        #: certified optimized programs are written to that directory and
+        #: warm-loaded by any later context or process sharing it — a
+        #: restarted worker pays zero re-planning and zero schedule-search
+        #: cost.  Loaded entries are re-verified (``verify_program``)
+        #: against the actual recorded trace before they may execute or be
+        #: captured.
+        if persist_dir is None and _parent is None:
+            persist_dir = os.environ.get("LPF_PROGRAM_CACHE_DIR") or None
+        if persist_dir:
+            self.program_cache.attach_store(persist_dir)
         #: run optimized programs as :class:`CompiledProgram` (a CUDA graph
         #: on the card, the plain version on the CPU) and capture
         #: ``compile_loop`` bodies; ``LPF_COMPILE_PROGRAMS=0`` forces the
@@ -133,6 +147,13 @@ class LPFContext:
             else _parent.diagnostics
         self._rec_registered: List[Slot] = []
         self._gate_machine: Optional[LPFMachine] = None
+        # the deterministic fault-injection hook (LPF_FAULT_PLAN=...):
+        # arming is lazy and idempotent — no plan, no injector, and the
+        # seams stay single-pointer-compare no-ops
+        if _parent is None and os.environ.get("LPF_FAULT_PLAN") \
+                and not _fp.armed():
+            from ..runtime.faults import ensure_env_plan
+            ensure_env_plan()
         #: ``compile_loop`` iterations run as a replay of the captured
         #: body, captures that failed (each falls back to eager
         #: iterations), and their exceptions
@@ -484,6 +505,11 @@ class LPFContext:
                 + "\n  ".join(str(d) for d in cert.diagnostics))
         if self.sanitize:
             self._sanitize_lint(steps, prog, order)
+        # fault seam: an armed plan may delay this flush (a straggler);
+        # pure wall-clock — values and ledger are untouched
+        d = _fp.delay("straggler")
+        if d > 0:
+            time.sleep(d)
         labels = [st.label for st in steps]
         dev = str(self.device)
         cp = None
@@ -833,14 +859,21 @@ def rehook(ctx: LPFContext, spmd: Callable, args: Any = None) -> Any:
 
 def exec_(p: int, spmd: Callable, args: Any = None, *,
           device="cuda", hardware: HardwareModel = H100_SXM,
-          return_ledger: bool = False) -> Any:
+          return_ledger: bool = False,
+          plan_cache: Optional[PlanCache] = None,
+          program_cache: Optional[ProgramCache] = None,
+          persist_dir: Optional[str] = None) -> Any:
     """``lpf_exec``: run ``spmd(ctx, s, p, args)`` over ``p`` virtual
     processes on ``device`` (the card unless the caller asks for the CPU).
 
     Tensors in ``args`` are moved to the device; every process sees the
     same ``args``.  The function returns per-process results stacked on a
     leading ``[p]`` axis.  With ``return_ledger=True`` also returns the
-    cost ledger, for compliance checking."""
-    ctx = LPFContext(p, device=device, hardware=hardware)
+    cost ledger, for compliance checking.  ``plan_cache``,
+    ``program_cache`` and ``persist_dir`` go to the context (the
+    process-wide caches and ``LPF_PROGRAM_CACHE_DIR`` by default)."""
+    ctx = LPFContext(p, device=device, hardware=hardware,
+                     plan_cache=plan_cache, program_cache=program_cache,
+                     persist_dir=persist_dir)
     out = spmd(ctx, ctx.pid, ctx.p, _to_device(args, ctx.device))
     return (out, ctx.ledger) if return_ledger else out

@@ -1453,11 +1453,29 @@ class ProgramCache:
     replayed trace skips the optimizer *and* the planner (every optimized
     step carries its plan).  Each entry may carry its schedule-verifier
     certificate (:meth:`certify`) and, per device, its compiled form
-    (:meth:`set_compiled`, only for certified entries).  The persistent
-    store of the JAX package's cache is not ported yet:
-    :meth:`attach_store` raises."""
+    (:meth:`set_compiled`, only for certified entries).
 
-    def __init__(self, maxsize: int = 256):
+    With a persistent store attached (:meth:`attach_store`, or
+    ``LPFContext(persist_dir=...)`` / ``LPF_PROGRAM_CACHE_DIR``),
+    certified entries are written back to disk (on certification, on
+    eviction, and on :meth:`flush`) and an in-memory miss consults the
+    disk before paying the schedule search.  A loaded entry is
+    **re-verified** against the actual recorded trace
+    (``verify_program``) before it is served — corruption, version skew,
+    or a stale schedule degrades to a cold miss (counted in
+    ``stats.invalidated``), never an unverified execution."""
+
+    #: bounded-backoff retry budget for one persistent-store operation
+    #: (transient I/O only; corruption is never retried)
+    DISK_RETRIES = 2
+    DISK_BACKOFF = 0.01      # seconds, doubled per retry
+    #: consecutive failed store *operations* after which the cache
+    #: degrades to memory-only mode (detaches the store) — a dead disk
+    #: must not tax every miss with a retry loop
+    DISK_STRIKE_LIMIT = 3
+
+    def __init__(self, maxsize: int = 256,
+                 persist_dir: Optional[str] = None):
         self.maxsize = maxsize
         self._programs: "collections.OrderedDict[Hashable, SuperstepProgram]" \
             = collections.OrderedDict()
@@ -1482,27 +1500,91 @@ class ProgramCache:
         #: keys exempt from LRU eviction (:meth:`pin`); ``maxsize`` bounds
         #: the *unpinned* population, and pins are never silently dropped
         self._pinned: set = set()
-        #: why a detached persistent store left the cache memory-only, as
-        #: in the JAX package; ``None`` while no store was ever attached,
-        #: which is always, until the store is ported (ROADMAP A7)
+        self._store = None
+        #: keys known to be on disk already (avoids rewriting an entry on
+        #: every certify/evict of the same program)
+        self._persisted: set = set()
+        #: entry filenames that failed decode/re-verification AND could
+        #: not be removed (read-only cache dir): poisoned in memory so a
+        #: corrupt-but-undeletable file costs ONE decode + verify, not
+        #: one per miss
+        self._poisoned: set = set()
+        self._disk_strikes = 0
+        #: why the cache went memory-only, or None while the store is
+        #: attached (or was never attached)
         self.memory_only_reason: Optional[str] = None
+        if persist_dir:
+            self.attach_store(persist_dir)
 
     def __len__(self) -> int:
         return len(self._programs)
 
+    @property
+    def store(self):
+        """The attached :class:`repro_torch.core.persist.PersistentStore`,
+        or ``None`` when the cache is memory-only."""
+        return self._store
+
     def attach_store(self, directory: str):
-        """The JAX package keeps certified programs on disk
-        (``core/persist.py``); that store is not ported yet (ROADMAP A7),
-        so attaching one raises rather than silently running
-        memory-only."""
-        raise LPFFatalError(
-            f"ProgramCache.attach_store({directory!r}): the persistent "
-            "program store (core/persist.py) is not ported yet (ROADMAP "
-            "A7); the cache runs memory-only")
+        """Attach (or switch) the persistent store.  The directory is
+        indexed immediately — the warm-load; entries deserialize and
+        re-verify lazily, each on the first trace that maps to its
+        signature (verification needs the recorded steps).
+
+        Best-effort: an unusable directory (permissions, full disk) leaves
+        the cache memory-only — a broken cache dir must never take down
+        the context that merely mentioned it."""
+        from .persist import PersistentStore
+        if self._store is not None and \
+                self._store.directory == str(directory):
+            return self._store
+        try:
+            self._store = PersistentStore(directory)
+        except OSError as e:
+            self.stats.disk_errors += 1
+            self._store = None
+            self.memory_only_reason = f"attach failed: {e}"
+            return None
+        self._persisted = set()
+        self._poisoned = set()
+        self._disk_strikes = 0
+        self.memory_only_reason = None
+        return self._store
+
+    # -- disk degradation ladder ----------------------------------------
+    def _disk_op(self, fn):
+        """Run one persistent-store operation with bounded-backoff
+        retries.  Returns ``(ok, result)``; after the budget is spent the
+        failure is counted (``stats.disk_errors``) and — past
+        ``DISK_STRIKE_LIMIT`` consecutive failures — the store is
+        detached (memory-only mode).  I/O failures cost the warm start,
+        never the execution."""
+        delay = self.DISK_BACKOFF
+        for attempt in range(self.DISK_RETRIES + 1):
+            try:
+                out = fn()
+            except OSError as e:
+                if attempt == self.DISK_RETRIES:
+                    self.stats.disk_errors += 1
+                    self._disk_strikes += 1
+                    if self._disk_strikes >= self.DISK_STRIKE_LIMIT:
+                        self._store = None
+                        self.memory_only_reason = \
+                            f"{self._disk_strikes} consecutive I/O " \
+                            f"failures, last: {e}"
+                    return False, None
+                time.sleep(delay)
+                delay *= 2
+            else:
+                self._disk_strikes = 0
+                return True, out
+        return False, None     # pragma: no cover - loop always returns
 
     def clear(self) -> None:
-        """Drop every program, artifact, certificate, pin, quarantine and
-        counter."""
+        """Drop the in-memory state (programs, artifacts, certificates,
+        pins, quarantines, counters).  On-disk entries are untouched — a
+        cleared cache warm-starts from its store, which is the point of
+        having one."""
         self._programs.clear()
         self._compiled.clear()
         self._certs.clear()
@@ -1510,7 +1592,45 @@ class ProgramCache:
         self._quarantined = {}
         self.compile_errors = {}
         self._pinned = set()
+        self._persisted = set()
+        self._poisoned = set()
+        self._disk_strikes = 0
         self.stats = CacheStats()
+
+    def _write_back(self, key: Hashable, prog: SuperstepProgram,
+                    cert) -> None:
+        """Best-effort persist of one certified entry (shared by
+        certify-time write-back and eviction write-back): retried with
+        bounded backoff on I/O failure, counted in ``stats.disk_errors``,
+        degrading to memory-only mode past the strike limit — a cache
+        must never take down the program it accelerates."""
+        if self._store is None:
+            return
+        from .persist import PersistError
+        store = self._store
+
+        def op():
+            try:
+                return store.save(key, prog, cert)
+            except PersistError:
+                return None      # encoding refusal: final, not retried
+        ok, path = self._disk_op(op)
+        if ok and path is not None:
+            self._persisted.add(key)
+            # a fresh good entry supersedes any poison on its filename
+            self._poisoned.discard(store.filename(key))
+
+    def _maybe_persist(self, key: Hashable) -> None:
+        """Write-back one entry if it is certified and not yet on disk.
+        Persistence is strictly best-effort: an I/O or encoding failure
+        costs the warm start, never the execution."""
+        if self._store is None or key in self._persisted:
+            return
+        prog = self._programs.get(key)
+        cert = self._certs.get(key)
+        if prog is None or cert is None or not cert.ok:
+            return
+        self._write_back(key, prog, cert)
 
     def compiled(self, key: Hashable,
                  device) -> Optional[CompiledProgram]:
@@ -1556,6 +1676,9 @@ class ProgramCache:
         cert = verify_program(steps, prog, scratch=scratch, order=order)
         self._certs[key] = cert
         object.__setattr__(prog, "_certificate", cert)
+        # write-back on insert: certification is the earliest point an
+        # entry is both optimized and proven, so it is the persist point
+        self._maybe_persist(key)
         return cert
 
     def certificate(self, key: Hashable):
@@ -1622,11 +1745,86 @@ class ProgramCache:
             self.stats.hits += 1
             self._programs.move_to_end(key)
             return prog, key
+        prog = self._load_persisted(key, steps, scratch, order)
+        if prog is not None:
+            return prog, key
         prog = optimize_program(steps, p, machine, plan_cache, scratch,
                                 order=order)
         self.stats.misses += 1
         self._insert(key, prog)
         return prog, key
+
+    def _load_persisted(self, key: Hashable,
+                        steps: Sequence[ProgramStep],
+                        scratch: Optional[Slot],
+                        order: Sequence[int]
+                        ) -> Optional[SuperstepProgram]:
+        """The warm-start path: on an in-memory miss, try the attached
+        store.  A loaded program is re-certified via ``verify_program``
+        against the ACTUAL recorded trace before it is served — the
+        persisted certificate is a record of what some process once
+        proved, never a substitute for proving it here.  Any failure
+        (integrity, version skew, key mismatch, failed re-verification)
+        invalidates the entry and falls through to a cold build.
+
+        Degradation: the poison set short-circuits entries that proved
+        invalid but could not be removed (read-only cache dir); a
+        transient I/O *error* (as opposed to corruption) is retried with
+        backoff and then degrades to a cold miss WITHOUT invalidating —
+        the entry on disk may be perfectly fine."""
+        if self._store is None:
+            return None
+        store = self._store
+        fname = store.filename(key)
+        if fname is not None and fname in self._poisoned:
+            self.stats.disk_misses += 1
+            return None
+
+        def op():
+            status_, entry_ = store.load(key)
+            if status_ == "error":
+                # surface the transient classification to _disk_op so one
+                # ladder owns retries, counting, and detachment
+                raise OSError("transient I/O failure reading "
+                              f"persisted entry {fname}")
+            return status_, entry_
+        ok, result = self._disk_op(op)
+        if not ok:
+            self.stats.disk_misses += 1
+            return None
+        status, entry = result
+        if status == "miss":
+            self.stats.disk_misses += 1
+            return None
+        if status == "invalid":
+            self._drop_invalid(key, fname)
+            return None
+        prog, _stored_cert = entry
+        from ..analysis.verifier import verify_program
+        try:
+            cert = verify_program(steps, prog, scratch=scratch,
+                                  order=order)
+        except Exception:
+            cert = None
+        if cert is None or not cert.ok:
+            self._drop_invalid(key, fname)
+            return None
+        self.stats.disk_hits += 1
+        self._insert(key, prog)
+        self._certs[key] = cert
+        object.__setattr__(prog, "_certificate", cert)
+        self._persisted.add(key)
+        return prog
+
+    def _drop_invalid(self, key: Hashable, fname: Optional[str]) -> None:
+        """An entry proved bad (corruption or failed re-verification):
+        count it, remove it from disk, and — when removal fails (a
+        read-only cache dir) — poison its filename in memory so the
+        decode+verify cost is paid once, not per miss."""
+        self.stats.invalidated += 1
+        if self._store is not None and not self._store.invalidate(key) \
+                and fname is not None:
+            self._poisoned.add(fname)
 
     # -- pinned entries -------------------------------------------------
     def pin(self, key: Hashable) -> None:
@@ -1651,9 +1849,17 @@ class ProgramCache:
         return tuple(self._programs.keys())
 
     def flush(self) -> int:
-        """Write-back of the certified entries to a persistent store:
-        there is none in the port, so nothing is written (0)."""
-        return 0
+        """Best-effort write-back of every certified in-memory entry not
+        yet on disk (the graceful-drain hook: a stopping server flushes so
+        the next process warm-starts with the hot decode set).  Returns
+        the number of entries newly persisted.  No-op without an attached
+        store."""
+        if self._store is None:
+            return 0
+        before = len(self._persisted)
+        for key in list(self._programs):
+            self._maybe_persist(key)
+        return len(self._persisted) - before
 
     # -- compile quarantine ---------------------------------------------
     def quarantine_compile(self, key: Hashable, device,
@@ -1694,11 +1900,17 @@ class ProgramCache:
                         if k not in self._pinned), None)
         if evicted is None:      # pragma: no cover - all-pinned cache
             return
-        self._programs.pop(evicted)
-        self._certs.pop(evicted, None)
+        eprog = self._programs.pop(evicted)
+        cert = self._certs.pop(evicted, None)
         self._compiled.pop(evicted, None)
         self._quarantined.pop(evicted, None)
         self.stats.evictions += 1
+        # write-back on evict: an entry leaving memory keeps its disk copy
+        # (or gains one) so the next process — or the next cold lookup
+        # here — warm-starts instead of re-searching
+        if evicted not in self._persisted and cert is not None \
+                and cert.ok:
+            self._write_back(evicted, eprog, cert)
 
 
 _GLOBAL_PROGRAM_CACHE = ProgramCache()

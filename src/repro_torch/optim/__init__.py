@@ -1,10 +1,12 @@
-"""Optimizers: AdamW and the warmup-cosine schedule (the JAX package's
-``repro.optim``).  Adafactor and error-feedback gradient compression are
-not on the one-card training path yet (ROADMAP A9)."""
+"""Optimizers and gradient compression (the JAX package's
+``repro.optim``): AdamW, Adafactor, error-feedback int8 compression and
+the warmup-cosine schedule."""
 
 import math
 
+from .adafactor import AdafactorConfig, adafactor_init, adafactor_update
 from .adamw import AdamWConfig, adamw_init, adamw_update, global_norm
+from .compress import ef_compress, ef_decompress, ef_init
 
 
 def warmup_cosine(peak: float, warmup: int, total: int, floor: float = 0.1):
@@ -20,4 +22,5 @@ def warmup_cosine(peak: float, warmup: int, total: int, floor: float = 0.1):
 
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm",
-           "warmup_cosine"]
+           "AdafactorConfig", "adafactor_init", "adafactor_update",
+           "ef_compress", "ef_decompress", "ef_init", "warmup_cosine"]

@@ -64,10 +64,17 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 def adamw_update(grads: Tree, state: Tree, params: Tree,
-                 cfg: AdamWConfig = AdamWConfig()
+                 cfg: AdamWConfig = AdamWConfig(), *, donate: bool = False
                  ) -> Tuple[Tree, Tree, Dict[str, Any]]:
     """Returns (new_params, new_state, metrics) with metrics
-    ``{"grad_norm": 0-d tensor, "lr": float}``."""
+    ``{"grad_norm": 0-d tensor, "lr": float}``.
+
+    ``donate=True`` is the JAX package's buffer donation: the update
+    consumes its arguments — ``params``, the moments and ``grads`` are
+    written in place, slice by slice along each leaf's leading axis, and
+    returned — so the step's peak holds one set of parameters and
+    moments, not two (granite-moe-3b-a800m's 52.8 GB of f32 state fits
+    one card only so)."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     # clipped leaf by leaf inside ``upd``: a clipped copy of the whole tree
@@ -91,9 +98,34 @@ def adamw_update(grads: Tree, state: Tree, params: Tree,
             delta = delta + cfg.weight_decay * p.float()
         return (p.float() - lr * delta).to(p.dtype), m2, v2
 
-    out = _map(upd, params, grads, state["m"], state["v"])
+    def upd_inplace(p, g, m, v):
+        # the same arithmetic on at most _DONATE_SLICE elements at a time:
+        # the temporaries stay a slice's, whatever the leaf's size
+        p, g = p.detach(), g.detach()
+        rows = max(1, _DONATE_SLICE // max(1, p[0].numel())) \
+            if p.ndim > 1 else p.shape[0] if p.ndim else 1
+        for i in range(0, p.shape[0] if p.ndim else 1, rows):
+            sl = (slice(i, i + rows),) if p.ndim else ()
+            pp, gg, mm, vv = p[sl], g[sl], m[sl], v[sl]
+            if scale is not None:
+                gg.mul_(scale.to(gg.dtype))
+            gf = gg.to(cfg.moment_dtype)
+            mm.mul_(b1).add_(gf, alpha=1 - b1)
+            vv.mul_(b2).addcmul_(gf, gf, value=1 - b2)
+            delta = (mm / c1).div_((vv / c2).sqrt_().add_(cfg.eps))
+            if p.ndim > 1:
+                delta.add_(pp.float(), alpha=cfg.weight_decay)
+            pp.copy_(pp.float() - lr * delta)
+        return p, m, v
+
+    out = _map(upd_inplace if donate else upd, params, grads, state["m"],
+               state["v"])
     new_state = {"m": _pick(out, 1), "v": _pick(out, 2), "step": step}
     return _pick(out, 0), new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+#: elements of a leaf one in-place update slice covers (``donate=True``)
+_DONATE_SLICE = 1 << 26
 
 
 def _pick(tree: Tree, i: int) -> Tree:

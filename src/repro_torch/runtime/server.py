@@ -584,8 +584,10 @@ class ProgramDecodeEngine:
     failure) flips the bucket to the per-token fallback: the same body
     recorded and replayed one token at a time through sub-contexts, each
     token's records folded into the call's ledger — bit-identical values
-    at higher dispatch cost.  The JAX package's persistent program store
-    is not ported (ROADMAP A7): ``persist_dir`` raises."""
+    at higher dispatch cost.  With ``persist_dir`` the engine's program
+    cache keeps its certified programs in that directory (a later engine
+    on it warm-starts: every bucket program a verified disk hit), and
+    :meth:`flush` — the server's drain — writes back what is new."""
 
     #: decode lengths are bucketed to powers of two (capped by the
     #: cache length) so distinct request lengths share programs
@@ -602,9 +604,8 @@ class ProgramDecodeEngine:
         self.device = resolve_device(device)
         self.hardware = hardware if hardware is not None else H100_SXM
         self.plan_cache = PlanCache()
-        self.program_cache = ProgramCache(maxsize=cache_maxsize)
-        if persist_dir is not None:
-            self.program_cache.attach_store(persist_dir)   # raises: A7
+        self.program_cache = ProgramCache(maxsize=cache_maxsize,
+                                          persist_dir=persist_dir)
         self.machine = probe({"vp": self.p}, self.hardware)
         self._step_costs: Dict[Bucket, list] = {}
         self.quarantined: set = set()
@@ -661,8 +662,8 @@ class ProgramDecodeEngine:
                 "program": self.program_cache.stats}
 
     def flush(self) -> int:
-        """Write back certified programs to a persistent store (the drain
-        hook): 0, the port has none."""
+        """Write back certified programs to the persistent store (the
+        drain hook); 0 without one."""
         return self.program_cache.flush()
 
     # -- internals -------------------------------------------------------

@@ -83,9 +83,13 @@ def build_train_step(cfg: ModelConfig, *,
                      sync_attrs: Optional[Any] = None,
                      grad_accum: int = 1,
                      steps_per_call: int = 1,
+                     donate: bool = False,
                      device="cuda") -> TrainStep:
     """The training step of ``cfg`` on ``device`` (the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU).  ``donate=True`` consumes the parameters and
+    optimizer state a step is given (the JAX package's ``donate_argnums``,
+    its default there): AdamW updates them in place, so a step holds one
+    copy of the state; the caller must use only what the step returns."""
     if grad_sync not in ("gspmd", "lpf"):
         raise LPFFatalError(f"grad_sync={grad_sync!r}: expected gspmd or "
                             f"lpf")
@@ -127,7 +131,8 @@ def build_train_step(cfg: ModelConfig, *,
 
     def step(params: ParamTree, opt: Tree, batch: dict):
         loss, grads = loss_and_grads(params, batch)
-        new, opt, metrics = adamw_update(grads, opt, params.tree(), opt_cfg)
+        new, opt, metrics = adamw_update(grads, opt, params.tree(), opt_cfg,
+                                         donate=donate)
         metrics["loss"] = loss
         return ParamTree(new, trainable=True), opt, metrics
 

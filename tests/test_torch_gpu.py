@@ -32,7 +32,13 @@ captured loop body and equals its per-token fallback.  Every
 superstep method, every BSP collective and a small PageRank run on the
 card against the same calls on the CPU: bit-equal where no sum is
 reordered, else within 1e-6 relative (PageRank within 1e-5, with the
-same iteration count and ledger).
+same iteration count and ledger).  A program recorded on the card into a
+persistent store warm-starts a fresh cache (a verified disk hit, no
+search) and replays bit-equal; the ``compile`` fault seam quarantines a
+program from CUDA-graph capture to the dispatched schedule with the same
+values and ledger; one granite-moe-3b-a800m train step launches each
+flash kernel as many times as it has attention layers (twice the forward
+under full remat).
 """
 
 import ctypes
@@ -983,15 +989,16 @@ def test_pagerank_on_card_matches_cpu(cuda):
 # compiled replay: programs as CUDA graphs, compile_loop bodies captured
 # ---------------------------------------------------------------------------
 
-def _canned_on_card(name, mode, dev, seed=0, n_runs=None, between=None):
+def _canned_on_card(name, mode, dev, seed=0, n_runs=None, between=None,
+                    pc=None):
     """Run a canned trace (default sizes, int32) on a fresh context:
     ``"ref"`` one eager superstep per step, ``"dispatched"`` and
     ``"compiled"`` as one recorded program, ``n_runs`` times (by default
     the compiled program's eager calls, its timed ones, its capture, its
     timed replays and two calls past its choice), each from the same
-    initial values, calling ``between(k)`` before run ``k``.  Returns the
-    values after each run, the ledger of the last run and the program
-    cache."""
+    initial values, calling ``between(k)`` before run ``k``, through
+    ``pc`` (a fresh program cache by default).  Returns the values after
+    each run, the ledger of the last run and the program cache."""
     from repro_torch.analysis import traces
     from repro_torch.core.program import TRIAL_CALLS
     p, slots, steps, scratch = traces.CANNED_TRACES[name]()
@@ -999,7 +1006,7 @@ def _canned_on_card(name, mode, dev, seed=0, n_runs=None, between=None):
     init = {s.sid: torch.randint(-(1 << 20), 1 << 20, (p, s.size),
                                  dtype=torch.int32, generator=gen).to(dev)
             for s in slots}
-    pc = tlpf.ProgramCache()
+    pc = tlpf.ProgramCache() if pc is None else pc
     ctx = tlpf.LPFContext(p, device=dev, program_cache=pc)
     ctx.compile_programs = mode == "compiled"
     run, reset, handles, _ = traces.bind_trace(ctx, slots, steps, scratch,
@@ -1427,3 +1434,101 @@ def test_mla_layer_on_card_matches_cpu(cuda):
                                    Runtime(cuda), torch.tensor(t, device=cuda))
         assert rel(g.cpu(), w) < 1e-5, t
     assert rel(cd["ckv"].cpu(), c["ckv"]) < 1e-5
+
+
+# --------------------------------------------------------------------------
+# the persistent program store, fault plans and granite training
+
+
+@pytest.mark.parametrize("name", ["fft_redistribute", "bucketed_sync8"])
+def test_store_round_trip_replays_captured_program_on_card(cuda, tmp_path,
+                                                           name):
+    """A canned trace recorded on the card into a store, then run by a
+    fresh cache on the same directory: the schedule is a verified disk hit
+    (no search), the warm program is captured and replayed in its trial
+    as the cold one was, and every run is bit-equal to the cold run's,
+    with the same ledger."""
+    from repro_torch.core.program import TRIAL_CALLS
+    cold, cled, cpc = _canned_on_card(
+        name, "compiled", cuda, pc=tlpf.ProgramCache(persist_dir=str(
+            tmp_path)))
+    assert cpc.stats.misses == 1 and len(cpc.store) == 1
+    warm, wled, wpc = _canned_on_card(
+        name, "compiled", cuda, pc=tlpf.ProgramCache(persist_dir=str(
+            tmp_path)))
+    assert (wpc.stats.misses, wpc.stats.disk_hits,
+            wpc.stats.invalidated) == (0, 1, 0)
+    (key,) = wpc.keys()
+    assert wpc.certificate(key).ok
+    (cp,) = wpc.artifacts()
+    assert cp.n_replays >= TRIAL_CALLS and not wpc.quarantined
+    for a, b in zip(cold, warm):
+        for sid in a:
+            assert torch.equal(a[sid], b[sid]), sid
+    assert [dataclasses.asdict(r) for r in cled] == \
+        [dataclasses.asdict(r) for r in wled]
+
+
+def test_compile_seam_falls_back_from_capture_to_dispatch(cuda):
+    """``compile@0`` fails the program's CUDA-graph compilation: the key is
+    quarantined on the card and every flush dispatches the same certified
+    schedule — values bit-equal to recorded order, the dispatched run's
+    ledger."""
+    from repro_torch.runtime import faults
+    (ref,), _, _ = _canned_on_card("bucketed_sync8", "ref", cuda)
+    _, dled, _ = _canned_on_card("bucketed_sync8", "dispatched", cuda)
+    with faults.inject(faults.FaultPlan.parse("compile@0")) as inj:
+        runs, led, pc = _canned_on_card("bucketed_sync8", "compiled", cuda,
+                                        n_runs=3)
+    assert inj.fired == [("compile", 0, "default")]
+    (key,) = pc.keys()
+    ((qkey, devices),) = pc.quarantined.items()
+    assert qkey == key and len(devices) == 1
+    assert pc.compile_quarantined(key, next(iter(devices)))
+    assert next(iter(devices)).startswith("cuda")
+    assert pc.stats.compile_fallbacks == 1 and pc.artifacts() == []
+    for got in runs:
+        for sid in ref:
+            assert torch.equal(got[sid], ref[sid]), sid
+    assert [dataclasses.asdict(r) for r in led] == \
+        [dataclasses.asdict(r) for r in dled]
+
+
+def test_granite_train_step_launch_counts(cuda):
+    """One granite-moe-3b-a800m train step (smoke widths with 6 query and
+    2 K/V heads of 64, ``ep_degree=1``, flash attention): a forward launch an attention layer a
+    forward (two forwards under ``remat="full"``), one launch of each
+    backward kernel an attention layer, a finite loss within 1e-2 of the
+    reference attention's."""
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.launch import one_card_config
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train_step import build_train_step
+    # the smoke widths with granite's published group of 3 at head dim 64
+    base = dataclasses.replace(one_card_config("granite-moe-3b-a800m",
+                                               smoke=True),
+                               n_heads=6, n_kv=2, head_dim=64)
+    cfg = dataclasses.replace(base, attn_impl="flash")
+    ts = build_train_step(cfg, opt_cfg=AdamWConfig(lr=1e-3))
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                        global_batch=2))
+    params, opt = ts.init_fn(0)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in stream.batch(0).items()}
+    with torch.no_grad():
+        want = loss_fn(params, batch, dataclasses.replace(
+            base, attn_impl="reference"), ts.rt).item()
+    for fn in (fa_kernel.flash_attention_fwd,
+               fa_kernel.flash_attention_bwd_dkv,
+               fa_kernel.flash_attention_bwd_dq):
+        fn.launches = 0
+    params, opt, m = ts.step_fn(params, opt, batch)
+    loss = m["loss"].item()
+    attn = sum(g.repeats * sum(b.mixer == "attn" for b in g.blocks)
+               for g in cfg.groups)
+    fwd = attn * (2 if cfg.remat == "full" else 1)
+    assert (fa_kernel.flash_attention_fwd.launches,
+            fa_kernel.flash_attention_bwd_dkv.launches,
+            fa_kernel.flash_attention_bwd_dq.launches) == (fwd, attn, attn)
+    assert np.isfinite(loss) and abs(loss - want) < 1e-2 * want

@@ -36,7 +36,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_ROOT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT_ROOT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT_ROOT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "scripts").glob("*.py"))
 #: every module of the port, found by walking the tree
 PORT_MODULES = sorted(
     ".".join(("repro_torch",) + p.relative_to(PORT_ROOT).with_suffix("")
@@ -76,6 +77,10 @@ def test_fresh_interpreter_loads_no_jax():
     assert {"repro_torch.configs.deepseek_v3_671b",
             "repro_torch.configs.llava_next_mistral_7b",
             "repro_torch.configs.whisper_base"} <= set(PORT_MODULES)
+    assert {"repro_torch.core.persist", "repro_torch.runtime.faults",
+            "repro_torch.analysis.__main__", "repro_torch.optim.adafactor",
+            "repro_torch.optim.compress"} <= set(PORT_MODULES)
+    assert ROOT / "scripts" / "warm_start.py" in PORT_FILES
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -277,3 +282,26 @@ def test_cpu_context_compiles_programs_without_capture(monkeypatch):
     assert cp.device.type == "cpu" and not cp.captured
     assert (cp.n_calls, cp.n_replays) == (3, 0)
     assert ctx.loop_graph_replays == 0
+
+
+@pytest.mark.parametrize("module", ["core/faultpoints.py",
+                                    "runtime/faults.py"])
+def test_fault_modules_import_only_the_stdlib_at_module_level(module):
+    """Arming a plan (a root context reading ``LPF_FAULT_PLAN``) must not
+    drag in the heavy stack: the fault modules' top-level imports are the
+    standard library and ``faultpoints``; the harness imports torch and
+    the port inside its functions."""
+    tree = ast.parse((PORT_ROOT / module).read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                assert a.name.split(".")[0] in sys.stdlib_module_names, a.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0:
+                assert node.module == "__future__" or \
+                    node.module.split(".")[0] in sys.stdlib_module_names, \
+                    node.module
+            else:
+                assert (node.module or "").endswith("faultpoints") or \
+                    [a.name for a in node.names] == ["faultpoints"], \
+                    node.module

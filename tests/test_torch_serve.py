@@ -630,10 +630,57 @@ def test_program_engine_prices_match_ledger_and_serve(program_engine):
 
 
 def test_program_engine_refuses_a_persistent_store(tmp_path):
-    with pytest.raises(LPFFatalError, match="A7"):
-        port_server.ProgramDecodeEngine(buckets=((2, 8),),
-                                        persist_dir=str(tmp_path),
-                                        device="cpu")
+    """An unusable store directory is refused, not fatal: the engine's
+    cache runs memory-only, says why, and serves."""
+    blocker = tmp_path / "blocker"
+    blocker.write_text("not a directory")
+    eng = port_server.ProgramDecodeEngine(
+        buckets=((2, 8),), persist_dir=str(blocker / "store"),
+        device="cpu")
+    assert eng.program_cache.store is None
+    assert eng.program_cache.memory_only_reason
+    assert eng.flush() == 0
+    srv = port_server.LPFServer(eng)
+    reqs = port_server.synthetic_requests(
+        4, seed=1, buckets=eng.buckets(), token_cost_s=eng.token_seconds(
+            (2, 8)), deadline_scale=100.0, tight_frac=0.0)
+    for r in reqs:
+        srv.submit(r)
+    h = srv.drain()
+    assert h["completed"] == 4
+    assert h["program_memory_only_reason"].startswith("attach failed")
+
+
+def test_program_engine_warm_starts_from_its_store(tmp_path):
+    """``persist_dir=``: the first engine records and persists every
+    bucket's program; a second engine on the directory warm-starts (every
+    program a verified disk hit, no search) and decodes the same tokens;
+    the server's drain flushes."""
+    first = port_server.ProgramDecodeEngine(
+        buckets=((2, 8), (4, 8)), persist_dir=str(tmp_path), device="cpu")
+    st = first.program_cache.stats
+    assert st.misses == len(first.program_cache) >= 1
+    assert len(first.program_cache.store) == len(first.program_cache)
+    reqs = port_server.synthetic_requests(
+        6, seed=3, buckets=first.buckets(),
+        token_cost_s=first.token_seconds((4, 8)), deadline_scale=100.0,
+        tight_frac=0.0)
+    want = {r.rid: first.decode((2, 8), [r], 8)[r.rid] for r in reqs}
+
+    warm = port_server.ProgramDecodeEngine(
+        buckets=((2, 8), (4, 8)), persist_dir=str(tmp_path), device="cpu")
+    ws = warm.program_cache.stats
+    assert ws.misses == 0 and ws.invalidated == 0
+    assert ws.disk_hits == len(warm.program_cache)
+    assert warm.plan_cache.stats.misses == 0
+    got = {r.rid: warm.decode((2, 8), [r], 8)[r.rid] for r in reqs}
+    assert got == want
+    srv = port_server.LPFServer(warm)
+    for r in reqs:
+        srv.submit(r)
+    h = srv.drain()
+    assert h["completed"] == len(reqs) and h["program_disk_hits"] >= 1
+    assert warm.flush() == 0              # the drain wrote back what's new
 
 
 @pytest.fixture(scope="module")
