@@ -363,7 +363,31 @@ tile masked by length alone) and its decoder's, causal:
     store (``invalidated`` >= 1, bit-equal);
 (ac) ``python -m repro_torch.analysis`` on the port's machine (exit 0),
     then ``--record-cache`` and ``--cache-dir`` on one directory (exit 0,
-    every entry verified).
+    every entry verified);
+(ad) this slice's main path: llama3.2-1b at full width (16 layers, d
+    2048; f32 masters, bf16 compute, ``remat="full"``, flash attention,
+    AdamW donated) over a ``2x1x1`` virtual mesh, B 4 x S 2048 (2 rows a
+    pod): the pod step under ``rs+ag`` against the plain one-card step on
+    the same batch from the same weights (loss, ``grad_norm``, every
+    parameter; the control: the pods' sum in place of their mean, whose
+    ``grad_norm`` must miss the bar), ``bucketed_overlap`` at 2^28-byte
+    buckets against ``rs+ag`` (parameters, loss and ``grad_norm``), the
+    compressed int16 ring's gradients within the int16 bound of the
+    uncompressed ones leaf by leaf (the control: 63 levels in place of
+    127 must miss it); then ``POD_STEPS`` timed steps of each method, with
+    the counts set to 0 just before the first: 64 forward, 32 dK/dV and
+    32 dQ launches a step; each method's step ms and peak; one profiled
+    step of ``rs+ag`` and of ``bucketed_overlap``: the ``pod_sync``
+    range's share of the step's device time; the ``bucket_sync`` program
+    (``build_cross_pod_sync``) over the last ``POD_SYNC_LAYERS`` layers'
+    gradients on one stream, dispatched and compiled, and on the
+    side-stream pool, compiled (dispatched, overlap groups stay on one
+    stream), bit-equal; a 4-step local-SGD ``train_loop``
+    (``sync_every=2``), whose ledger grows only on the first synced
+    step; then ``scripts/program_replay.py``'s overlap measurement
+    (fenced against overlapped buckets at p = 4 and 8, one stream
+    dispatched and compiled, the pool compiled, values bit-equal, ledgers
+    as planned).
 """
 
 from __future__ import annotations
@@ -547,6 +571,16 @@ STACK_FWD_SHAPES = [
     (WHISPER_B, 8, 8, WHISPER_S, 64, False, None, None, "bfloat16"),
     (WHISPER_B, 8, 8, WHISPER_S, 64, True, None, None, "bfloat16"),
 ]
+# (ad) llama3.2-1b over 2 virtual pods: 2^28-byte buckets (a layer's f32
+# gradients are ~243 MB: about one bucket a layer), POD_STEPS timed steps
+# a method; the stream check syncs the last POD_SYNC_LAYERS layers'
+# gradients (a bucket each).  Bars: the pod step's grad_norm against the
+# plain step's (the pods' sum in place of their mean doubles it), and the
+# int16 ring's error over its bound, half a quantum (63 levels in place
+# of 127 double the quantum)
+POD_MESH, POD_BUCKET_BYTES, POD_STEPS, POD_SYNC_LAYERS = (2, 1, 1), \
+    1 << 28, 3, 4
+POD_NORM_BAR, POD_INT16_BAR = 1e-2, 1.0
 
 
 def check(cond: bool, what: str) -> None:
@@ -3258,6 +3292,293 @@ def profile_bsp_fft(bsp_fft, x, wall_ms: float) -> dict:
     return out
 
 
+def pod_phase(dev) -> dict:
+    """(ad): llama3.2-1b at full width over a 2x1x1 virtual mesh (module
+    docstring)."""
+    import dataclasses
+    import torch
+    from repro_torch import core as lpf
+    from repro_torch.bsp import build_cross_pod_sync, pod_sync
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.runtime import train_step as ts_mod
+    from repro_torch.runtime.train_loop import TrainLoopConfig, train_loop
+
+    cfg = dataclasses.replace(get_config(ARCH), attn_impl="flash")
+    check(cfg.remat == "full" and cfg.param_dtype == "float32"
+          and cfg.compute_dtype == "bfloat16", "pod training config")
+    mesh = make_mesh(POD_MESH)
+    npods = POD_MESH[0]
+    lr = warmup_cosine(3e-3, 10, 1 + POD_STEPS)
+    int16 = lpf.SyncAttributes(compress=lpf.CompressSpec(bits=8))
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                        global_batch=TRAIN_B, seed=0))
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in stream.batch(i).items()}
+
+    def build(method="rs+ag", attrs=lpf.LPF_SYNC_DEFAULT, grad_sync="lpf",
+              on=mesh):
+        return ts_mod.build_train_step(
+            cfg, on, opt_cfg=AdamWConfig(lr=lr), grad_sync=grad_sync,
+            sync_attrs=attrs, grad_sync_method=method,
+            grad_bucket_bytes=POD_BUCKET_BYTES
+            if method == "bucketed_overlap" else None,
+            donate=True, device=dev)
+
+    steps = {"rs+ag": build(), "bucketed_overlap": build("bucketed_overlap"),
+             "int16_ring": build("ring", int16)}
+    torch.cuda.empty_cache()
+    out = {"start_gb": dict(allocated=torch.cuda.memory_allocated() / 1e9,
+                            reserved=torch.cuda.memory_reserved() / 1e9)}
+    print("pod phase start " + json.dumps(out["start_gb"]), flush=True)
+    b0 = batch(0)
+
+    # the rs+ag pod step, donated, from the seed-0 weights.  Its sync is
+    # watched: leaf by leaf, the pods' sum (the control's gradients) and
+    # the int16 ring against what the sync returns (in place, one leaf's
+    # temporaries at a time); a copy of the last POD_SYNC_LAYERS layers'
+    # stacked gradients for the stream check
+    real = ts_mod.pod_allreduce
+    seen = {}
+
+    def watched(tree, q, *a, **kw):
+        res = real(tree, q, *a, **kw)
+        sq, ratios, ctrl = 0.0, [], []
+        for leaf, got in zip(pod_sync.tree_flatten(tree)[0],
+                             pod_sync.tree_flatten(res)[0]):
+            summed = real({"g": leaf}, q, method="rs+ag", mean=False)["g"]
+            sq += summed[0].float().square().sum().item()
+            del summed
+            ring = real({"g": leaf}, q, attrs=int16, method="ring")["g"]
+            amax = leaf.float().abs().amax()
+            half_q = amax.item() / 127.0 / 2
+            # the rows of a sync's result are one tensor (stride 0)
+            ratios.append((ring[0].sub_(got[0]).abs_().max().item()
+                           + 1e-30) / (half_q + 1e-30))
+            del ring
+            # the control: the same ring at 63 levels
+            s63 = amax / 63.0 + 1e-30
+            coarse = (leaf.float() / s63).round_().clamp_(-63, 63).sum(
+                0).mul_(s63 / q)
+            ctrl.append(coarse.sub_(got[0]).abs_().max().item()
+                        / (half_q + 1e-30))
+            del coarse
+        # one leaf a layer (named layer first, so buckets follow layers)
+        layers = {}
+        for key, sub in tree.items():
+            if key.startswith("dec_"):
+                for name, leaf in _named(sub):
+                    L = leaf.shape[1]
+                    for i in range(L - POD_SYNC_LAYERS, L):
+                        layers[f"l{i:02d}.{key}.{name}"] = \
+                            leaf[:, i].clone()
+        seen.update(control_grad_norm=math.sqrt(sq),
+                    int16_over_bound=max(ratios),
+                    int16_control_over_bound=max(ctrl), grads=layers)
+        return res
+
+    torch.cuda.empty_cache()
+    p0, o0 = steps["rs+ag"].init_fn(0)
+    ts_mod.pod_allreduce = watched
+    try:
+        p_rs, o_rs, m_rs = steps["rs+ag"].step_fn(p0, o0, b0)
+    finally:
+        ts_mod.pod_allreduce = real
+    del p0, o0, o_rs
+    torch.cuda.empty_cache()
+
+    # the plain one-card step (donated too) from the same weights
+    plain = build(on=None)
+    p_plain, o_plain, m_plain = plain.step_fn(*plain.init_fn(0), b0)
+    del o_plain
+    torch.cuda.empty_cache()
+    diffs = [(a - b).abs() for a, b in zip(p_rs.parameters(),
+                                           p_plain.parameters())]
+    lr1 = lr(1)
+    gn, gn_plain = float(m_rs["grad_norm"]), float(m_plain["grad_norm"])
+    vs_plain = dict(
+        loss=float(m_rs["loss"]), loss_plain=float(m_plain["loss"]),
+        loss_rel=abs(float(m_rs["loss"]) - float(m_plain["loss"]))
+        / abs(float(m_plain["loss"])),
+        grad_norm=gn, grad_norm_plain=gn_plain,
+        grad_norm_rel=abs(gn - gn_plain) / gn_plain,
+        control_grad_norm_rel=abs(seen["control_grad_norm"] - gn_plain)
+        / gn_plain, bar=POD_NORM_BAR,
+        param_max_abs_diff=max(d.max().item() for d in diffs),
+        param_share_over_half_lr=sum((d > lr1 / 2).sum().item()
+                                     for d in diffs)
+        / sum(d.numel() for d in diffs), lr=lr1)
+    del diffs, p_plain
+    out["vs_plain"] = vs_plain
+    print("pod vs plain step " + json.dumps(vs_plain), flush=True)
+    check(vs_plain["loss_rel"] < 1e-2, f"pod step loss vs plain {vs_plain}")
+    check(vs_plain["grad_norm_rel"] < POD_NORM_BAR <
+          vs_plain["control_grad_norm_rel"],
+          f"pod step grad_norm vs plain, and its control: {vs_plain}")
+    # one AdamW step moves a parameter by about lr; a gradient near zero
+    # may change sign between the two batchings
+    check(vs_plain["param_max_abs_diff"] <= 2 * lr1 * (1 + 1e-3)
+          and vs_plain["param_share_over_half_lr"] < 1e-2,
+          f"pod step parameters vs plain: {vs_plain}")
+    comp = dict(over_bound=seen["int16_over_bound"],
+                control_over_bound=seen["int16_control_over_bound"],
+                bar=POD_INT16_BAR)
+    out["int16_vs_uncompressed"] = comp
+    print("pod int16 ring vs uncompressed " + json.dumps(comp), flush=True)
+    check(comp["over_bound"] <= POD_INT16_BAR < comp["control_over_bound"],
+          f"int16 ring gradients against the uncompressed ones: {comp}")
+
+    # bucketed_overlap from the same weights, against rs+ag
+    p1, o1 = steps["bucketed_overlap"].init_fn(0)
+    p_ov, o_ov, m_ov = steps["bucketed_overlap"].step_fn(p1, o1, b0)
+    worst = max((a - b).abs().max().item()
+                for a, b in zip(p_ov.parameters(), p_rs.parameters()))
+    ovl = dict(param_max_abs_diff=worst,
+               bit_equal=worst == 0 and torch.equal(m_ov["loss"],
+                                                    m_rs["loss"])
+               and torch.equal(m_ov["grad_norm"], m_rs["grad_norm"]),
+               ledger=[(r.label, r.method) for r in
+                       steps["bucketed_overlap"].ledger.records])
+    out["overlap_vs_flat"] = ovl
+    print("pod bucketed_overlap vs rs+ag " + json.dumps(
+        {k: v for k, v in ovl.items() if k != "ledger"})
+        + f", {len(ovl['ledger'])} ledger records", flush=True)
+    check(worst < 1e-6, f"bucketed_overlap vs rs+ag parameters: {worst}")
+    del p_rs
+    torch.cuda.empty_cache()
+
+    # timed steps of each method, on one state
+    p, o = p_ov, o_ov
+    del p_ov, o_ov
+    timed = {}
+    for name, ts in steps.items():
+        # the cached blocks of the last method's streams go back, so this
+        # method's (bucketed_overlap's side stream too) start from fresh
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9
+        ms = []
+        for i in range(1, 1 + POD_STEPS):
+            if name == "rs+ag" and i == 1:
+                zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = ts.step_fn(p, o, batch(i))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if name == "rs+ag" and i == 1:
+                launches = launch_counts()
+            check(math.isfinite(float(m["loss"])),
+                  f"pod {name} step {i} loss {float(m['loss'])}")
+        timed[name] = dict(step_ms=ms, median_ms=statistics.median(ms),
+                           held_before_gb=held,
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           loss=float(m["loss"]),
+                           ledger=[dict(label=r.label, method=r.method,
+                                        wire_bytes=r.wire_bytes)
+                                   for r in ts.ledger.records][:4])
+        print(f"pod {name} steps " + json.dumps(timed[name]), flush=True)
+    out["timed"] = timed
+    per_step = {k: npods * v for k, v in expected_counts(
+        cfg, forward_calls=2, backward=True).items()}
+    out["launches"] = dict(measured=launches, expected=per_step)
+    print("pod step launches " + json.dumps(out["launches"]), flush=True)
+    for k, n in per_step.items():
+        check(launches[k] == n, f"pod step {k}: {launches[k]} launches, "
+                                f"not {n}")
+
+    # the sync's share of the step's device time
+    out["profiles"] = {}
+    for name in ("rs+ag", "bucketed_overlap"):
+        b = batch(1 + POD_STEPS)
+        box = [p, o]
+
+        def one_step(name=name, b=b, box=box):
+            box[0], box[1], m = steps[name].step_fn(box[0], box[1], b)
+            float(m["loss"])
+
+        out["profiles"][name] = profile_families(
+            f"pod {name} step", one_step, timed[name]["median_ms"],
+            ranges=(ts_mod.POD_SYNC_RANGE,))
+        p, o = box
+    del steps, p, o, box
+    torch.cuda.empty_cache()
+
+    # the bucket_sync program over the last layers' gradients: one stream,
+    # dispatched and compiled, against the side-stream pool, compiled
+    # (dispatched, overlap groups stay on one stream)
+    grads = seen.pop("grads")
+    sync = build_cross_pod_sync(mesh, None, bucket_bytes=POD_BUCKET_BYTES)
+    replay = replay_script()
+    ref, rows = None, []
+    for pool, route in replay.stream_routes(("dispatched", "compiled")):
+        env = dict(LPF_OVERLAP_STREAMS=None if pool else "0",
+                   LPF_COMPILE_PROGRAMS="1" if route == "compiled" else "0")
+        with replay.environ(env):
+            lpf.global_program_cache().clear()
+            for _ in range(8):            # the compiled program's trial
+                got = sync(grads)
+                if ref is None:
+                    ref = {k: v.clone() for k, v in got.items()}
+                check(all(torch.equal(got[k], ref[k]) for k in ref),
+                      f"bucket_sync pool={pool} {route} differs from one "
+                      f"stream, dispatched")
+            prog = lpf.global_program_cache().artifacts()
+            rows.append(dict(
+                streams="pool" if pool else "one", route=route,
+                ms=host_ms(lambda: sync(grads)),
+                graphs=sum(bool(a.use_graph) for a in prog)))
+    out["bucket_sync_streams"] = rows
+    print(f"pod bucket_sync over {len(grads)} leaves of the last "
+          f"{POD_SYNC_LAYERS} layers " + json.dumps(rows), flush=True)
+    del grads, ref, got
+    lpf.global_program_cache().clear()
+    torch.cuda.empty_cache()
+
+    # local SGD: sync_every=2, the no-sync step the GSPMD one
+    ts_l, ts_n = build(), build(grad_sync="gspmd")
+    grew = []
+    res = train_loop(ts_l, stream, TrainLoopConfig(steps=4, sync_every=2),
+                     step_fn_nosync=ts_n.step_fn,
+                     on_step=lambda step, loss, v: grew.append(
+                         len(ts_l.ledger.records)))
+    out["local_sgd"] = dict(losses=res["losses"], ledger_records=grew)
+    print("pod local SGD " + json.dumps(out["local_sgd"]), flush=True)
+    check(all(map(math.isfinite, res["losses"])) and grew == [0, 1, 1, 1]
+          and not ts_n.ledger.records,
+          f"local SGD losses {res['losses']}, ledger records {grew}")
+    del res, ts_l, ts_n
+    torch.cuda.empty_cache()
+    return out
+
+
+def _named(tree, prefix=""):
+    """(dotted name, leaf) of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def replay_script():
+    """``scripts/program_replay.py`` as a module."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import program_replay
+    return program_replay
+
+
+def program_replay_overlap(dev) -> list:
+    """``scripts/program_replay.py``'s overlap measurement (fenced
+    against overlapped buckets, p = 4 and 8, one stream and the pool,
+    dispatched and compiled)."""
+    return replay_script().overlap_phase(dev)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3517,6 +3838,13 @@ def main() -> int:
         flush=True)
     done("aa-ac")
 
+    # (ad) llama3.2-1b over 2 virtual pods (this slice's main path), and
+    # the split-phase overlap on the side-stream pool ---------------------
+    torch.cuda.empty_cache()
+    pods = pod_phase(dev)
+    pods["program_replay_overlap"] = program_replay_overlap(dev)
+    done("ad")
+
     # 7. result lines ----------------------------------------------------------
     big = [r for r in rows if r["n"] == N_MAIN // P_MAIN and not r["inverse"]][0]
     bound_ms, bound_by = fft_bound_ms(big["batch"], big["n"])
@@ -3553,7 +3881,9 @@ def main() -> int:
         f"{DEEPSEEK_ARCH} forward (blocked MLA)": stack[DEEPSEEK_ARCH][
             "forward"]["launches"]["flash_attention_fwd"],
         f"{GRANITE_ARCH} training, {GRANITE_TRAIN_STEPS} steps (z)":
-            granite_train["train"]["launches"]["flash_attention_fwd"]}
+            granite_train["train"]["launches"]["flash_attention_fwd"],
+        "llama3.2-1b over 2 pods, one step (ad)":
+            pods["launches"]["measured"]["flash_attention_fwd"]}
     ssd_launches = {
         "mamba2-130m prefill (k)": mamba["prefill"]["ssd_launches"],
         f"mamba2-130m training, {TRAIN_STEPS} steps (t)":
@@ -3595,7 +3925,9 @@ def main() -> int:
                 f"llama3.2-1b training, {TRAIN_STEPS} steps (h)":
                     train_launches[name],
                 f"{GRANITE_ARCH} training, {GRANITE_TRAIN_STEPS} steps (z)":
-                    granite_train["train"]["launches"][name]},
+                    granite_train["train"]["launches"][name],
+                "llama3.2-1b over 2 pods, one step (ad)":
+                    pods["launches"]["measured"][name]},
             max_abs_err=max(main_bwd["max_abs_err"][g] for g in grads),
             ms=main_bwd["ms"][name], plain_ms=main_bwd["plain_ms"],
             bound_ms=main_bwd["bound"][name][0],

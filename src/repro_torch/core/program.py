@@ -1281,7 +1281,12 @@ class CompiledProgram:
       the next replay overwrites — :attr:`copy_bytes` a call, the price
       of keeping every value the caller holds unchanged; it pays where
       launching the schedule from Python costs more (many rounds, small
-      messages).  A timed call synchronizes the device before and after;
+      messages).  A timed call synchronizes the device before and after.
+      In the graph an overlap group's start halves run on the device's
+      side streams (:func:`~repro_torch.core.sync.fork_streams`: the
+      capture records the fork and the join as parallel branches), and
+      eagerly on the current stream, so the trial times the streamed
+      graph against the one-stream dispatch;
     * on the CPU it is the plain version: every call runs the schedule
       over a ``ValueStore`` and nothing is captured or timed.
 

@@ -23,8 +23,10 @@ stages as in the JAX package:
   finish closure that only writes.  :func:`execute_plan` runs both
   halves and returns the (already predicted) cost;
   :func:`execute_overlapped` runs an overlap group's starts before its
-  finishes, and :func:`execute_schedule` issues a whole optimized
-  program against a registry or a :class:`ValueStore`.
+  finishes (in a CUDA-graph capture the starts on side streams of a
+  small per-device pool, :func:`fork_streams`), and
+  :func:`execute_schedule` issues a whole optimized program against a
+  registry or a :class:`ValueStore`.
 
 Every method the planner returns executes: ``noop``, ``seq`` (p == 1),
 ``direct`` (coloured rounds, the uniform-permutation fast path,
@@ -43,6 +45,7 @@ import collections
 import contextlib
 import dataclasses
 import math
+import os
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,6 +62,7 @@ __all__ = [
     "plan_cost", "conflict_free", "find_conflict", "global_plan_cache",
     "EXECUTED_METHODS", "OVERLAPPABLE_METHODS", "begin_plan",
     "execute_overlapped", "execute_schedule", "ValueStore",
+    "fork_streams", "on_stream",
 ]
 
 
@@ -1330,6 +1334,75 @@ def execute_plan(plan: SuperstepPlan, registry, msgs: Sequence[Msg],
     return plan.cost_with_label(label)
 
 
+# ==========================================================================
+# CUDA streams for split-phase overlap
+# ==========================================================================
+
+#: side streams a device's pool holds at most
+_POOL_WIDTH = 4
+
+_STREAM_POOLS: Dict[torch.device, List["torch.cuda.Stream"]] = {}
+
+
+def _stream_pool(device: torch.device, n: int) -> list:
+    pool = _STREAM_POOLS.setdefault(device, [])
+    while len(pool) < n:
+        pool.append(torch.cuda.Stream(device))
+    return pool[:n]
+
+
+@contextlib.contextmanager
+def fork_streams(device, n: int):
+    """Fork ``n`` independent pieces of work onto side streams; yields one
+    stream a piece, or ``None`` where it stays on the current stream.
+
+    The pieces fork only inside a CUDA-graph capture, where the fork and
+    the join are parallel branches of the graph, joined before the
+    capture ends.  Dispatched, the fork and join cost more host time than
+    the overlap hides, so the pieces stay on the current stream, as on
+    the CPU; ``LPF_OVERLAP_STREAMS=0`` keeps them there in a capture too.
+    Each side stream first waits for what the current stream has queued;
+    on exit — also when the block raises — the current stream waits for
+    every side stream.  Pieces beyond the pool's width share its streams
+    in turn.  Side streams run only between such a fork and join, which
+    orders the memory they touch without ``record_stream``: a block
+    freed on a side stream is reused there only after a later fork,
+    behind the current stream's work; one freed on the current stream
+    after the join, behind the side streams' work.  So the side work must
+    read only tensors that outlive the join.  A stream that cannot be
+    made, forked or joined raises :class:`LPFFatalError`: the work never
+    falls back to one stream."""
+    device = torch.device(device)
+    if not _capturing(device) or n < 1 or \
+            os.environ.get("LPF_OVERLAP_STREAMS") == "0":
+        yield [None] * n
+        return
+    try:
+        pool = _stream_pool(device, min(n, _POOL_WIDTH))
+        cur = torch.cuda.current_stream(device)
+        for s in pool:
+            s.wait_stream(cur)
+    except Exception as e:
+        raise LPFFatalError(f"forking {n} pieces of work onto CUDA side "
+                            f"streams failed: {type(e).__name__}: {e}"
+                            ) from e
+    try:
+        yield [pool[i % len(pool)] for i in range(n)]
+    finally:
+        try:
+            for s in pool:
+                cur.wait_stream(s)
+        except Exception as e:
+            raise LPFFatalError(f"joining the CUDA side streams failed: "
+                                f"{type(e).__name__}: {e}") from e
+
+
+def on_stream(stream):
+    """``torch.cuda.stream(stream)``, or nothing for ``None``."""
+    return contextlib.nullcontext() if stream is None \
+        else torch.cuda.stream(stream)
+
+
 def execute_overlapped(items: Sequence[Tuple[SuperstepPlan, Sequence[Msg],
                                              SyncAttributes, str]],
                        registry, scratch: Optional[Slot] = None
@@ -1338,10 +1411,21 @@ def execute_overlapped(items: Sequence[Tuple[SuperstepPlan, Sequence[Msg],
     *start* halves first (every member reads the group-entry slot state),
     then all *finish* halves in program order.  Returns the group's single
     ledger entry, by construction :func:`repro_torch.core.cost.
-    overlap_cost` of the members' planned costs."""
-    finishes = [begin_plan(plan, registry, list(msgs), attrs,
-                           scratch=scratch)
-                for plan, msgs, attrs, _ in items]
+    overlap_cost` of the members' planned costs.
+
+    Inside a CUDA-graph capture each start half runs on a side stream of
+    the device's pool (:func:`fork_streams`), so the members' reads and
+    payload work run side by side; the current stream joins them all
+    before the finishes write, in program order on the current stream.
+    The values are those of the one-stream order bit for bit: a start
+    half writes no slot, and each member computes the same thing on
+    whichever stream it runs."""
+    with fork_streams(registry.device, len(items)) as streams:
+        finishes = []
+        for (plan, msgs, attrs, _), s in zip(items, streams):
+            with on_stream(s):
+                finishes.append(begin_plan(plan, registry, list(msgs),
+                                           attrs, scratch=scratch))
     for finish in finishes:
         finish()
     return overlap_cost([plan.cost for plan, _, _, _ in items],
@@ -1363,6 +1447,10 @@ class ValueStore:
     def __init__(self, values: Dict[int, torch.Tensor], p: int):
         self._values = dict(values)
         self.p = int(p)
+        #: where the values live (the first one's device; the CPU if none)
+        self.device = next((v.device for v in self._values.values()
+                            if isinstance(v, torch.Tensor)),
+                           torch.device("cpu"))
         self.read_first: set = set()
         self.written: set = set()
 

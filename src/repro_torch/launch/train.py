@@ -7,9 +7,16 @@ cpu``.  The smoke config is the default; ``--no-smoke`` trains the
 published geometry (on the card: llama3.2-1b and mamba2-130m at B 4 x S
 2048 fit one 80 GB H100 with ``remat="full"``).  The config is one
 card's (``ep_degree=1``).
-The JAX launcher's multi-device options need a mesh or pods: ``--mesh``
-other than ``1x1``, ``--compress`` and ``--sync-every`` raise (ROADMAP
-A10); ``--grad-sync lpf`` on one card is the plain step.
+
+``--mesh PxDxM`` (or ``DxM``) lays the batch over ``P`` pods, held as
+virtual processes on the device (:mod:`repro_torch.launch.mesh`); ``D``
+and ``M`` above 1 need the multi-GPU port and raise (ROADMAP A10).  With
+``--grad-sync lpf`` the pods' gradients cross an explicit LPF sync
+(``bsp.pod_sync``; ``--compress``: the int16 ring), whose superstep
+ledger is printed at the end; ``--sync-every k`` runs local SGD, every
+k-th step synced and the others the GSPMD step, as the JAX launcher
+does.  On the CPU: ``python -m repro_torch.launch.train --device cpu
+--mesh 2x1x1 --grad-sync lpf --steps 3``.
 """
 
 from __future__ import annotations
@@ -19,7 +26,8 @@ import dataclasses
 import time
 
 from . import one_card_config
-from ..core.errors import LPFFatalError
+from .mesh import make_mesh
+from ..core import CompressSpec, SyncAttributes
 from ..data import DataConfig, SyntheticStream
 from ..models import count_params, model_flops
 from ..optim import AdamWConfig, warmup_cosine
@@ -43,7 +51,8 @@ def main(argv=None):
                     choices=["blocked", "flash", "reference"],
                     help="override the config's attention implementation")
     ap.add_argument("--mesh", default="1x1",
-                    help="DxM (data x model); one card takes only 1x1")
+                    help="DxM (data x model), or PxDxM for multi-pod; one "
+                         "card takes pods only (D and M of 1)")
     ap.add_argument("--grad-sync", default="gspmd",
                     choices=["gspmd", "lpf"])
     ap.add_argument("--sync-every", type=int, default=0,
@@ -54,24 +63,31 @@ def main(argv=None):
     ap.add_argument("--grad-accum", type=int, default=1)
     args = ap.parse_args(argv)
 
-    if args.mesh != "1x1" or args.compress or args.sync_every:
-        raise LPFFatalError(
-            "--mesh other than 1x1, --compress and --sync-every need a "
-            "device mesh or pods, which the one-card port does not have "
-            "yet (ROADMAP A10)")
+    mesh = make_mesh(tuple(int(x) for x in args.mesh.split("x")))
     cfg = one_card_config(args.arch, args.smoke)
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    attrs = SyncAttributes(compress=CompressSpec(bits=8)
+                           if args.compress else None)
     ts = build_train_step(
-        cfg, opt_cfg=AdamWConfig(lr=warmup_cosine(args.lr, 10, args.steps)),
-        grad_sync=args.grad_sync, grad_accum=args.grad_accum,
-        device=args.device)
+        cfg, mesh,
+        opt_cfg=AdamWConfig(lr=warmup_cosine(args.lr, 10, args.steps)),
+        grad_sync=args.grad_sync, sync_attrs=attrs,
+        grad_accum=args.grad_accum, device=args.device)
+    ts_nosync = None
+    if args.sync_every > 1:
+        ts_nosync = build_train_step(
+            cfg, mesh, opt_cfg=AdamWConfig(
+                lr=warmup_cosine(args.lr, 10, args.steps)),
+            grad_sync="gspmd", grad_accum=args.grad_accum,
+            device=args.device)
     stream = SyntheticStream(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch), cfg)
     tokens = args.batch * args.seq
     print(f"{cfg.name}: {count_params(cfg)} parameters, attn_impl "
           f"{cfg.attn_impl}, remat {cfg.remat}, B {args.batch} x S "
-          f"{args.seq} on {ts.rt.device}")
+          f"{args.seq} on {ts.rt.device}, mesh {mesh.shape}, grad sync "
+          f"{args.grad_sync}")
 
     def on_step(step, loss, verdict):
         if step % 10 == 0 or step == args.steps - 1 or verdict.straggle:
@@ -82,7 +98,10 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     out = train_loop(ts, stream, TrainLoopConfig(
-        steps=args.steps, ckpt_dir=args.ckpt_dir), on_step=on_step)
+        steps=args.steps, ckpt_dir=args.ckpt_dir,
+        sync_every=args.sync_every),
+        step_fn_nosync=ts_nosync.step_fn if ts_nosync else None,
+        on_step=on_step)
     wall = time.perf_counter() - t0
     print(f"final loss: {out['final_loss']:.4f}")
     ran = len(out["losses"])
@@ -90,6 +109,9 @@ def main(argv=None):
         print(f"{ran} steps in {wall:.2f} s wall on {ts.rt.device}; model "
               f"flops 6ND {model_flops(cfg, tokens * ran) / wall / 1e12:.2f}"
               f" TFLOP/s (the remat recompute not counted)")
+    if ts.ledger.records:
+        print("\nLPF superstep ledger (first steps):")
+        print(ts.ledger.report())
     return out
 
 

@@ -12,8 +12,8 @@
   partials the decode step merges (cache, then the new token).
 
 The JAX package's :func:`decode_attention` shards the KV cache over a
-mesh; on one card there is no mesh, and it raises (ROADMAP A10, with the
-multi-GPU port).
+mesh's data and model axes; one card has none, and it raises (ROADMAP
+A10, its multi-GPU part).
 
 Two limits of the JAX package's attention hold here too, each refused by
 name where the JAX package fails or goes silently wrong:
@@ -134,9 +134,9 @@ def decode_attention(*args, **kwargs):
     (``shard_map`` over a mesh).  One card has no mesh: the single-device
     decode is :func:`repro_torch.models.blocks._attn_decode`."""
     raise LPFFatalError(
-        "decode_attention shards the KV cache over a device mesh; the port "
-        "runs on one card and has no mesh yet (ROADMAP A10, with the "
-        "multi-GPU port)")
+        "decode_attention shards the KV cache over a device mesh's data and "
+        "model axes; one card holds only pods, as virtual processes "
+        "(ROADMAP A10, its multi-GPU part)")
 
 
 def attention(q, k, v, *, impl: str = "blocked", causal=True, window=None,

@@ -23,7 +23,8 @@ by the call's shapes and nothing is read on the host, so a decode step
 through this block can be captured as a CUDA graph.
 
 Expert parallelism (:func:`moe_apply`, the JAX ``shard_map`` path over the
-model axis) needs a device mesh and raises (ROADMAP A10).
+model axis) needs a device mesh and raises (ROADMAP A10, its multi-GPU
+part).
 """
 
 from __future__ import annotations
@@ -145,5 +146,5 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *, mesh,
     """Expert parallelism over a mesh's model axis: not on one card."""
     raise LPFFatalError(
         "moe_apply shards the experts over a device mesh's model axis, "
-        "which the one-card port does not have yet (ROADMAP A10); one "
-        "device runs moe_single")
+        "which one card does not have (ROADMAP A10, its multi-GPU part); "
+        "one device runs moe_single")

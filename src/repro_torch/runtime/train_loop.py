@@ -18,9 +18,11 @@ Fault-tolerance contract:
     error belongs to ``ctx.with_capacity``'s resize-and-retry, not to
     checkpoint rollback.
 
-The JAX loop's local-SGD outer loop (``sync_every``, a step without the
-cross-pod sync) needs pods and is not ported (ROADMAP A10); the training
-launcher refuses ``--sync-every``.
+Local SGD (the paper's STALE attribute realised at loop level): the inner
+loop runs `sync_every` steps with the cross-pod sync OFF (a second step
+variant, ``step_fn_nosync``), then one step syncs across pods.  As in
+JAX, the no-sync step of a pod mesh is the GSPMD step over the whole
+batch (``runtime/train_step.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ class TrainLoopConfig:
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 50
     resume: bool = True
+    # local SGD / stale sync: 0 = every step is synchronous
+    sync_every: int = 0
     # recovery supervision: how many checkpoint-restore retries a run
     # may spend on *transient* step failures before the error
     # propagates, and the (doubling) backoff before each retry
@@ -124,10 +128,13 @@ class StepSupervisor:
 
 def train_loop(ts: TrainStep, stream: SyntheticStream,
                cfg: TrainLoopConfig, *,
+               step_fn_nosync: Optional[Callable] = None,
                on_step: Optional[Callable] = None) -> Dict[str, Any]:
     """Run training from seed 0 (or the newest checkpoint); returns summary
     metrics + the monitor history.  ``loss`` is read back each step, so a
-    step's wall time ends when its work on the device has."""
+    step's wall time ends when its work on the device has.  With
+    ``cfg.sync_every = k > 1`` and ``step_fn_nosync``, every step but each
+    k-th runs ``step_fn_nosync`` (local SGD)."""
     dev = ts.rt.device
     start = 0
     params = opt = None
@@ -152,9 +159,12 @@ def train_loop(ts: TrainStep, stream: SyntheticStream,
     while step < cfg.steps:
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in stream.batch(step).items()}
+        use_nosync = (cfg.sync_every > 1 and step_fn_nosync is not None
+                      and (step + 1) % cfg.sync_every != 0)
+        fn = step_fn_nosync if use_nosync else ts.step_fn
         t0 = time.perf_counter()
         try:
-            params, opt, metrics = ts.step_fn(params, opt, batch)
+            params, opt, metrics = fn(params, opt, batch)
             loss = float(metrics["loss"])
         except Exception as err:
             if not supervisor.on_error(step, err):

@@ -14,10 +14,25 @@ forward and backward on the card) followed by
 arguments are left as they were and new trees are returned.
 ``grad_accum`` loops over microbatches and averages their gradients in
 f32; ``steps_per_call`` rolls K steps into one call over a batch with a
-leading ``[K]`` axis and returns ``[K]`` metrics.  One card is one pod,
-so ``grad_sync="lpf"`` is the plain step, as in JAX with one pod; what
-needs pods (``pod_sync``, compressed or bucketed sync, local SGD) raises
-(ROADMAP A10).
+leading ``[K]`` axis and returns ``[K]`` metrics.
+
+*Pods.*  A mesh (:mod:`repro_torch.launch.mesh`) with ``q`` pods holds
+them as ``q`` virtual processes on the device; its data and model axes
+must be 1 (larger ones raise naming A10).  Under ``grad_sync="lpf"`` each
+pod takes the loss and gradients of its own rows of the batch (rows
+``[i·B/q, (i+1)·B/q)``, JAX's ``P("pod")``; ``grad_accum`` inside the
+pod), the pods' gradients stack ``[q, ...]`` and cross the pod hop
+through :func:`~repro_torch.bsp.pod_sync.pod_allreduce` (the method,
+buckets and sync attributes as in JAX; with ``grad_bucket_bytes`` the
+stacked layer groups split at layer boundaries first), the loss is the
+pods' mean, and AdamW runs once on the replicated parameters and state,
+which are held once.  Its records go to :attr:`TrainStep.ledger` on a
+batch shape's first step only: JAX ledgers while it traces, once a
+compiled step.  ``grad_sync="gspmd"`` on a pod mesh is the plain step
+over the whole batch, as in JAX, where XLA reduces the gradient over
+every batch axis: the pods never drift apart, and the local-SGD
+"no-sync" step differs from the synced one only in its route and its
+ledger (ROADMAP C).
 
 *Serving.*  ``step_fn`` is one eager decode step.  A bucket's
 ``decode_fn(n)`` is the counterpart of the JAX package's one-``While``
@@ -41,7 +56,10 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from ..bsp.pod_sync import pod_allreduce, tree_flatten
+from ..core import CostLedger, LPF_SYNC_DEFAULT, SyncAttributes
 from ..core.errors import LPFError, LPFFatalError, LPFTransientError
+from ..launch.mesh import VirtualMesh, virtual_pods
 from ..models.blocks import Runtime
 from ..models.config import ModelConfig
 from ..models.lm import (ParamTree, decode_step, init_caches, init_params,
@@ -49,9 +67,12 @@ from ..models.lm import (ParamTree, decode_step, init_caches, init_params,
 from ..optim import AdamWConfig, adamw_init, adamw_update
 
 __all__ = ["TrainStep", "build_train_step", "ServeStep", "CapturedDecode",
-           "build_serve_step", "build_serve_buckets"]
+           "build_serve_step", "build_serve_buckets", "POD_SYNC_RANGE"]
 
 Tree = Dict[str, Any]
+
+#: the ``torch.profiler`` range around a pod step's cross-pod sync
+POD_SYNC_RANGE = "pod_sync"
 
 
 # --------------------------------------------------------------------------
@@ -68,6 +89,8 @@ class TrainStep:
     #: dtypes a checkpoint restores onto, with nothing allocated
     like_fn: Callable
     rt: Runtime
+    #: the cross-pod sync's superstep records (one step's, as JAX's trace)
+    ledger: CostLedger = dataclasses.field(default_factory=CostLedger)
 
 
 def _fill(tree: Tree, values) -> Tree:
@@ -77,31 +100,76 @@ def _fill(tree: Tree, values) -> Tree:
             for k, v in tree.items()}
 
 
-def build_train_step(cfg: ModelConfig, *,
-                     opt_cfg: AdamWConfig = AdamWConfig(),
+def _map(fn, *trees):
+    """``fn`` over the leaves of congruent nested dicts and lists."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, list):
+        return [_map(fn, *xs) for xs in zip(*trees)]
+    return fn(*trees)
+
+
+def _split_scan_layers(grads: Tree, cfg: ModelConfig):
+    """Split the pod-stacked scan-group gradient leaves ``[q, L, ...]``
+    into L per-layer subtrees of ``[q, ...]`` views, so bucket boundaries
+    (``bucketize`` packs leaves greedily, never splitting one) can fall on
+    layer boundaries — the granularity at which the backward pass
+    materialises gradients.  Returns the split tree plus the set of keys
+    to restack.  Leaves whose layer axis is not the group's repeat count
+    (or groups of one repeat) pass through unsplit."""
+    repeats = {f"dec_{g.name}": g.repeats for g in cfg.groups}
+    repeats.update({f"enc_{g.name}": g.repeats for g in cfg.encoder_groups})
+    split, split_keys = {}, set()
+    for key, sub in grads.items():
+        r = repeats.get(key, 0)
+        if r > 1:
+            leaves = tree_flatten(sub)[0]
+            if leaves and all(l.ndim >= 2 and l.shape[1] == r
+                              for l in leaves):
+                split[key] = [_map(lambda l, i=i: l[:, i], sub)
+                              for i in range(r)]
+                split_keys.add(key)
+                continue
+        split[key] = sub
+    return split, split_keys
+
+
+def _restack_scan_layers(split: Tree, split_keys) -> Tree:
+    """The inverse of :func:`_split_scan_layers` on one pod's leaves:
+    each split group's per-layer leaves stacked ``[L, ...]`` again."""
+    return {key: _map(lambda *xs: torch.stack(xs), *sub)
+            if key in split_keys else sub
+            for key, sub in split.items()}
+
+
+def build_train_step(cfg: ModelConfig, mesh: Optional[VirtualMesh] = None,
+                     *, opt_cfg: AdamWConfig = AdamWConfig(),
                      grad_sync: str = "gspmd",
-                     sync_attrs: Optional[Any] = None,
+                     sync_attrs: SyncAttributes = LPF_SYNC_DEFAULT,
+                     grad_sync_method: str = "auto",
+                     grad_bucket_bytes: Optional[int] = None,
                      grad_accum: int = 1,
                      steps_per_call: int = 1,
                      donate: bool = False,
                      device="cuda") -> TrainStep:
     """The training step of ``cfg`` on ``device`` (the card unless the
-    caller asks for the CPU).  ``donate=True`` consumes the parameters and
-    optimizer state a step is given (the JAX package's ``donate_argnums``,
-    its default there): AdamW updates them in place, so a step holds one
-    copy of the state; the caller must use only what the step returns."""
+    caller asks for the CPU).  ``mesh=None`` is one pod; a mesh's pods
+    run as virtual processes (module docstring), its data and model axes
+    above 1 raise naming A10.  ``donate=True`` consumes the parameters
+    and optimizer state a step is given (the JAX package's
+    ``donate_argnums``, its default there): AdamW updates them in place,
+    so a step holds one copy of the state; the caller must use only what
+    the step returns."""
     if grad_sync not in ("gspmd", "lpf"):
         raise LPFFatalError(f"grad_sync={grad_sync!r}: expected gspmd or "
                             f"lpf")
-    if sync_attrs is not None:
-        raise LPFFatalError(
-            "sync attributes (compressed or staled cross-pod gradient sync) "
-            "need pods and bsp.pod_sync, which are not ported yet "
-            "(ROADMAP A10)")
     if grad_accum < 1 or steps_per_call < 1:
         raise LPFFatalError(f"grad_accum={grad_accum} and steps_per_call="
                             f"{steps_per_call} must be >= 1")
+    npods = virtual_pods(mesh)
     rt = Runtime(device)
+    ledger = CostLedger()
 
     def loss_and_grads(params: ParamTree, batch: dict):
         """Microbatched (gradient-accumulated) loss and f32 gradients."""
@@ -129,12 +197,65 @@ def build_train_step(cfg: ModelConfig, *,
         return loss_sum / grad_accum, _fill(tree, (g / grad_accum
                                                    for g in g_sum))
 
-    def step(params: ParamTree, opt: Tree, batch: dict):
+    def plain_step(params: ParamTree, opt: Tree, batch: dict):
         loss, grads = loss_and_grads(params, batch)
         new, opt, metrics = adamw_update(grads, opt, params.tree(), opt_cfg,
                                          donate=donate)
         metrics["loss"] = loss
         return ParamTree(new, trainable=True), opt, metrics
+
+    #: the batch signatures whose first step ledgered (JAX: one trace each)
+    traced = set()
+
+    def pod_step(params: ParamTree, opt: Tree, batch: dict):
+        rows = next(iter(batch.values())).shape[0]
+        if rows % npods:
+            raise LPFFatalError(f"a batch of {rows} rows does not split "
+                                f"over {npods} pods")
+        sig = tuple((k, tuple(v.shape), str(v.dtype))
+                    for k, v in sorted(batch.items()))
+        led = None if sig in traced else ledger
+        traced.add(sig)
+        per = rows // npods
+        stacked, losses = None, []
+        for i in range(npods):
+            loss, grads = loss_and_grads(
+                params, {k: v[i * per:(i + 1) * per]
+                         for k, v in batch.items()})
+            if stacked is None:
+                stacked = _map(lambda g: g.new_empty((npods, *g.shape)),
+                               grads)
+            _map(lambda dst, g, i=i: dst[i].copy_(g), stacked, grads)
+            losses.append(loss)
+            del grads
+        # ``auto`` picks the overlapped bucket pipeline when
+        # ``grad_bucket_bytes`` is set, one reduce-scatter + all-gather
+        # pair for uncompressed gradients otherwise, the int16 ring under
+        # compression
+        bucketing = grad_bucket_bytes is not None and grad_sync_method in (
+            "auto", "bucketed", "bucketed_fenced", "bucketed_overlap")
+        keys = set()
+        if bucketing:
+            # bucket boundaries on layer boundaries: the stacked [q, L, ...]
+            # group leaves split into per-layer [q, ...] views
+            stacked, keys = _split_scan_layers(stacked, cfg)
+        with torch.profiler.record_function(POD_SYNC_RANGE):
+            synced = pod_allreduce(stacked, npods, "pod", attrs=sync_attrs,
+                                   mean=True, ledger=led,
+                                   method=grad_sync_method,
+                                   bucket_bytes=grad_bucket_bytes)
+        del stacked
+        # every pod holds the same gradients: the replicated state takes
+        # one pod's row, as P() holds it once
+        grads = _restack_scan_layers(_map(lambda g: g[0], synced), keys)
+        del synced
+        loss = torch.stack(losses).sum() / npods
+        new, opt, metrics = adamw_update(grads, opt, params.tree(), opt_cfg,
+                                         donate=donate)
+        metrics["loss"] = loss
+        return ParamTree(new, trainable=True), opt, metrics
+
+    step = pod_step if grad_sync == "lpf" and npods > 1 else plain_step
 
     def multi(params: ParamTree, opt: Tree, batches: dict):
         """``steps_per_call`` steps over batches with a leading [K] axis;
@@ -157,7 +278,7 @@ def build_train_step(cfg: ModelConfig, *,
         return params, adamw_init(params.tree(), opt_cfg)
 
     return TrainStep(step_fn=multi if steps_per_call > 1 else step,
-                     init_fn=init_fn, like_fn=like_fn, rt=rt)
+                     init_fn=init_fn, like_fn=like_fn, rt=rt, ledger=ledger)
 
 
 # --------------------------------------------------------------------------

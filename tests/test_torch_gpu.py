@@ -1532,3 +1532,152 @@ def test_granite_train_step_launch_counts(cuda):
             fa_kernel.flash_attention_bwd_dkv.launches,
             fa_kernel.flash_attention_bwd_dq.launches) == (fwd, attn, attn)
     assert np.isfinite(loss) and abs(loss - want) < 1e-2 * want
+
+
+# --------------------------------------------------------------------------
+# virtual pods and split-phase overlap on CUDA streams
+# --------------------------------------------------------------------------
+
+def pod_grads(q, dev, layers=4, elems=1 << 12, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return {f"l{i}": torch.randn(q, elems, generator=gen).to(dev)
+            for i in range(layers)}
+
+
+@pytest.mark.parametrize("route", ["dispatched", "compiled"])
+def test_overlap_group_on_stream_pool_matches_one_stream(cuda, route,
+                                                         monkeypatch):
+    """The ``bucket_sync`` program's overlap groups (four buckets' reduce-
+    scatters, then their all-gathers) issue their start halves on side
+    streams of the pool when captured as a CUDA graph, and on the current
+    stream when dispatched; either way the values are bit-equal to the
+    one-stream run (``LPF_OVERLAP_STREAMS=0``)."""
+    from repro_torch.bsp import build_cross_pod_sync
+    from repro_torch.core import sync as tsync
+    from repro_torch.launch.mesh import make_mesh
+    grads = pod_grads(4, cuda)
+    sync = build_cross_pod_sync(make_mesh((4, 1, 1)), None,
+                                bucket_bytes=(1 << 12) * 4)
+    monkeypatch.setenv("LPF_COMPILE_PROGRAMS",
+                       "1" if route == "compiled" else "0")
+    runs = {}
+    for pool in (False, True):
+        if pool:
+            monkeypatch.delenv("LPF_OVERLAP_STREAMS", raising=False)
+        else:
+            monkeypatch.setenv("LPF_OVERLAP_STREAMS", "0")
+        tlpf.global_program_cache().clear()
+        streams = []
+        real = tsync.begin_plan
+
+        def spy(*a, **kw):
+            streams.append(torch.cuda.current_stream(cuda))
+            return real(*a, **kw)
+
+        monkeypatch.setattr(tsync, "begin_plan", spy)
+        outs = [sync(grads) for _ in range(8)]   # the compiled trial
+        monkeypatch.setattr(tsync, "begin_plan", real)
+        # the pool's streams (a capture runs on a stream of its own)
+        side = {s.stream_id for s in streams} & {
+            s.stream_id for pool_ in tsync._STREAM_POOLS.values()
+            for s in pool_}
+        assert bool(side) == (pool and route == "compiled"), \
+            (pool, route, len(side))
+        if side:
+            assert len(side) == 4
+        if route == "compiled":
+            arts = tlpf.global_program_cache().artifacts()
+            assert arts and all(a.captured or a.use_graph is False
+                                for a in arts)
+            assert any(a.n_replays > 0 for a in arts)
+        for o in outs[1:]:
+            for k in o:
+                assert torch.equal(o[k], outs[0][k]), k
+        runs[pool] = outs[-1]
+    for k in grads:
+        assert torch.equal(runs[True][k], runs[False][k]), k
+        want = grads[k].mean(0, keepdim=True).expand_as(grads[k])
+        assert torch.allclose(runs[True][k], want, rtol=1e-6, atol=1e-6)
+    tlpf.global_program_cache().clear()
+
+
+POD_METHODS = [("rs+ag", None), ("bucketed", 1 << 14),
+               ("bucketed_fenced", 1 << 14), ("bucketed_overlap", 1 << 14),
+               ("bucketed_overlap", 1), ("ring", None), ("int16", None)]
+
+
+@pytest.mark.parametrize("q", [2, 4])
+@pytest.mark.parametrize("method,bucket", POD_METHODS)
+def test_pod_allreduce_on_card_matches_cpu(cuda, q, method, bucket):
+    """Every ``pod_allreduce`` method on the card against the CPU: bit-equal
+    at q = 2 and under compression (int16 sums are exact), within 1e-6
+    relative at q = 4; the same ledger."""
+    from repro_torch.bsp.pod_sync import pod_allreduce
+    kw = dict(method=method, bucket_bytes=bucket)
+    if method == "int16":
+        kw = dict(method="ring", attrs=tlpf.SyncAttributes(
+            compress=tlpf.CompressSpec(bits=8)))
+    grads = pod_grads(q, "cpu", layers=6, elems=5000, seed=q)
+    grads["bf16"] = grads.pop("l5").to(torch.bfloat16)
+    led_c, led_g = tlpf.CostLedger(), tlpf.CostLedger()
+    want = pod_allreduce(grads, q, ledger=led_c, **kw)
+    got = pod_allreduce({k: v.to(cuda) for k, v in grads.items()}, q,
+                        ledger=led_g, **kw)
+    assert led_c.records == led_g.records
+    for k in grads:
+        g = got[k].cpu()
+        assert g.dtype == want[k].dtype and g.shape == want[k].shape
+        if q == 2 or method == "int16":
+            assert torch.equal(g, want[k]), k
+        else:
+            assert torch.allclose(g.float(), want[k].float(), rtol=1e-6,
+                                  atol=1e-6 * want[k].abs().max().item())
+
+
+def test_pod_train_step_on_card(cuda):
+    """One pod step of the smoke config over a 2x1x1 mesh on the card:
+    loss and ``grad_norm`` within 1e-4 of the same step on the CPU, the
+    bucketed-overlap step's parameters bit-equal to the flat one's, each
+    flash kernel launched by both pods (twice the forward under full
+    remat), the ledger as on the CPU."""
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train_step import build_train_step
+    cfg = smoke_cfg(attn_impl="flash", compute_dtype="float32")
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                        global_batch=4))
+    b = stream.batch(0)
+
+    from repro_torch.interop import params_from_jax, params_to_numpy
+    from repro_torch.optim import adamw_init
+    weights = params_to_numpy(build_train_step(cfg, device="cpu").init_fn(
+        0)[0])
+
+    def step(dev, **kw):
+        ts = build_train_step(cfg, make_mesh((2, 1, 1)), grad_sync="lpf",
+                              opt_cfg=AdamWConfig(lr=1e-3), device=dev,
+                              **kw)
+        params = params_from_jax(weights, device=dev, trainable=True)
+        out = ts.step_fn(params, adamw_init(params.tree()),
+                         {k: torch.from_numpy(v).to(dev)
+                          for k, v in b.items()})
+        return out, ts.ledger
+
+    (_, _, m_cpu), led_cpu = step("cpu")
+    for fn in (fa_kernel.flash_attention_fwd,
+               fa_kernel.flash_attention_bwd_dkv,
+               fa_kernel.flash_attention_bwd_dq):
+        fn.launches = 0
+    (p_flat, _, m_flat), led = step(cuda)
+    assert (fa_kernel.flash_attention_fwd.launches,
+            fa_kernel.flash_attention_bwd_dkv.launches,
+            fa_kernel.flash_attention_bwd_dq.launches) == (8, 4, 4)
+    assert led.records == led_cpu.records
+    for k in ("loss", "grad_norm"):
+        assert abs(m_flat[k].item() - m_cpu[k].item()) < \
+            1e-4 * abs(m_cpu[k].item())
+    (p_ovl, _, m_ovl), _ = step(cuda, grad_bucket_bytes=1 << 14)
+    assert torch.equal(m_ovl["grad_norm"], m_flat["grad_norm"])
+    for a, c in zip(p_ovl.parameters(), p_flat.parameters()):
+        assert torch.equal(a, c)

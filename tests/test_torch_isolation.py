@@ -7,8 +7,8 @@
   raise, they never carry on on the CPU (the LPF core, the FFT, the
   serving path: ``init_params``, ``prefill``, ``decode_step``,
   ``build_serve_buckets``, ``ModelDecodeEngine``, the serve launcher; and
-  the training path: ``loss_fn``, ``build_train_step``, the train
-  launcher, the interop loaders, a checkpoint restore; and PageRank:
+  the training path: ``loss_fn``, ``build_train_step`` (also over a
+  pod mesh), the train launcher (also with ``--mesh 2x1x1``), the interop loaders, a checkpoint restore; and PageRank:
   ``lpf_pagerank``, ``dataflow_pagerank``, the sparse oracle and
   ``shard_tensors``);
 * a CPU tensor takes the plain version and launches nothing; the CUDA
@@ -81,6 +81,9 @@ def test_fresh_interpreter_loads_no_jax():
             "repro_torch.analysis.__main__", "repro_torch.optim.adafactor",
             "repro_torch.optim.compress"} <= set(PORT_MODULES)
     assert ROOT / "scripts" / "warm_start.py" in PORT_FILES
+    assert {"repro_torch.bsp.pod_sync", "repro_torch.bsp.grad_sync",
+            "repro_torch.launch.mesh"} <= set(PORT_MODULES)
+    assert ROOT / "scripts" / "program_replay.py" in PORT_FILES
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -197,6 +200,7 @@ def test_training_entry_points_refuse_without_a_card(tmp_path):
     from repro_torch.interop import opt_state_from_jax, params_from_jax
     from repro_torch.launch import train
     from repro_torch.models import init_params, loss_fn
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.runtime.train_step import build_train_step
     cfg = get_config("llama3.2-1b", smoke=True)
     params = init_params(0, cfg, device="cpu", trainable=True)
@@ -207,7 +211,10 @@ def test_training_entry_points_refuse_without_a_card(tmp_path):
         lambda: init_params(0, cfg, trainable=True),
         lambda: loss_fn(params, batch, cfg),
         lambda: build_train_step(cfg),
+        lambda: build_train_step(cfg, make_mesh((2, 1, 1)), grad_sync="lpf"),
         lambda: train.main(["--steps", "1"]),
+        lambda: train.main(["--steps", "1", "--mesh", "2x1x1",
+                            "--grad-sync", "lpf"]),
         lambda: params_from_jax({"w": np.zeros(2, np.float32)}),
         lambda: opt_state_from_jax({"m": {}, "v": {}, "step": 0}),
         lambda: restore(str(tmp_path), 1, meta, device="cuda"),

@@ -54,12 +54,14 @@ from repro.runtime.train_step import build_train_step as jax_build_train_step
 from repro_torch.checkpoint import (AsyncCheckpointer, latest_step, restore,
                                     save)
 from repro_torch.configs import get_config
-from repro_torch.core import LPFCapacityError, LPFFatalError
+from repro_torch.core import (CompressSpec, LPFCapacityError, LPFFatalError,
+                              SyncAttributes)
 from repro_torch.core.faultpoints import InjectedFault
 from repro_torch.data import DataConfig, SyntheticStream
 from repro_torch.interop import (opt_state_from_jax, params_from_jax,
                                  params_to_numpy)
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import (ParamTree, Runtime, count_params,
                                 init_params, loss_fn, model_flops)
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
@@ -392,17 +394,36 @@ def test_steps_per_call_matches_iterated_single_steps():
         assert (a - b).abs().max().item() < 5e-3
 
 
-def test_what_needs_pods_raises():
+def test_one_pod_lpf_step_is_the_plain_step():
+    """One card without a mesh, or a mesh of one pod, is one pod: the
+    ``lpf`` step is the plain step and ledgers nothing; sync attributes
+    are taken (they act only across pods)."""
     cfg = tiny_cfg()
-    # one card is one pod: grad_sync="lpf" is the plain step
-    ts = build_train_step(cfg, grad_sync="lpf", device="cpu")
-    ts.step_fn(*ts.init_fn(0), stream_for(cfg, B=2, S=8).batch(0))
-    with pytest.raises(LPFFatalError, match="A10"):
-        build_train_step(cfg, sync_attrs=object(), device="cpu")
-    from repro_torch.launch import train
-    for flags in (["--mesh", "2x1"], ["--compress"], ["--sync-every", "4"]):
+    b = stream_for(cfg, B=2, S=8).batch(0)
+    plain = build_train_step(cfg, device="cpu")
+    want = plain.step_fn(*plain.init_fn(0), b)
+    attrs = SyncAttributes(compress=CompressSpec(bits=8))
+    for mesh in (None, make_mesh((1, 1)), make_mesh((1, 1, 1))):
+        ts = build_train_step(cfg, mesh, grad_sync="lpf", sync_attrs=attrs,
+                              device="cpu")
+        got = ts.step_fn(*ts.init_fn(0), b)
+        assert torch.equal(got[2]["loss"], want[2]["loss"])
+        for x, y in zip(got[0].parameters(), want[0].parameters()):
+            assert torch.equal(x, y)
+        assert not ts.ledger.records
+
+
+def test_what_needs_device_axes_raises():
+    """A data or model axis above 1 is a GSPMD layout over real devices:
+    the step builder and the launcher raise naming A10."""
+    cfg = tiny_cfg()
+    for shape in ((2, 1), (1, 2), (2, 2, 1), (1, 1, 2)):
         with pytest.raises(LPFFatalError, match="A10"):
-            train.main(["--device", "cpu", "--steps", "1", *flags])
+            build_train_step(cfg, make_mesh(shape), device="cpu")
+    from repro_torch.launch import train
+    for mesh in ("2x1", "1x2x1"):
+        with pytest.raises(LPFFatalError, match="A10"):
+            train.main(["--device", "cpu", "--steps", "1", "--mesh", mesh])
 
 
 # --------------------------------------------------------------------------
