@@ -74,6 +74,14 @@ bf16) adds, between phases 6 and 7:
     64 tokens, the median of 3 calls captured and one call per token,
     the two paths' streams equal),
     beside each engine's admission price, and tokens/s (``serve_paths``);
+    then the (4, 256) bucket on a virtual (pod, data, model) = (1, 2, 4)
+    mesh (``MESH_SHAPE``: the batch over 2 shards, the KV cache's
+    sequence over 4 shards of 64 slots, ``decode_attention``) against
+    the same bucket on a 1x1 mesh: 64 teacher-forced steps' logits within
+    ``MESH_DECODE_BAR``, the control (each cache shard's slot offset
+    dropped from ``valid``) beyond it, the mesh bucket's captured greedy
+    decode equal to its eager steps, and ms per token captured beside
+    the 1x1 bucket's and the engine's (``mesh_decode``);
 (f) last, ``torch.profiler`` over one prefill, one eager decode step and
     one replay of the captured step: device time by kernel family,
     kernel launches, and the device's idle share.
@@ -285,7 +293,19 @@ adds, after (s); (b) and (j) gain its kernel shapes (granite's attention
     steps at a capacity that drops nothing (``raised_capacity``, both
     sides) with the published factor's drops of the prompt beside;
     serving as in (e); one eager against one captured step with the MoE
-    block's share of each;
+    block's share of each; then on the virtual ``MESH_SHAPE`` mesh
+    (``ep_degree`` 4: 40 experts, 10 a model shard, no padding): one MoE
+    layer (layer 0, f32, B 2 x S 512, tokens sharing one direction so
+    that the capacity binds) through ``moe_apply`` against the same call
+    on the CPU and against its batch shards' ``moe_single`` calls, each
+    within 1e-5, with ``moe_single`` over the whole batch as the control
+    and each shard's drops (``moe_mesh_check``); the B 4 x S 2048
+    prefill on the mesh (32 flash launches), each batch shard's drops
+    beside the one-card prefill's, host ms beside the one-card
+    prefill's, the forward's logits against its batch shards' one-card
+    forwards (the median position) within ``MESH_PREFILL_BAR`` in bf16
+    and ``MESH_PREFILL_F32_BAR`` in f32, the whole batch on one card
+    beyond each (``mesh_prefill``);
 (v) jamba-v0.1-52b at its published widths with its depth cut to one
     8-layer period (7 Mamba and 1 attention layer, 4 MoE and 4 dense
     FFNs; 13.27 B; 103 GB of bf16 weights at full depth do not fit): the
@@ -346,7 +366,16 @@ tile masked by length alone) and its decoder's, causal:
     share; the B 1 gradients against reference attention with every
     expert routed (a bf16 top-k flips near-tie tokens) under (h)'s bars;
     the steps donate their state (AdamW in place), so 52.8 GB of f32
-    state is held once;
+    state is held once; then, from that donated state, ``MESH_STEPS``
+    steps on the virtual ``MESH_SHAPE`` mesh (capacity per batch shard,
+    experts over 4 model shards) with the counts set to 0 just before
+    (64 / 32 / 32 launches a step), their ms and peak, and the forward
+    loss on the mesh against the mean of its batch shards' one-card
+    losses within ``MESH_LOSS_BAR`` (the control, each shard's capacity
+    from the global batch, beyond it; the whole batch's one-card loss
+    beside), and the per-token losses in f32 against the shards' (the
+    median token) within ``MESH_TOKEN_BAR``, that control and the whole
+    batch on one card beyond it (``granite_mesh_steps``);
 (aa) the paper's main path warm-starting from disk: ``bsp_fft`` at N =
     2^24, p = 8, ``use_kernel=True`` in a context with ``persist_dir`` a
     fresh directory, then with new plan and program caches on the same
@@ -581,6 +610,34 @@ STACK_FWD_SHAPES = [
 POD_MESH, POD_BUCKET_BYTES, POD_STEPS, POD_SYNC_LAYERS = (2, 1, 1), \
     1 << 28, 3, 4
 POD_NORM_BAR, POD_INT16_BAR = 1e-2, 1.0
+# the virtual (pod, data, model) mesh of (e), (u) and (z): 2 batch shards
+# and 4 model shards (granite's 40 experts 10 a shard at ep_degree 4, no
+# padding; llama3.2-1b's (4, 256) bucket's cache 4 shards of 64 slots)
+MESH_SHAPE, MESH_BUCKET, MESH_LAYER_B, MESH_STEPS = (1, 2, 4), (4, 256), \
+    2, 2
+# (e): the mesh bucket's teacher-forced logits against the 1x1 bucket's
+# (largest relative error over 64 steps), between a sound reading (the
+# same bf16 model with its 4 cache partials merged in another order) and
+# the control that drops each cache shard's slot offset from ``valid``;
+# (z): the forward loss on the mesh against the mean of the one-card
+# losses of its 2 batch shards (relative), between a sound reading and
+# the control that takes each shard's capacity from the global batch
+MESH_DECODE_BAR, MESH_LOSS_BAR = 5e-2, 1e-3
+# Rounding flips near-tie routes and capacity cut-offs (a cut-off among
+# 4,096 tokens leaves gaps of ~1e-4), and a flipped token moves every
+# later position of its sequence: in bf16 nearly every position, in f32
+# a few sequences.  So the mesh checks below read the median over
+# positions, which a capacity taken over the wrong tokens moves at every
+# position.  (z): the same state's per-token losses in f32 on the mesh
+# against its batch shards' one-card ones (the median |difference| over
+# the mean loss), below the bar, both controls (each shard's capacity
+# from the global batch; the whole batch on one card) above it
+MESH_TOKEN_BAR = 5e-5
+# (u): the B 4 x S 2048 forward's logits on the mesh against its batch
+# shards' one-card forwards (the median over positions of a position's
+# largest |difference| over its largest |logit|), in f32 and in bf16,
+# each below its bar, the whole batch on one card (the control) above
+MESH_PREFILL_F32_BAR, MESH_PREFILL_BAR = 3e-3, 8e-2
 
 
 def check(cond: bool, what: str) -> None:
@@ -741,6 +798,13 @@ def flash_phase(rng, dev, build_log: str,
 def rel_err(a, ref) -> float:
     a, ref = a.float(), ref.float()
     return ((a - ref).abs().max() / ref.abs().max()).item()
+
+
+def median_row_err(a, ref) -> float:
+    """The median over rows (every dimension but the last) of a row's
+    largest |a - ref| over its largest |ref|."""
+    a, ref = a.float(), ref.float()
+    return ((a - ref).abs().amax(-1) / ref.abs().amax(-1)).median().item()
 
 
 def grad_row_err(a, ref) -> float:
@@ -923,6 +987,118 @@ def flash_bwd_phase(rng, dev, build_log: str,
     return rows
 
 
+def f32_cfg(cfg):
+    """``cfg`` computing in f32 (its bf16 or f32 weights upcast as they
+    are read), with plain blocked attention: the flash kernel is bf16."""
+    return dataclasses.replace(cfg, compute_dtype="float32",
+                               attn_impl="blocked")
+
+
+def token_losses(params, batch, cfg, rt):
+    """Each position's next-token cross-entropy [B, S] (f32; 0 where the
+    label is -1): ``loss_fn``'s terms before their mean."""
+    import torch
+    from repro_torch.models import forward
+    logits = forward(params, batch, cfg, rt)
+    labels = batch["labels"].long()
+    picked = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - picked) * (labels >= 0)
+
+
+def granite_mesh_steps(label: str, cfg, params, opt, stream, dev) -> dict:
+    """(z) on the virtual ``MESH_SHAPE`` mesh from the donated state the
+    one-card loop left: ``MESH_STEPS`` steps of ``build_train_step`` on
+    the mesh (donated, so the state is still held once) with the counts
+    set to 0 just before (64 forward, 32 dK/dV and 32 dQ launches a
+    step), each step's ms and the peak; then, at the state they leave,
+    the forward loss on the mesh against the mean of the one-card losses
+    of its batch shards (the same capacity a shard), within
+    ``MESH_LOSS_BAR``, the control (each shard's capacity from the global
+    batch) beyond it, and the one-card loss of the whole batch (1x1
+    mesh) beside; then the per-token losses in f32 on the mesh against
+    its shards' (the median token) within ``MESH_TOKEN_BAR``, both the global-capacity
+    control and the whole batch on one card beyond it."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import loss_fn, moe
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.runtime.train_step import build_train_step
+    mcfg = mesh_cfg(cfg)
+    ts = build_train_step(mcfg, make_mesh(MESH_SHAPE), opt_cfg=AdamWConfig(
+        lr=warmup_cosine(3e-3, 10, GRANITE_TRAIN_STEPS)), donate=True,
+        device=dev)
+    n_dp = MESH_SHAPE[0] * MESH_SHAPE[1]
+    check(ts.rt.distributed and ts.batch_axes == ("pod", "data"),
+          f"{label} mesh runtime {ts.rt.__dict__}")
+    dev_batch = lambda i: {k: torch.from_numpy(v).to(dev)
+                           for k, v in stream.batch(i).items()}
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for i in range(MESH_STEPS):
+        b = dev_batch(GRANITE_TRAIN_STEPS + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = ts.step_fn(params, opt, b)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = expected_counts(mcfg, forward_calls=2, backward=True)
+    b = dev_batch(GRANITE_TRAIN_STEPS + MESH_STEPS)
+    rt1 = mesh_runtime(dev, (1, 1))
+    with torch.no_grad():
+        loss_mesh = loss_fn(params, b, mcfg, ts.rt).item()
+        loss_1x1 = loss_fn(params, b, cfg, rt1).item()
+        loss_shards = statistics.fmean(
+            loss_fn(params, {k: v.chunk(n_dp)[i] for k, v in b.items()},
+                    cfg, rt1).item() for i in range(n_dp))
+        tok_mesh = token_losses(params, b, f32_cfg(mcfg), ts.rt)
+        tok_shards = torch.cat([
+            token_losses(params, {k: v.chunk(n_dp)[i] for k, v in
+                                  b.items()}, f32_cfg(cfg), rt1)
+            for i in range(n_dp)])
+        tok_1x1 = token_losses(params, b, f32_cfg(cfg), rt1)
+        real = moe.moe_capacity
+        moe.moe_capacity = lambda T, E, c: real(T * n_dp, E, c)
+        try:
+            loss_control = loss_fn(params, b, mcfg, ts.rt).item()
+            tok_control = token_losses(params, b, f32_cfg(mcfg), ts.rt)
+        finally:
+            moe.moe_capacity = real
+    tok_rel = lambda t: ((t - tok_shards).abs().median()
+                         / tok_shards.abs().mean()).item()
+    out = dict(mesh=list(MESH_SHAPE), batch=GRANITE_TRAIN_B, seq=TRAIN_S,
+               steps=MESH_STEPS, losses=losses, step_ms=step_ms,
+               peak_mem_gb=peak, launches=launches,
+               launches_per_step=per_step, loss_mesh=loss_mesh,
+               loss_shards=loss_shards, loss_1x1=loss_1x1,
+               loss_control_global_capacity=loss_control,
+               rel_vs_shards=abs(loss_mesh - loss_shards) / loss_shards,
+               rel_vs_1x1=abs(loss_mesh - loss_1x1) / loss_1x1,
+               control_rel_vs_shards=abs(loss_control - loss_shards)
+               / loss_shards, bar=MESH_LOSS_BAR,
+               token_rel_vs_shards_f32=tok_rel(tok_mesh),
+               control_token_rel_global_capacity_f32=tok_rel(tok_control),
+               control_token_rel_1x1_f32=tok_rel(tok_1x1),
+               token_bar=MESH_TOKEN_BAR, card=card_line())
+    print(f"{label} on the {MESH_SHAPE} mesh " + json.dumps(out),
+          flush=True)
+    check(all(map(math.isfinite, losses)), f"{label} mesh losses {losses}")
+    for name, n in per_step.items():
+        check(launches[name] == n * MESH_STEPS,
+              f"{label} mesh {name}: {launches[name]} launches in "
+              f"{MESH_STEPS} steps, not {n} per step")
+    check(out["rel_vs_shards"] < MESH_LOSS_BAR
+          < out["control_rel_vs_shards"],
+          f"{label}: the mesh loss against its shards' {out}")
+    check(out["token_rel_vs_shards_f32"] < MESH_TOKEN_BAR
+          < min(out["control_token_rel_global_capacity_f32"],
+                out["control_token_rel_1x1_f32"]),
+          f"{label}: the mesh's f32 token losses against its shards' {out}")
+    return out
+
+
 def train_phases(dev, arch: str = ARCH) -> dict:
     """(h)-(i): llama3.2-1b training at full width, flash attention
     against reference attention; (t) mamba2-130m's, the ``ssd_scan``
@@ -1031,6 +1207,10 @@ def train_phases(dev, arch: str = ARCH) -> dict:
               f"steps, not {n} per step")
 
     if moe:
+        # one step on the virtual mesh from the donated state, last
+        # before the gradients
+        out["mesh"] = granite_mesh_steps(label, cfg, res["params"],
+                                         res["opt"], stream, dev)
         del res
         torch.cuda.empty_cache()
         # every expert routed at B 1: no top-k flip between the two
@@ -1279,26 +1459,34 @@ def raised_capacity(cfg):
 def moe_drops(params, batch, cfg, rt) -> dict:
     """The (token, expert) pairs one prefill routes, and how many of them
     its capacity drops: ``expert_load`` on each MoE block's input, summed
-    on the card."""
+    on the card; under a mesh runtime (``moe_apply``), also each batch
+    shard's drops (``per_shard``)."""
     import torch
     from repro_torch.models import blocks, moe, prefill
-    real = blocks.moe_single
+    name = "moe_apply" if rt.distributed else "moe_single"
+    real = getattr(blocks, name)
     dropped, routed = [], []
 
-    def counted(p, x, mcfg):
-        load, cap = moe.expert_load(p, x, mcfg)
-        dropped.append((load - cap).clamp_min(0).sum())
-        routed.append(load.sum())
-        return real(p, x, mcfg)
+    def counted(p, x, mcfg, **kw):
+        load, cap = moe.expert_load(p, x, mcfg, mesh=rt.mesh,
+                                    dp_axes=rt.dp_axes) \
+            if rt.distributed else moe.expert_load(p, x, mcfg)
+        dropped.append((load - cap).clamp_min(0).sum(-1))
+        routed.append(load.sum(-1))
+        return real(p, x, mcfg, **kw)
 
-    blocks.moe_single = counted
+    setattr(blocks, name, counted)
     try:
         prefill(params, batch, cfg, rt)
     finally:
-        blocks.moe_single = real
-    return dict(dropped=int(torch.stack(dropped).sum()),
-                routed=int(torch.stack(routed).sum()),
-                moe_blocks=len(dropped))
+        setattr(blocks, name, real)
+    per_shard = torch.stack(dropped).sum(0)
+    out = dict(dropped=int(per_shard.sum()),
+               routed=int(torch.stack(routed).sum()),
+               moe_blocks=len(dropped))
+    if rt.distributed:
+        out["per_shard"] = per_shard.tolist()
+    return out
 
 
 def kernel_family(name: str) -> str:
@@ -1364,6 +1552,90 @@ def profile_families(label: str, run, wall_ms: float, ranges=()) -> dict:
     for name, r in out.get("ranges", {}).items():
         check(r["calls"] > 0 and r["device_us"] > 0,
               f"{label}: no device time inside the range {name}")
+    return out
+
+
+def mesh_decode(label: str, rng, cfg, params, dev,
+                one_card_ms: float) -> dict:
+    """(e) on the virtual ``MESH_SHAPE`` mesh: the ``MESH_BUCKET`` bucket
+    (batch over the pod and data axes, the cache's sequence over the 4
+    model shards) against the same bucket on a 1x1 mesh, both as
+    ``build_serve_step`` builds them.  ``DECODE_TOKENS`` teacher-forced
+    steps: the logits' largest relative error within
+    ``MESH_DECODE_BAR``, and the control (every cache shard's slots
+    counted from 0, ``attention.shard_slots``) beyond it; then the
+    bucket's captured decode of ``DECODE_TOKENS`` greedy tokens equal to
+    its eager steps', and its ms per token (the median of
+    ``DECODE_CALLS`` calls) beside the 1x1 bucket's captured ms and the
+    one-card engine's (``serve_paths``)."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention, decode_step, init_caches
+    from repro_torch.runtime.train_step import build_serve_step
+    B, C = MESH_BUCKET
+    V, T = cfg.vocab, DECODE_TOKENS
+    ss = build_serve_step(cfg, make_mesh(MESH_SHAPE), global_batch=B,
+                          cache_len=C, device=dev)
+    ss1 = build_serve_step(cfg, make_mesh((1, 1)), global_batch=B,
+                           cache_len=C, device=dev)
+    check(ss.rt.dp_axes == ("pod", "data") and ss.rt.seq_axes == ("model",),
+          f"{label} mesh bucket axes {ss.rt.dp_axes} {ss.rt.seq_axes}")
+    toks = torch.from_numpy(rng.integers(0, V, (B, T))).to(dev)
+
+    def teacher(rt):
+        caches = init_caches(cfg, B, C, device=dev)
+        out = []
+        for t in range(T):
+            _, lg, caches = decode_step(params, toks[:, t], caches, t, cfg,
+                                        rt)
+            out.append(lg[:, :V].float())
+        return torch.stack(out)
+
+    want = teacher(ss1.rt)
+    got = teacher(ss.rt)
+    reading = max(rel_err(g, w) for g, w in zip(got, want))
+    real = attention.shard_slots
+    attention.shard_slots = lambda n, Sc, device: real(1, Sc, device) \
+        .expand(n, Sc)
+    try:
+        ctrl = teacher(ss.rt)
+    finally:
+        attention.shard_slots = real
+    control = max(rel_err(g, w) for g, w in zip(ctrl, want))
+    del got, want, ctrl
+    # greedy: the captured decode against the eager steps on the mesh
+    tok, caches, eager = toks[:, 0], init_caches(cfg, B, C, device=dev), []
+    for t in range(T):
+        tok, caches = ss.step_fn(params, caches, tok, t)
+        eager.append(tok)
+    captured, _ = ss.decode_fn(T)(params, toks[:, 0], 0)
+    same = bool(torch.equal(captured, torch.stack(eager)))
+
+    def per_token_ms(step):
+        fn = step.decode_fn(T)
+        times = []
+        for _ in range(DECODE_CALLS + 1):
+            t0 = time.perf_counter()
+            fn(params, toks[:, 0], 0)[0].cpu()
+            times.append((time.perf_counter() - t0) * 1e3 / T)
+        return statistics.median(times[1:])       # the first captures
+
+    out = dict(mesh=list(MESH_SHAPE), bucket=list(MESH_BUCKET),
+               batch_axes=list(ss.rt.dp_axes), seq_axes=list(ss.rt.seq_axes),
+               cache_shard_slots=C // MESH_SHAPE[-1], steps=T,
+               rel_err_vs_1x1=reading, control_slot_offset_dropped=control,
+               bar=MESH_DECODE_BAR, captured_equals_eager=same,
+               captured_ms_per_token=per_token_ms(ss),
+               captured_ms_per_token_1x1=per_token_ms(ss1),
+               one_card_engine_ms_per_token=one_card_ms,
+               captures=ss.graph.captures if ss.graph else 0,
+               card=card_line())
+    print(f"{label} bucket {MESH_BUCKET} on the {MESH_SHAPE} mesh " +
+          json.dumps(out), flush=True)
+    check(reading < MESH_DECODE_BAR < control,
+          f"{label}: the mesh bucket's decode against the 1x1 bucket's {out}")
+    check(same, f"{label}: the mesh bucket's captured decode differs from "
+                f"its eager steps")
     return out
 
 
@@ -1437,8 +1709,12 @@ def serving_phases(rng, dev) -> dict:
     check(rel_r < 0.08, f"rolling-cache decode vs windowed prefill rel err "
                         f"{rel_r}")
 
-    # (e) serving behind LPFServer, captured and per token ----------------
+    # (e) serving behind LPFServer, captured and per token, then the
+    # (4, 256) bucket on the virtual mesh ----------------------------------
     out["serve"], eng = serve_paths(ARCH, cfg, params, dev)
+    out["mesh_decode"] = mesh_decode(
+        ARCH, rng, cfg, params, dev,
+        out["serve"]["buckets"][str(MESH_BUCKET)]["captured_ms_per_token"])
 
     # (f) profiles last: after a torch.profiler session the host's eager
     # dispatch may run slower, which would skew the decode timings above
@@ -2123,6 +2399,150 @@ def moe_layer_check(params, cfg, rng, dev) -> dict:
     return out
 
 
+def mesh_cfg(cfg):
+    """``cfg`` with its experts padded for ``MESH_SHAPE``'s model axis
+    (``ep_degree``, as the launchers set it from the mesh)."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, ep_degree=MESH_SHAPE[-1]))
+
+
+def mesh_runtime(dev, shape=MESH_SHAPE):
+    """The runtime ``build_train_step`` gives a mesh of ``shape``
+    (``axis_roles="fsdp_tp"``)."""
+    from repro_torch.launch.mesh import dp_axes_of, make_mesh
+    from repro_torch.models import Runtime
+    mesh = make_mesh(shape)
+    return Runtime(dev, mesh, dp_axes=dp_axes_of(mesh), model_axis="model")
+
+
+def moe_mesh_check(params, cfg, rng, dev) -> dict:
+    """One MoE layer (layer 0's weights, upcast to f32) at B
+    ``MESH_LAYER_B`` x S ``MOE_LAYER_S`` in f32 through ``moe_apply`` on
+    the virtual ``MESH_SHAPE`` mesh (a batch shard a row, 10 experts a
+    model shard): against the same call on the CPU, and against the
+    identity ``moe_apply`` on (1, D, M) = D ``moe_single`` calls on the
+    batch shards, each within ``MOE_LAYER_BAR``; the control,
+    ``moe_single`` over the whole batch (one capacity for all its
+    tokens), printed beside and beyond the bar wherever the shards drop
+    other counts than the whole batch does; each batch shard's drops, and
+    the card's milliseconds of both calls."""
+    import torch
+    from repro_torch.models import moe
+    mcfg = mesh_cfg(cfg).moe
+    rt = mesh_runtime(dev)
+    check(mcfg.padded_experts == mcfg.n_experts,
+          f"{cfg.name}: {mcfg.padded_experts} experts over "
+          f"{MESH_SHAPE[-1]} model shards, not {mcfg.n_experts}")
+    tree = params.tree()["dec_body"]["b0"]["moe"]
+    p = {k: v[0].float() for k, v in tree.items()}
+    p_cpu = {k: v.cpu() for k, v in p.items()}
+    # tokens that share one direction, as a model's hidden states do:
+    # isotropic noise routes evenly and drops nothing at this size
+    shared = rng.standard_normal(cfg.d_model, dtype=np.float32)
+    x = torch.from_numpy(rng.standard_normal(
+        (MESH_LAYER_B, MOE_LAYER_S, cfg.d_model), dtype=np.float32)
+        + shared)
+    xd = x.to(dev)
+    kw = dict(mesh=rt.mesh, dp_axes=rt.dp_axes)
+    y = moe.moe_apply(p, xd, mcfg, **kw)
+    y_cpu = moe.moe_apply(p_cpu, x, mcfg, **kw)
+    shards = torch.cat([moe.moe_single(p, xs, mcfg)
+                        for xs in xd.chunk(MESH_SHAPE[0] * MESH_SHAPE[1])])
+    whole = moe.moe_single(p, xd, mcfg)
+    load, cap = moe.expert_load(p, xd, mcfg, **kw)
+    load1, cap1 = moe.expert_load(p, xd, mcfg)
+    drops = (load - cap).clamp_min(0).sum(1).tolist()
+    drops1 = int((load1 - cap1).clamp_min(0).sum())
+    out = dict(mesh=list(MESH_SHAPE), shape=list(x.shape),
+               experts=p["w_gate"].shape[0], top_k=mcfg.top_k,
+               shard_capacity=cap, capacity=cap1, drops_per_shard=drops,
+               drops_whole_batch=drops1,
+               rel_err_vs_cpu=rel_err(y.cpu(), y_cpu),
+               rel_err_vs_shards=rel_err(y, shards),
+               control_moe_single_whole_batch=rel_err(whole, shards),
+               bar=MOE_LAYER_BAR,
+               ms_f32=cuda_ms(lambda: moe.moe_apply(p, xd, mcfg, **kw)),
+               moe_single_ms_f32=cuda_ms(
+                   lambda: moe.moe_single(p, xd, mcfg)),
+               card=card_line())
+    print(f"{cfg.name} one MoE layer on the {MESH_SHAPE} mesh " +
+          json.dumps(out), flush=True)
+    check(out["rel_err_vs_cpu"] < MOE_LAYER_BAR
+          and out["rel_err_vs_shards"] < MOE_LAYER_BAR,
+          f"{cfg.name}: moe_apply on the mesh {out}")
+    check(sum(drops) > 0, f"{cfg.name}: the shards drop nothing {out}")
+    check(sum(drops) == drops1
+          or out["control_moe_single_whole_batch"] > MOE_LAYER_BAR,
+          f"{cfg.name}: the whole batch's capacity passes the bar of the "
+          f"shards' {out}")
+    return out
+
+
+def mesh_prefill(label: str, rng, cfg, params, dev, B: int, S: int,
+                 one_card_drops: dict) -> dict:
+    """The B x S prefill on the virtual ``MESH_SHAPE`` mesh with the
+    counts set to 0 just before (the one-card prefill's launches), its
+    logits finite, each batch shard's capacity drops beside the one-card
+    prefill's, and host ms beside the one-card prefill's in the same
+    call; then the forward's logits at every position (the median
+    position's error, :func:`median_row_err`) against its batch shards'
+    one-card forwards within ``MESH_PREFILL_BAR``, and the same in f32
+    within ``MESH_PREFILL_F32_BAR``, the whole batch's one-card forward
+    (one capacity for all its tokens), the control, beyond each."""
+    import torch
+    from repro_torch.models import Runtime, forward, prefill
+    mcfg, rt, rt1 = mesh_cfg(cfg), mesh_runtime(dev), Runtime(dev)
+    V = cfg.vocab
+    batch = {"tokens": torch.from_numpy(rng.integers(0, V, (B, S))).to(dev)}
+    zero_counts()
+    logits = prefill(params, batch, mcfg, rt)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts == expected_counts(mcfg),
+          f"{label} mesh prefill launched {counts}")
+    check(bool(torch.isfinite(logits[:, :V]).all()),
+          f"{label} mesh prefill logits finite")
+    drops = moe_drops(params, batch, mcfg, rt)
+
+    def against_shards(c_mesh, c_one) -> tuple:
+        """The mesh's and the whole batch's one-card forward against the
+        batch shards' one-card forwards, each a median row error."""
+        ref = torch.cat([forward(params, {"tokens": t}, c_one, rt1)[..., :V]
+                         for t in batch["tokens"].chunk(
+                             MESH_SHAPE[0] * MESH_SHAPE[1])])
+        errs = tuple(median_row_err(forward(params, batch, c, r)[..., :V],
+                                    ref) for c, r in ((c_mesh, rt),
+                                                      (c_one, rt1)))
+        del ref
+        torch.cuda.empty_cache()
+        return errs
+
+    err, control = against_shards(mcfg, cfg)
+    err32, control32 = against_shards(f32_cfg(mcfg), f32_cfg(cfg))
+    out = dict(mesh=list(MESH_SHAPE), batch=B, seq=S,
+               flash_launches=counts["flash_attention_fwd"],
+               capacity_drops=drops, one_card_capacity_drops=one_card_drops,
+               row_err_vs_shards=err, control_row_err_whole_batch=control,
+               row_err_vs_shards_f32=err32,
+               control_row_err_whole_batch_f32=control32,
+               bar=MESH_PREFILL_BAR, bar_f32=MESH_PREFILL_F32_BAR,
+               e2e_ms=host_ms(lambda: prefill(params, batch, mcfg, rt),
+                              reps=3, warmup=1),
+               one_card_e2e_ms=host_ms(lambda: prefill(params, batch, cfg,
+                                                       rt1),
+                                       reps=3, warmup=1),
+               card=card_line())
+    print(f"{label} prefill on the {MESH_SHAPE} mesh " + json.dumps(out),
+          flush=True)
+    check(out["row_err_vs_shards_f32"] < MESH_PREFILL_F32_BAR
+          < out["control_row_err_whole_batch_f32"],
+          f"{label}: the f32 mesh forward against its shards' {out}")
+    check(out["row_err_vs_shards"] < MESH_PREFILL_BAR
+          < out["control_row_err_whole_batch"],
+          f"{label}: the mesh forward against its shards' {out}")
+    return out
+
+
 def moe_phases(dev) -> dict:
     """(u) granite-moe-3b-a800m whole, this slice's main path; (v)
     jamba-v0.1-52b at its published widths, its depth cut to
@@ -2154,6 +2574,11 @@ def moe_phases(dev) -> dict:
         ranges = (moe.MOE_RANGE,)
         res["prefill"] = dense_prefill(arch, rng, cfg, params, dev, B, S,
                                        ranges=ranges)
+        if arch == GRANITE_ARCH:
+            res["mesh_layer"] = moe_mesh_check(params, cfg, rng, dev)
+            res["mesh_prefill"] = mesh_prefill(
+                arch, rng, cfg, params, dev, B, S,
+                res["prefill"]["capacity_drops"])
         # decode against prefill at a capacity that drops nothing (a
         # 64-token prompt drops at the published factor; one-token decode
         # never does), beside the published factor's drops of that prompt

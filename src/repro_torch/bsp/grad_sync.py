@@ -19,7 +19,7 @@ paper's sync attributes apply to it:
 In JAX the sync runs manual over the mesh, each device exchanging its
 gradient shards with the devices of equal (data, model) coordinates in
 the other pods.  One card has no data or model axis above 1
-(:func:`repro_torch.launch.mesh.virtual_pods`), so the ``q`` pods are the
+(:func:`repro_torch.core.mesh.virtual_pods`), so the ``q`` pods are the
 ``q`` processes of one LPF context on the device, and every gradient
 leaf is stacked ``[q, ...]``.
 """
@@ -31,7 +31,7 @@ from typing import Any, Optional
 import torch
 
 from ..core import LPFContext, LPF_SYNC_DEFAULT, SyncAttributes, hook
-from ..launch.mesh import VirtualMesh, virtual_pods
+from ..core.mesh import VirtualMesh, virtual_pods
 from . import collectives
 from .pod_sync import bucketize, tree_flatten, tree_unflatten
 

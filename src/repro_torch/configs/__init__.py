@@ -7,7 +7,8 @@ architectures are registered: the dense attention models (llama3.2-1b,
 qwen3-14b, gemma2-9b, qwen1.5-110b), mamba2-130m, the MoE models
 granite-moe-3b-a800m and deepseek-v3-671b (MLA blocks and multi-token
 prediction), the hybrid jamba-v0.1-52b, the vision-prefix model
-llava-next-mistral-7b and the encoder-decoder whisper-base.
+llava-next-mistral-7b and the encoder-decoder whisper-base.  The JAX
+package's assigned shape set (:mod:`.shapes`) is exported beside them.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Callable, Dict, Tuple
 from . import (deepseek_v3_671b, gemma2_9b, granite_moe_3b, jamba_v01_52b,
                llama3_2_1b, llava_next_mistral_7b, mamba2_130m, qwen1_5_110b,
                qwen3_14b, whisper_base)
+from .shapes import SHAPES, ShapeCell, applicable, input_specs
 
 _MODULES = (qwen1_5_110b, llama3_2_1b, qwen3_14b, gemma2_9b, granite_moe_3b,
             deepseek_v3_671b, mamba2_130m, llava_next_mistral_7b,
@@ -36,4 +38,5 @@ def get_config(arch: str, *, smoke: bool = False, ep_degree: int = 16):
     return small() if smoke else full(ep_degree=ep_degree)
 
 
-__all__ = ["REGISTRY", "ARCHS", "get_config"]
+__all__ = ["REGISTRY", "ARCHS", "get_config", "SHAPES", "ShapeCell",
+           "applicable", "input_specs"]

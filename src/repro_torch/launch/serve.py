@@ -8,7 +8,8 @@ whose decode carries a recurrent state in place of a KV cache, the MoE
 models ``granite-moe-3b-a800m`` and ``deepseek-v3-671b`` (MLA against its
 compressed cache), the hybrid ``jamba-v0.1-52b``, the vision-prefix
 ``llava-next-mistral-7b`` or the encoder-decoder ``whisper-base``: all
-ten architectures; the config is one card's, ``ep_degree=1``); without
+ten architectures; the config is one card's, its ``ep_degree`` the
+mesh's model axis, 1 by default); without
 ``--device`` it runs on the card (and refuses to start without one), and
 ``--no-smoke`` serves the full-width model, loaded with the weights cast
 as they are drawn (:func:`repro_torch.models.load_params`).  Requests are
@@ -27,6 +28,15 @@ pads its rows to the bucket's batch, so a request's token stream is
 bit-identical whether it decodes solo or fully batched, captured or per
 token (the same kernels on the same shapes); ``--check`` re-decodes every
 completed request solo and verifies exactly that.
+
+``--mesh DxM`` (or ``PxDxM``) serves over a mesh whose devices are
+virtual shards on the one device (:mod:`repro_torch.launch.mesh`): each
+bucket's batch over the pod and data axes where they divide it, its KV
+cache's sequence over the model axis (over every axis where the batch
+cannot shard), the MoE experts over the model axis.  ``--devices`` is
+the JAX launcher's host-device count; one card has nothing to force, so
+it is accepted and not read.  On the CPU: ``python -m
+repro_torch.launch.serve --device cpu --mesh 1x2x4 --check``.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from . import one_card_config
+from .mesh import VirtualMesh, make_mesh
 from ..models.lm import ParamTree, init_caches, load_params
 from ..runtime.server import LPFServer, synthetic_requests
 from ..runtime.train_step import build_serve_buckets
@@ -61,14 +72,17 @@ class ModelDecodeEngine:
     ``quarantines`` count graph captures, tokens decoded by a replay and
     quarantine calls.  An encoder-decoder model is fed what the JAX
     engine feeds it: an encoder output of zeros, ``[B, 64, d_model]`` in
-    bf16, per bucket."""
+    bf16, per bucket.  ``mesh``: each bucket's step over the mesh's
+    virtual shards."""
 
     def __init__(self, cfg, buckets: Sequence[Tuple[int, int]], *,
                  params: Optional[ParamTree] = None, device="cuda",
                  seed: int = 0, calibrate_tokens: int = 4,
-                 per_token: bool = False):
+                 per_token: bool = False,
+                 mesh: Optional[VirtualMesh] = None):
         self._cfg = cfg
-        self._steps = build_serve_buckets(cfg, buckets, device=device)
+        self._steps = build_serve_buckets(cfg, buckets, device=device,
+                                          mesh=mesh)
         self.device = next(iter(self._steps.values())).rt.device
         self._params = params if params is not None else load_params(
             seed, cfg, device=self.device)
@@ -287,6 +301,12 @@ def main(argv=None):
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--tokens", type=int, default=32,
                     help="max tokens per request")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DxM (data x model), or PxDxM for multi-pod: "
+                         "virtual shards on the one device")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="the JAX launcher's host-device count; one card "
+                         "has nothing to force, so it is not read")
     ap.add_argument("--requests", type=int, default=8,
                     help="synthetic requests to serve")
     ap.add_argument("--seed", type=int, default=0)
@@ -305,19 +325,26 @@ def main(argv=None):
                          "assert the batched stream is bit-identical")
     args = ap.parse_args(argv)
 
-    cfg = one_card_config(args.arch, args.smoke)
+    mesh = make_mesh(tuple(int(x) for x in args.mesh.split("x")))
+    model = mesh.shape.get("model", 1)
+    # a model axis pads the experts to a multiple of its size
+    cfg = one_card_config(args.arch, args.smoke, model)
     cache_len = max(args.cache_len, args.tokens)
     buckets = sorted({(max(1, args.batch // 2), cache_len),
                       (args.batch, cache_len)})
-    print(f"building decode buckets {buckets} on {args.device} ...")
+    print(f"building decode buckets {buckets} on {args.device}, mesh "
+          f"{mesh.shape} ...")
     eng = ModelDecodeEngine(cfg, buckets, device=args.device,
-                            seed=args.seed, per_token=args.per_token)
+                            seed=args.seed, per_token=args.per_token,
+                            mesh=mesh)
     path = "per token" if args.per_token else (
         "captured" if eng.device.type == "cuda" else "eager loop")
     for b in eng.buckets():
+        rt = eng.serve_step(b).rt
         print(f"  bucket {b} ({path}): {eng.token_seconds(b) * 1e3:.2f} "
-              f"ms/token + {eng.overhead_seconds(b) * 1e3:.2f} ms/call")
-    serve(eng, requests=args.requests, seed=args.seed,
+              f"ms/token + {eng.overhead_seconds(b) * 1e3:.2f} ms/call; "
+              f"batch axes {rt.dp_axes}, sequence axes {rt.seq_axes}")
+    return serve(eng, requests=args.requests, seed=args.seed,
           max_queue=args.max_queue, deadline_scale=args.deadline_scale,
           tight_frac=args.tight_frac, max_tokens=args.tokens,
           check=args.check)

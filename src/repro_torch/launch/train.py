@@ -6,17 +6,22 @@ AdamW under a warmup-cosine schedule, on the card unless ``--device
 cpu``.  The smoke config is the default; ``--no-smoke`` trains the
 published geometry (on the card: llama3.2-1b and mamba2-130m at B 4 x S
 2048 fit one 80 GB H100 with ``remat="full"``).  The config is one
-card's (``ep_degree=1``).
+card's, its ``ep_degree`` the mesh's model axis (``M``).  Both steps
+donate their state (AdamW in place, one copy of it), as the JAX
+launcher's do.
 
-``--mesh PxDxM`` (or ``DxM``) lays the batch over ``P`` pods, held as
-virtual processes on the device (:mod:`repro_torch.launch.mesh`); ``D``
-and ``M`` above 1 need the multi-GPU port and raise (ROADMAP A10).  With
-``--grad-sync lpf`` the pods' gradients cross an explicit LPF sync
-(``bsp.pod_sync``; ``--compress``: the int16 ring), whose superstep
-ledger is printed at the end; ``--sync-every k`` runs local SGD, every
-k-th step synced and the others the GSPMD step, as the JAX launcher
-does.  On the CPU: ``python -m repro_torch.launch.train --device cpu
---mesh 2x1x1 --grad-sync lpf --steps 3``.
+``--mesh PxDxM`` (or ``DxM``) runs the mesh's devices as virtual shards
+on the one device (:mod:`repro_torch.launch.mesh`): ``P`` pods as
+virtual processes, the data and model axes through the step's runtime
+(an MoE model's capacity per ``(pod, data)`` shard, its experts over the
+``M`` model shards).  With ``--grad-sync lpf`` the pods' gradients cross
+an explicit LPF sync (``bsp.pod_sync``; ``--compress``: the int16 ring),
+whose superstep ledger is printed at the end; ``--sync-every k`` runs
+local SGD, every k-th step synced and the others the GSPMD step, as the
+JAX launcher does.  ``--devices`` is the JAX launcher's host-device
+count, accepted and not read.  On the CPU: ``python -m
+repro_torch.launch.train --device cpu --mesh 2x1x1 --grad-sync lpf
+--steps 3``, or ``--arch granite-moe-3b-a800m --mesh 1x2x2``.
 """
 
 from __future__ import annotations
@@ -51,8 +56,11 @@ def main(argv=None):
                     choices=["blocked", "flash", "reference"],
                     help="override the config's attention implementation")
     ap.add_argument("--mesh", default="1x1",
-                    help="DxM (data x model), or PxDxM for multi-pod; one "
-                         "card takes pods only (D and M of 1)")
+                    help="DxM (data x model), or PxDxM for multi-pod: "
+                         "virtual shards on the one device")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="the JAX launcher's host-device count; one card "
+                         "has nothing to force, so it is not read")
     ap.add_argument("--grad-sync", default="gspmd",
                     choices=["gspmd", "lpf"])
     ap.add_argument("--sync-every", type=int, default=0,
@@ -64,7 +72,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     mesh = make_mesh(tuple(int(x) for x in args.mesh.split("x")))
-    cfg = one_card_config(args.arch, args.smoke)
+    model = mesh.shape.get("model", 1)
+    # a model axis pads the experts to a multiple of its size
+    cfg = one_card_config(args.arch, args.smoke, model)
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     attrs = SyncAttributes(compress=CompressSpec(bits=8)
@@ -73,13 +83,13 @@ def main(argv=None):
         cfg, mesh,
         opt_cfg=AdamWConfig(lr=warmup_cosine(args.lr, 10, args.steps)),
         grad_sync=args.grad_sync, sync_attrs=attrs,
-        grad_accum=args.grad_accum, device=args.device)
+        grad_accum=args.grad_accum, donate=True, device=args.device)
     ts_nosync = None
     if args.sync_every > 1:
         ts_nosync = build_train_step(
             cfg, mesh, opt_cfg=AdamWConfig(
                 lr=warmup_cosine(args.lr, 10, args.steps)),
-            grad_sync="gspmd", grad_accum=args.grad_accum,
+            grad_sync="gspmd", grad_accum=args.grad_accum, donate=True,
             device=args.device)
     stream = SyntheticStream(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch), cfg)

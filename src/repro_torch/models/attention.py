@@ -9,11 +9,16 @@
 * ``attn_impl="reference"`` — the f32 oracle
   :func:`~repro_torch.kernels.flash_attention.ref.attention_ref`;
 * :func:`_partial_softmax` / :func:`merge_partials` — the (m, l, o)
-  partials the decode step merges (cache, then the new token).
-
-The JAX package's :func:`decode_attention` shards the KV cache over a
-mesh's data and model axes; one card has none, and it raises (ROADMAP
-A10, its multi-GPU part).
+  partials the decode step merges (cache, then the new token);
+  :func:`sharded_decode` merges them over ``n`` cache shards, one shard
+  on a single device;
+* :func:`decode_attention` — one token against a KV cache sharded over a
+  mesh's sequence axes (and its batch over the batch axes), the JAX
+  package's ``shard_map`` body over virtual shards
+  (:mod:`repro_torch.core.mesh`): each shard of the cache takes its
+  partial softmax over the slots it holds (global slot ``shard * Sc +
+  i`` valid below ``pos``), the partials merge (``pmax``, then the
+  rescaled ``psum`` in shard order), then the new token is folded in.
 
 Two limits of the JAX package's attention hold here too, each refused by
 name where the JAX package fails or goes silently wrong:
@@ -31,16 +36,17 @@ name where the JAX package fails or goes silently wrong:
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ..core.errors import LPFFatalError
+from ..core.mesh import merge, mesh_shards, split
 from ..kernels.flash_attention import ops as _flash_ops
 from ..kernels.flash_attention import ref as _flash_ref
 
-__all__ = ["blocked_attention", "decode_attention", "attention",
-           "merge_partials"]
+__all__ = ["blocked_attention", "decode_attention", "sharded_decode",
+           "attention", "merge_partials", "shard_slots"]
 
 NEG_INF = _flash_ref.NEG_INF
 
@@ -103,7 +109,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _partial_softmax(q, k, v, scale, softcap, valid=None):
     """Partial attention stats over a cache chunk.
     q [B, H, D]; k/v [B, Sc, Hkv, D] -> (m, l, o) with o unnormalised.
-    ``valid`` [Sc] bool masks cache slots not yet written."""
+    ``valid`` [Sc] (or [B, Sc], a row's own; [1, Sc] broadcasts) bool
+    masks cache slots not yet written."""
     B, H, D = q.shape
     Hkv = k.shape[2]
     group = H // Hkv
@@ -112,11 +119,13 @@ def _partial_softmax(q, k, v, scale, softcap, valid=None):
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     if valid is not None:
-        s = s.masked_fill(~valid[None, None, None, :], NEG_INF)
+        invalid = ~(valid[None, None, None, :] if valid.dim() == 1
+                    else valid[:, None, None, :])
+        s = s.masked_fill(invalid, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)                         # [B,Hkv,g,1]
     p = torch.exp(s - m)
     if valid is not None:
-        p = p.masked_fill(~valid[None, None, None, :], 0.0)
+        p = p.masked_fill(invalid, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
     return m, l, o
@@ -129,14 +138,79 @@ def merge_partials(m1, l1, o1, m2, l2, o2):
     return m, a1 * l1 + a2 * l2, a1 * o1 + a2 * o2
 
 
-def decode_attention(*args, **kwargs):
-    """The JAX package's decode against a sequence-sharded cache
-    (``shard_map`` over a mesh).  One card has no mesh: the single-device
-    decode is :func:`repro_torch.models.blocks._attn_decode`."""
-    raise LPFFatalError(
-        "decode_attention shards the KV cache over a device mesh's data and "
-        "model axes; one card holds only pods, as virtual processes "
-        "(ROADMAP A10, its multi-GPU part)")
+def shard_slots(n: int, Sc: int, device) -> torch.Tensor:
+    """The global slot index ``[n, Sc]`` of each of ``n`` cache shards'
+    ``Sc`` slots: ``shard * Sc + i``."""
+    return torch.arange(n * Sc, device=device).reshape(n, Sc)
+
+
+def sharded_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, k_new: torch.Tensor,
+                   v_new: torch.Tensor, n: int, *, scale: float,
+                   softcap: Optional[float], pos=None) -> torch.Tensor:
+    """One-token decode against a cache split into ``n`` sequence shards
+    (``n = 1``: the single-device decode).  q [B, H, D]; {k,v}_cache [B,
+    S, Hkv, D]; {k,v}_new [B, 1, Hkv, D] -> [B, H, Dv].  The shards fold
+    into the batch (row ``b * n + s``), so every shard's partial is one
+    call of :func:`_partial_softmax`; they merge (``pmax``, then the
+    rescaled ``psum`` in shard order), then the new token is folded in.
+    ``pos`` (an int or a 0-d device tensor) masks the slots not yet
+    written."""
+    B, H, D = q.shape
+    Hkv, Dv = k_cache.shape[2], v_cache.shape[-1]
+    kc = split(k_cache, 1, n, "decode_attention's cache length")
+    vc = split(v_cache, 1, n, "decode_attention's cache length")
+    Sc = kc.shape[2]
+    valid = None
+    if pos is not None:
+        # a row's own mask; one shard's [1, Sc] broadcasts over the rows
+        valid = shard_slots(n, Sc, q.device) < pos
+        if n > 1:
+            valid = merge(valid.expand(B, n, Sc), 0)
+    m, l, o = _partial_softmax(
+        merge(q[:, None].expand(B, n, H, D), 0), merge(kc, 0),
+        merge(vc, 0), scale, softcap, valid)
+    m, l, o = (split(t, 0, B) for t in (m, l, o))
+    mg, lg, og = m[:, 0], l[:, 0], o[:, 0]
+    if n > 1:
+        mg = m.amax(dim=1)
+        corr = torch.exp(m - mg[:, None])
+        lg, og = lg * corr[:, 0], og * corr[:, 0]
+        for i in range(1, n):
+            lg = lg + l[:, i] * corr[:, i]
+            og = og + o[:, i] * corr[:, i]
+    m2, l2, o2 = _partial_softmax(q, k_new, v_new, scale, softcap)
+    _m, lf, of = merge_partials(mg, lg, og, m2, l2, o2)
+    return (of / lf.clamp_min(1e-30)).reshape(B, H, Dv).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, k_new: torch.Tensor,
+                     v_new: torch.Tensor, *, mesh,
+                     seq_axes: Tuple[str, ...] = ("model",),
+                     batch_axes: Tuple[str, ...] = ("data",),
+                     softcap: Optional[float] = None,
+                     scale: Optional[float] = None,
+                     pos=None) -> torch.Tensor:
+    """One-token decode against a sequence-sharded cache with the
+    shards' partials merged (:func:`sharded_decode`).  q [B, H, D];
+    {k,v}_cache [B, S, Hkv, D], the batch over ``batch_axes`` and S over
+    ``seq_axes`` of ``mesh``; {k,v}_new [B, 1, Hkv, D].  Returns [B, H,
+    D].  Sliding-window caches are pre-rolled, so no window masks here.
+    A batch or cache length that its shards do not divide raises."""
+    if mesh is None:
+        raise LPFFatalError("decode_attention shards the KV cache over a "
+                            "mesh's axes, and got mesh=None; without a "
+                            "mesh the decode is blocks._attn_decode's")
+    batch_axes, seq_axes = tuple(batch_axes), tuple(seq_axes)
+    if set(batch_axes) & set(seq_axes):
+        raise LPFFatalError(f"decode_attention: batch axes {batch_axes} "
+                            f"and sequence axes {seq_axes} overlap")
+    split(q, 0, mesh_shards(mesh, batch_axes), "decode_attention's batch")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return sharded_decode(q, k_cache, v_cache, k_new, v_new,
+                          mesh_shards(mesh, seq_axes), scale=scale,
+                          softcap=softcap, pos=pos)
 
 
 def attention(q, k, v, *, impl: str = "blocked", causal=True, window=None,

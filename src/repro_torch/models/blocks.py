@@ -12,8 +12,15 @@ compressed cache ``ckv``/``krope`` at decode); the Mamba-2 mixer
 cross-attention (``cross_attn=True``: K/V from the encoder's output, no
 RoPE, not causal; a decode step recomputes them from ``enc_out`` every
 step, as the JAX package does).  The feed-forward blocks: dense and MoE
-(``ffn="dense"``, ``ffn="moe"`` with an optional shared expert; MoE on
-one device, :func:`~.moe.moe_single`).
+(``ffn="dense"``, ``ffn="moe"`` with an optional shared expert).
+
+A :class:`Runtime` with a mesh and a model axis (``distributed``, as in
+the JAX package) runs the two blocks whose ``shard_map`` bodies change
+values over the mesh's virtual shards: the MoE block is
+:func:`~.moe.moe_apply` (capacity per batch shard) and the decode's
+attention :func:`~.attention.decode_attention` (a partial softmax per
+cache shard).  Without one they are :func:`~.moe.moe_single` and the
+single-device decode.
 
 MLA's query/key width (``dh_nope + dh_rope``) differs from its value
 width ``dh_v``: ``attn_impl="flash"`` refuses it by name, as the JAX
@@ -37,18 +44,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..core.context import resolve_device
-from .attention import (NEG_INF, _partial_softmax, attention,
-                        merge_partials)
+from .attention import (NEG_INF, attention, decode_attention,
+                        sharded_decode)
 from .common import apply_rope, dense_init, layer_norm, rms_norm
 from .config import BlockCfg, ModelConfig
 from .mamba import (mamba_apply, mamba_decode_step, mamba_init_cache,
                     mamba_params)
-from .moe import moe_params, moe_single
+from .moe import moe_apply, moe_params, moe_single
 
 __all__ = ["block_params", "block_apply", "block_decode",
            "block_init_cache", "Runtime"]
@@ -57,19 +64,30 @@ Tree = Dict[str, Any]
 
 
 class Runtime:
-    """Execution context handed down from the launcher: the device.
+    """Execution context handed down from the launcher: the device, and
+    the JAX package's mesh and axis roles.
 
-    The JAX package's runtime carries a mesh and its axis roles; the port
-    runs on one device, so :attr:`distributed` is always False.  A CUDA
+    ``dp_axes``: batch-sharding axes (also the MoE token axes).
+    ``seq_axes``: KV-cache sequence-sharding axes for decode (defaults to
+    the model axis; long-context cells widen it to (data, model)).
+    The mesh's shards are virtual (:mod:`repro_torch.core.mesh`).  A CUDA
     device (the default) is refused, never replaced by the CPU, when no
     card is present."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", mesh=None,
+                 dp_axes: Tuple[str, ...] = (),
+                 model_axis: Optional[str] = None,
+                 seq_axes: Optional[Tuple[str, ...]] = None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.dp_axes = tuple(dp_axes)
+        self.model_axis = model_axis
+        self.seq_axes = tuple(seq_axes) if seq_axes is not None \
+            else ((model_axis,) if model_axis else ())
 
     @property
     def distributed(self) -> bool:
-        return False
+        return self.mesh is not None and self.model_axis is not None
 
 
 def _norm(x, p, kind: str, plus_one: bool = False):
@@ -169,12 +187,18 @@ def _mlp(p, x):
         @ p["w_down"]
 
 
-def _ffn_fwd(p, h, cfg: ModelConfig, bcfg: BlockCfg) -> torch.Tensor:
+def _ffn_fwd(p, h, cfg: ModelConfig, bcfg: BlockCfg,
+             rt: Runtime) -> torch.Tensor:
     """The feed-forward half of a block on h [B, S, D]: the dense MLP, or
-    the MoE block (plus the shared expert where the config has one)."""
+    the MoE block (plus the shared expert where the config has one),
+    over the runtime's mesh where it is ``distributed``."""
     if bcfg.ffn == "dense":
         return _mlp(p["mlp"], h)
-    out = moe_single(p["moe"], h, cfg.moe)
+    if rt.distributed:
+        out = moe_apply(p["moe"], h, cfg.moe, mesh=rt.mesh,
+                        model_axis=rt.model_axis, dp_axes=rt.dp_axes)
+    else:
+        out = moe_single(p["moe"], h, cfg.moe)
     if cfg.shared_expert:
         out = out + _mlp(p["shared_mlp"], h)
     return out
@@ -270,7 +294,7 @@ def block_apply(p: Tree, x: torch.Tensor, bcfg: BlockCfg, cfg: ModelConfig,
         x = x + o
     if bcfg.ffn != "none":
         h = _norm(x, p["ln2"], cfg.norm, plus_one)
-        o = _ffn_fwd(p, h, cfg, bcfg)
+        o = _ffn_fwd(p, h, cfg, bcfg, rt)
         if cfg.post_norms:
             o = _norm(o, p["post_ln2"], cfg.norm, plus_one)
         x = x + o
@@ -301,10 +325,12 @@ def block_init_cache(bcfg: BlockCfg, cfg: ModelConfig, batch: int,
     return c
 
 
-def _attn_decode(p, h, cache, cfg: ModelConfig, bcfg: BlockCfg, pos):
-    """One token of attention against the cache, then the rolling write
-    of its K/V at slot ``pos % cache_len`` (in place).  ``pos`` is an int
-    or a 0-d long tensor on ``h``'s device (see :func:`block_decode`)."""
+def _attn_decode(p, h, cache, cfg: ModelConfig, bcfg: BlockCfg,
+                 rt: Runtime, pos):
+    """One token of attention against the cache (over the runtime's
+    mesh where it is ``distributed``), then the rolling write of its K/V
+    at slot ``pos % cache_len`` (in place).  ``pos`` is an int or a 0-d
+    long tensor on ``h``'s device (see :func:`block_decode`)."""
     B, _ = h.shape
     hd = cfg.hd
     q = h @ p["wq"]
@@ -324,14 +350,14 @@ def _attn_decode(p, h, cache, cfg: ModelConfig, bcfg: BlockCfg, pos):
         posb = _positions(pos, B, h.device)
         q = apply_rope(q[:, None], posb, cfg.rope_theta)[:, 0]
         k = apply_rope(k, posb, cfg.rope_theta)
-    scale = 1.0 / math.sqrt(hd)
-    C = cache["k"].shape[1]
-    valid = torch.arange(C, device=h.device) < pos
-    m1, l1, o1 = _partial_softmax(q, cache["k"], cache["v"], scale,
-                                  cfg.attn_softcap, valid)
-    m2, l2, o2 = _partial_softmax(q, k, v, scale, cfg.attn_softcap)
-    _m, l, o = merge_partials(m1, l1, o1, m2, l2, o2)
-    o = (o / l.clamp_min(1e-30)).reshape(B, cfg.n_heads, hd).to(h.dtype)
+    if rt.distributed:
+        o = decode_attention(q, cache["k"], cache["v"], k, v, mesh=rt.mesh,
+                             seq_axes=rt.seq_axes, batch_axes=rt.dp_axes,
+                             softcap=cfg.attn_softcap, pos=pos)
+    else:
+        o = sharded_decode(q, cache["k"], cache["v"], k, v, 1,
+                           scale=1.0 / math.sqrt(hd),
+                           softcap=cfg.attn_softcap, pos=pos)
     out = o.reshape(B, cfg.n_heads * hd) @ p["wo"]
     _write_slot(cache, {"k": k, "v": v}, pos)
     return out
@@ -417,7 +443,7 @@ def block_decode(p: Tree, x: torch.Tensor, cache: Tree, bcfg: BlockCfg,
     if bcfg.mixer in ("attn", "mla"):
         h = _norm(x, p["ln1"], cfg.norm, plus_one)
         if bcfg.mixer == "attn":
-            o = _attn_decode(p["attn"], h, cache, cfg, bcfg, pos)
+            o = _attn_decode(p["attn"], h, cache, cfg, bcfg, rt, pos)
         else:
             o = _mla_decode(p["attn"], h, cache, cfg, pos)
         if cfg.post_norms:
@@ -436,7 +462,7 @@ def block_decode(p: Tree, x: torch.Tensor, cache: Tree, bcfg: BlockCfg,
         x = x + o[:, 0]
     if bcfg.ffn != "none":
         h = _norm(x, p["ln2"], cfg.norm, plus_one)
-        o = _ffn_fwd(p, h[:, None], cfg, bcfg)[:, 0]
+        o = _ffn_fwd(p, h[:, None], cfg, bcfg, rt)[:, 0]
         if cfg.post_norms:
             o = _norm(o, p["post_ln2"], cfg.norm, plus_one)
         x = x + o

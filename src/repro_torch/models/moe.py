@@ -22,9 +22,17 @@ duplicate indices with atomics, in no fixed order).  Every shape is fixed
 by the call's shapes and nothing is read on the host, so a decode step
 through this block can be captured as a CUDA graph.
 
-Expert parallelism (:func:`moe_apply`, the JAX ``shard_map`` path over the
-model axis) needs a device mesh and raises (ROADMAP A10, its multi-GPU
-part).
+Expert parallelism (:func:`moe_apply`, the JAX package's ``shard_map``
+body over a mesh's model axis) runs the mesh's devices as virtual shards
+(:mod:`repro_torch.core.mesh`): the batch splits over the ``n_dp``
+shards of the data-parallel axes, each routing its own ``T / n_dp``
+tokens with its own capacity, so a mesh drops other tokens than one
+device does; model shard ``m`` adds its experts ``[m E/M, (m+1) E/M)``
+into an f32 partial of its own, and the ``M`` partials are summed in
+shard order (the ``psum``).  The ``n_dp`` shards are batched as the
+experts are: one ``topk`` over ``[n_dp, E, T / n_dp]``, each expert's
+tokens of every shard in one row of the gather.  :func:`moe_single` is
+the same computation with one shard of each kind.
 """
 
 from __future__ import annotations
@@ -36,14 +44,16 @@ import torch
 import torch.nn.functional as F
 
 from ..core.errors import LPFFatalError
+from ..core.mesh import mesh_shards, split
 from .common import dense_init
 
 __all__ = ["MoEConfig", "moe_params", "moe_capacity", "moe_single",
            "moe_apply", "expert_load", "MOE_RANGE"]
 
-#: the ``torch.profiler`` range around :func:`moe_single` (free without a
-#: profiler): the block's share of a prefill's or a decode step's device
-#: time
+#: the ``torch.profiler`` range around :func:`moe_single` and
+#: :func:`moe_apply` (free without a profiler): the block's share of a
+#: prefill's, a decode step's or a training step's device time, on one
+#: device or a mesh
 MOE_RANGE = "moe_single"
 
 
@@ -105,46 +115,97 @@ def _route(p, xt: torch.Tensor, cfg: MoEConfig
     return gate_idx, torch.softmax(gate_vals, dim=-1)
 
 
-@torch.profiler.record_function(MOE_RANGE)
-def moe_single(p, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
-    """x [B, S, D] -> [B, S, D] on one device (``_moe_single``)."""
-    B, S, D = x.shape
-    T = B * S
-    xt = x.reshape(T, D)
+def _moe_shards(p, xs: torch.Tensor, cfg: MoEConfig, n_model: int
+                ) -> torch.Tensor:
+    """xs [n, T, D], ``n`` batch shards of ``T`` tokens each, through the
+    experts split over ``n_model`` model shards -> the f32 output
+    [n * T, D] (token ``i`` of shard ``s`` at row ``s * T + i``)."""
+    n, T, D = xs.shape
+    xt = xs.reshape(n * T, D)
     E = p["w_gate"].shape[0]
     gate_idx, gates = _route(p, xt, cfg)
     # each expert's weight of each token, 0 where the token is not routed
     # to it (a token's k experts are distinct: one write each)
-    w_tok = torch.zeros(T, E, dtype=torch.float32, device=x.device) \
-        .scatter(1, gate_idx, gates)
+    w_tok = torch.zeros(n, T, E, dtype=torch.float32, device=xs.device) \
+        .scatter(2, gate_idx.reshape(n, T, -1), gates.reshape(n, T, -1))
     cap = moe_capacity(T, E, cfg)
-    sel_w, sel_idx = torch.topk(w_tok.t(), cap, dim=1)        # [E, cap]
-    x_e = xt.index_select(0, sel_idx.reshape(-1)).reshape(E, cap, D)
+    sel_w, sel_idx = torch.topk(w_tok.transpose(1, 2), cap, dim=2)
+    # [n, E, cap] -> each expert's tokens of every shard, in shard order,
+    # as rows of xt: [E, n * cap]
+    if n > 1:
+        sel_idx = sel_idx + (torch.arange(n, device=xs.device) * T)[
+            :, None, None]
+    rows = sel_idx.transpose(0, 1).reshape(E, n * cap)
+    sel_w = sel_w.transpose(0, 1).reshape(E, n * cap)
+    x_e = xt.index_select(0, rows.reshape(-1)).reshape(E, n * cap, D)
     y = _local_expert_ffn(x_e, p["w_gate"], p["w_up"], p["w_down"])
     y = y.float() * sel_w[..., None]
-    out = torch.zeros(T, D, dtype=torch.float32, device=x.device)
-    for e in range(E):
-        out.index_add_(0, sel_idx[e], y[e])
+    per = E // n_model
+    out = None
+    for m in range(n_model):
+        # model shard m's partial: its experts in expert order
+        part = torch.zeros(n * T, D, dtype=torch.float32, device=xs.device)
+        for e in range(m * per, (m + 1) * per):
+            part.index_add_(0, rows[e], y[e])
+        out = part if out is None else out + part      # the psum
+    return out
+
+
+@torch.profiler.record_function(MOE_RANGE)
+def moe_single(p, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """x [B, S, D] -> [B, S, D] on one device (``_moe_single``)."""
+    B, S, D = x.shape
+    out = _moe_shards(p, x.reshape(1, B * S, D), cfg, 1)
     return out.reshape(B, S, D).to(x.dtype)
 
 
-def expert_load(p, x: torch.Tensor, cfg: MoEConfig
-                ) -> Tuple[torch.Tensor, int]:
+def _dp_shards(x: torch.Tensor, mesh, dp_axes) -> torch.Tensor:
+    """x [B, S, D] as the ``n_dp`` batch shards' tokens [n_dp, T, D]."""
+    B, S, D = x.shape
+    n = mesh_shards(mesh, dp_axes)
+    return split(x, 0, n, "moe_apply's batch").reshape(n, B // n * S, D)
+
+
+def expert_load(p, x: torch.Tensor, cfg: MoEConfig, *, mesh=None,
+                dp_axes=("pod", "data")) -> Tuple[torch.Tensor, int]:
     """The tokens of ``x`` [B, S, D] routed to each expert ``[E]`` and the
     call's capacity: an expert keeps ``min(routed, cap)`` of them (a
     routed token's weight is above every unrouted one's 0), so
-    ``(routed - cap).clamp_min(0).sum()`` tokens are dropped."""
-    T = x.shape[0] * x.shape[1]
+    ``(routed - cap).clamp_min(0).sum()`` tokens are dropped.  On a
+    ``mesh``, each batch shard's loads ``[n_dp, E]`` and the capacity of
+    a shard (:func:`moe_apply`'s)."""
     E = p["w_gate"].shape[0]
-    gate_idx, _ = _route(p, x.reshape(T, -1), cfg)
-    return (torch.bincount(gate_idx.reshape(-1), minlength=E),
-            moe_capacity(T, E, cfg))
+    xs = x.reshape(1, -1, x.shape[-1]) if mesh is None \
+        else _dp_shards(x, mesh, dp_axes)
+    n, T, D = xs.shape
+    gate_idx, _ = _route(p, xs.reshape(n * T, D), cfg)
+    load = torch.zeros(n, E, dtype=torch.long, device=x.device)
+    load.scatter_add_(1, gate_idx.reshape(n, -1),
+                      torch.ones_like(gate_idx).reshape(n, -1))
+    return load[0] if mesh is None else load, moe_capacity(T, E, cfg)
 
 
+@torch.profiler.record_function(MOE_RANGE)
 def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *, mesh,
-              model_axis: str = "model", dp_axes=("pod", "data")):
-    """Expert parallelism over a mesh's model axis: not on one card."""
-    raise LPFFatalError(
-        "moe_apply shards the experts over a device mesh's model axis, "
-        "which one card does not have (ROADMAP A10, its multi-GPU part); "
-        "one device runs moe_single")
+              model_axis: str = "model",
+              dp_axes=("pod", "data")) -> torch.Tensor:
+    """x [B, S, D] -> [B, S, D] with the experts split over ``mesh``'s
+    model axis and the batch over its ``dp_axes`` (the JAX package's
+    ``shard_map`` body, over virtual shards: module docstring).  Each
+    batch shard's capacity comes from its own tokens.  The experts
+    (``ep_degree`` pads them) must split evenly over the model axis; a
+    batch must split over the dp shards."""
+    if mesh is None or model_axis not in mesh.axis_names:
+        raise LPFFatalError(
+            f"moe_apply splits the experts over a mesh's {model_axis!r} "
+            f"axis, and {mesh!r} has none; without a mesh the block is "
+            f"moe_single")
+    E = params["w_gate"].shape[0]
+    M = mesh.shape[model_axis]
+    if E % M:
+        raise LPFFatalError(
+            f"moe_apply: {E} experts do not split over the {M} shards of "
+            f"the {model_axis!r} axis (ep_degree={M} pads them)")
+    B, S, D = x.shape
+    out = _moe_shards(params, _dp_shards(x, mesh, dp_axes), cfg, M)
+    return out.reshape(B, S, D).to(x.dtype)

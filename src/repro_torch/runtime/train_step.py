@@ -16,23 +16,33 @@ arguments are left as they were and new trees are returned.
 f32; ``steps_per_call`` rolls K steps into one call over a batch with a
 leading ``[K]`` axis and returns ``[K]`` metrics.
 
-*Pods.*  A mesh (:mod:`repro_torch.launch.mesh`) with ``q`` pods holds
-them as ``q`` virtual processes on the device; its data and model axes
-must be 1 (larger ones raise naming A10).  Under ``grad_sync="lpf"`` each
-pod takes the loss and gradients of its own rows of the batch (rows
-``[i·B/q, (i+1)·B/q)``, JAX's ``P("pod")``; ``grad_accum`` inside the
-pod), the pods' gradients stack ``[q, ...]`` and cross the pod hop
+*Meshes.*  A mesh (:mod:`repro_torch.core.mesh`) runs its devices as
+virtual shards on the one device.  Its data and model axes act through
+the step's :class:`~repro_torch.models.blocks.Runtime`, resolved from
+``axis_roles`` as in JAX: ``"fsdp_tp"`` (the default) batches over the
+pod and data axes with the model axis for the experts and the cache, so
+the MoE block is ``moe_apply`` (capacity per ``(pod, data)`` shard);
+``"dp_all"`` batches over every axis with no model axis, so it is
+``moe_single`` over the whole batch.  Parameter layouts (FSDP specs,
+sequence parallelism) do not change values and have no counterpart
+here.  ``grad_sync="gspmd"`` is the plain step over the whole batch under
+that runtime, as JAX's GSPMD step: XLA reduces the gradient over every
+batch axis, so the pods never drift apart, and the local-SGD "no-sync"
+step differs from the synced one only in its route and its ledger.
+
+*Pods.*  A mesh with ``q`` pods holds them as ``q`` virtual processes.
+Under ``grad_sync="lpf"`` each pod takes the loss and gradients of its
+own rows of the batch (rows ``[i·B/q, (i+1)·B/q)``, JAX's ``P("pod")``;
+``grad_accum`` inside the pod) under a runtime without a mesh (JAX's
+``rt_pod``: the pod body's MoE block is ``moe_single`` over the pod's
+rows), the pods' gradients stack ``[q, ...]`` and cross the pod hop
 through :func:`~repro_torch.bsp.pod_sync.pod_allreduce` (the method,
 buckets and sync attributes as in JAX; with ``grad_bucket_bytes`` the
 stacked layer groups split at layer boundaries first), the loss is the
 pods' mean, and AdamW runs once on the replicated parameters and state,
 which are held once.  Its records go to :attr:`TrainStep.ledger` on a
 batch shape's first step only: JAX ledgers while it traces, once a
-compiled step.  ``grad_sync="gspmd"`` on a pod mesh is the plain step
-over the whole batch, as in JAX, where XLA reduces the gradient over
-every batch axis: the pods never drift apart, and the local-SGD
-"no-sync" step differs from the synced one only in its route and its
-ledger (ROADMAP C).
+compiled step.
 
 *Serving.*  ``step_fn`` is one eager decode step.  A bucket's
 ``decode_fn(n)`` is the counterpart of the JAX package's one-``While``
@@ -42,7 +52,10 @@ the bucket's own static caches, token, position and outputs
 with no host write between replays; the graph itself advances the
 position.  On the CPU ``decode_fn(n)`` is the eager loop over
 ``step_fn``.  Both paths give the same tokens bit for bit: the captured
-step runs the eager step's kernels on the same shapes.  An
+step runs the eager step's kernels on the same shapes.  On a mesh the
+serve step resolves its batch and sequence axes as JAX's does (a batch
+that the data-parallel shards do not divide widens the sequence axes to
+every axis), and its runtime carries them.  An
 encoder-decoder's steps take the encoder output ``enc_out`` [B, Se, D],
 as the JAX package's do; the captured step reads it from a buffer of its
 own, into which each call copies it.
@@ -59,7 +72,8 @@ from torch.utils import _pytree as pytree
 from ..bsp.pod_sync import pod_allreduce, tree_flatten
 from ..core import CostLedger, LPF_SYNC_DEFAULT, SyncAttributes
 from ..core.errors import LPFError, LPFFatalError, LPFTransientError
-from ..launch.mesh import VirtualMesh, virtual_pods
+from ..core.mesh import (VirtualMesh, dp_axes_of, mesh_shards,
+                           model_axis_of, virtual_pods)
 from ..models.blocks import Runtime
 from ..models.config import ModelConfig
 from ..models.lm import (ParamTree, decode_step, init_caches, init_params,
@@ -67,7 +81,8 @@ from ..models.lm import (ParamTree, decode_step, init_caches, init_params,
 from ..optim import AdamWConfig, adamw_init, adamw_update
 
 __all__ = ["TrainStep", "build_train_step", "ServeStep", "CapturedDecode",
-           "build_serve_step", "build_serve_buckets", "POD_SYNC_RANGE"]
+           "build_serve_step", "build_serve_buckets", "serve_axes",
+           "POD_SYNC_RANGE"]
 
 Tree = Dict[str, Any]
 
@@ -91,6 +106,9 @@ class TrainStep:
     rt: Runtime
     #: the cross-pod sync's superstep records (one step's, as JAX's trace)
     ledger: CostLedger = dataclasses.field(default_factory=CostLedger)
+    #: the mesh axes the batch is split over (JAX's batch spec): the
+    #: runtime's data-parallel axes, over which MoE capacity is per shard
+    batch_axes: Tuple[str, ...] = ()
 
 
 def _fill(tree: Tree, values) -> Tree:
@@ -151,12 +169,13 @@ def build_train_step(cfg: ModelConfig, mesh: Optional[VirtualMesh] = None,
                      grad_bucket_bytes: Optional[int] = None,
                      grad_accum: int = 1,
                      steps_per_call: int = 1,
+                     axis_roles: str = "fsdp_tp",
                      donate: bool = False,
                      device="cuda") -> TrainStep:
     """The training step of ``cfg`` on ``device`` (the card unless the
-    caller asks for the CPU).  ``mesh=None`` is one pod; a mesh's pods
-    run as virtual processes (module docstring), its data and model axes
-    above 1 raise naming A10.  ``donate=True`` consumes the parameters
+    caller asks for the CPU).  ``mesh=None`` is one device; a mesh's
+    shards are virtual (module docstring), its data and model axes acting
+    as ``axis_roles`` says.  ``donate=True`` consumes the parameters
     and optimizer state a step is given (the JAX package's
     ``donate_argnums``, its default there): AdamW updates them in place,
     so a step holds one copy of the state; the caller must use only what
@@ -167,18 +186,34 @@ def build_train_step(cfg: ModelConfig, mesh: Optional[VirtualMesh] = None,
     if grad_accum < 1 or steps_per_call < 1:
         raise LPFFatalError(f"grad_accum={grad_accum} and steps_per_call="
                             f"{steps_per_call} must be >= 1")
+    if axis_roles not in ("fsdp_tp", "dp_all"):
+        raise LPFFatalError(f"axis_roles={axis_roles!r}: expected fsdp_tp "
+                            f"or dp_all")
     npods = virtual_pods(mesh)
-    rt = Runtime(device)
+    batch_axes = ()
+    if mesh is None:
+        rt = Runtime(device)
+    elif axis_roles == "dp_all":
+        # the model axis carries extra data parallelism
+        batch_axes = tuple(a for a in ("pod", "data", "model")
+                           if a in mesh.axis_names)
+        rt = Runtime(device, mesh, dp_axes=batch_axes, model_axis=None)
+    else:
+        batch_axes = dp_axes_of(mesh)
+        rt = Runtime(device, mesh, dp_axes=batch_axes,
+                     model_axis=model_axis_of(mesh))
+    # the lpf pod body runs without a mesh (JAX's ``rt_pod``)
+    rt_pod = Runtime(device)
     ledger = CostLedger()
 
-    def loss_and_grads(params: ParamTree, batch: dict):
+    def loss_and_grads(params: ParamTree, batch: dict, rt_: Runtime = rt):
         """Microbatched (gradient-accumulated) loss and f32 gradients."""
         tree = params.tree()
         # parameters() walks the module in the order tree() nests it
         leaves = list(params.parameters())
 
         def one(mb):
-            loss = loss_fn(params, mb, cfg, rt)
+            loss = loss_fn(params, mb, cfg, rt_)
             return loss.detach(), torch.autograd.grad(loss, leaves)
 
         if grad_accum == 1:
@@ -221,7 +256,7 @@ def build_train_step(cfg: ModelConfig, mesh: Optional[VirtualMesh] = None,
         for i in range(npods):
             loss, grads = loss_and_grads(
                 params, {k: v[i * per:(i + 1) * per]
-                         for k, v in batch.items()})
+                         for k, v in batch.items()}, rt_pod)
             if stacked is None:
                 stacked = _map(lambda g: g.new_empty((npods, *g.shape)),
                                grads)
@@ -278,7 +313,8 @@ def build_train_step(cfg: ModelConfig, mesh: Optional[VirtualMesh] = None,
         return params, adamw_init(params.tree(), opt_cfg)
 
     return TrainStep(step_fn=multi if steps_per_call > 1 else step,
-                     init_fn=init_fn, like_fn=like_fn, rt=rt, ledger=ledger)
+                     init_fn=init_fn, like_fn=like_fn, rt=rt, ledger=ledger,
+                     batch_axes=batch_axes)
 
 
 # --------------------------------------------------------------------------
@@ -406,19 +442,55 @@ class ServeStep:
     graph: Optional[CapturedDecode] = None
 
 
-def build_serve_step(cfg: ModelConfig, *, global_batch: int,
-                     cache_len: int, device="cuda") -> ServeStep:
+def serve_axes(mesh: VirtualMesh, global_batch: int,
+               batch_axes: Optional[Tuple[str, ...]] = None,
+               seq_axes: Optional[Tuple[str, ...]] = None
+               ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """The batch and cache-sequence axes of a serve step on ``mesh``, as
+    the JAX package resolves them: the batch over the pod and data axes
+    where their shards divide it, else over none, and then the sequence
+    over every axis (pod, data, model) in place of the model axis."""
+    axes = tuple(mesh.axis_names)
+    if batch_axes is None:
+        dp = dp_axes_of(mesh)
+        total = mesh_shards(mesh, dp)
+        batch_axes = dp if dp and global_batch % total == 0 else ()
+    if seq_axes is None:
+        seq_axes = ("model",) if "model" in axes else ()
+        if not batch_axes:   # batch can't shard -> widen sequence sharding
+            seq_axes = tuple(a for a in ("pod", "data", "model")
+                             if a in axes)
+    return tuple(batch_axes), tuple(seq_axes)
+
+
+def build_serve_step(cfg: ModelConfig, mesh: Optional[VirtualMesh] = None,
+                     *, global_batch: int, cache_len: int,
+                     batch_axes: Optional[Tuple[str, ...]] = None,
+                     seq_axes: Optional[Tuple[str, ...]] = None,
+                     donate_cache: bool = True, device="cuda") -> ServeStep:
     """One ``(global_batch, cache_len)`` decode bucket's step functions on
-    ``device`` (the card unless the caller asks for the CPU).  On the card
-    ``decode_fn`` replays the bucket's captured step
-    (:class:`CapturedDecode`); on the CPU it is the eager loop over
-    ``step_fn``."""
-    rt = Runtime(device)
+    ``device`` (the card unless the caller asks for the CPU), over
+    ``mesh``'s virtual shards where one is given (the axes as
+    :func:`serve_axes` resolves them; a 1x1 mesh decodes the tokens
+    ``mesh=None`` does, bit for bit).  On the card ``decode_fn`` replays
+    the bucket's captured step (:class:`CapturedDecode`); on the CPU it
+    is the eager loop over ``step_fn``.  ``step_fn`` writes the caches it
+    is given in place (JAX's donation); ``donate_cache=False`` writes a
+    copy and leaves the caller's caches as they were."""
+    if mesh is None:
+        rt = Runtime(device)
+    else:
+        batch_axes, seq_axes = serve_axes(mesh, global_batch, batch_axes,
+                                          seq_axes)
+        rt = Runtime(device, mesh, dp_axes=batch_axes,
+                     model_axis=model_axis_of(mesh), seq_axes=seq_axes)
     graph = None
     if rt.device.type == "cuda":
         graph = CapturedDecode(cfg, rt, global_batch, cache_len)
 
     def serve(params, caches, token, pos, enc_out=None):
+        if not donate_cache:
+            caches = pytree.tree_map(torch.clone, caches)
         nxt, _logits, caches = decode_step(params, token, caches, pos, cfg,
                                            rt, enc_out)
         return nxt, caches
@@ -431,8 +503,8 @@ def build_serve_step(cfg: ModelConfig, *, global_batch: int,
                                  device=rt.device)
             tok, toks = tok0, []
             for i in range(n_tokens):
-                tok, caches = serve(params, caches, tok, int(pos0) + i,
-                                    enc_out)
+                tok, _logits, caches = decode_step(
+                    params, tok, caches, int(pos0) + i, cfg, rt, enc_out)
                 toks.append(tok)
             return torch.stack(toks), caches      # [n_tokens, B]
 
@@ -446,11 +518,15 @@ def build_serve_step(cfg: ModelConfig, *, global_batch: int,
 
 def build_serve_buckets(cfg: ModelConfig,
                         buckets: Sequence[Tuple[int, int]], *,
-                        device="cuda") -> Dict[Tuple[int, int], ServeStep]:
+                        device="cuda", mesh: Optional[VirtualMesh] = None,
+                        **kwargs) -> Dict[Tuple[int, int], ServeStep]:
     """The continuous-batching server's decode buckets: one
     :class:`ServeStep` per ``(global_batch, cache_len)`` shape, each with
-    its own captured step on the card.  Buckets never share buffers: each
-    owns its caches, token, position, outputs, graph and memory pool, so
-    quarantining one bucket's captured path cannot corrupt another's."""
-    return {(b, c): build_serve_step(cfg, device=device, global_batch=b,
-                                     cache_len=c) for b, c in buckets}
+    its own captured step on the card (``mesh`` and ``kwargs`` as
+    :func:`build_serve_step` takes them).  Buckets never share buffers:
+    each owns its caches, token, position, outputs, graph and memory
+    pool, so quarantining one bucket's captured path cannot corrupt
+    another's."""
+    return {(b, c): build_serve_step(cfg, mesh, device=device,
+                                     global_batch=b, cache_len=c, **kwargs)
+            for b, c in buckets}

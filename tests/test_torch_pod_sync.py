@@ -365,10 +365,30 @@ def test_cross_pod_sync_matches_jax(jax_syncs, name, monkeypatch):
 
 def test_cross_pod_sync_is_the_identity_without_pods():
     grads = {"a": torch.ones(1, 4)}
-    for mesh in (make_mesh((1, 1)), make_mesh((1, 1, 1)), None):
+    for mesh in (make_mesh((1, 1)), make_mesh((1, 1, 1)), make_mesh((1, 2)),
+                 make_mesh((1, 2, 2)), None):
         assert tgs.build_cross_pod_sync(mesh, None)(grads) is grads
-    with pytest.raises(tlpf.LPFFatalError, match="A10"):
-        tgs.build_cross_pod_sync(make_mesh((2, 2, 1)), None)
+
+
+@pytest.mark.parametrize("name", sorted(SYNC_CASES))
+def test_cross_pod_sync_of_a_data_mesh_matches_jax(jax_syncs, name,
+                                                   monkeypatch):
+    """The port's (2, 2, 2) and (2, 2, 1) meshes sync over their 2 pods
+    (the data and model axes are virtual shards the sync does not read):
+    values and ledger JAX's on its (2, 2, 2) mesh."""
+    bucket, stale, step = SYNC_CASES[name]
+    want, jrecs, _ = jax_syncs[name]
+    ctxs = spy_hook(tgs, monkeypatch, hardware=TPU_DCN)
+    grads = {k: torch.from_numpy(v) for k, v in sync_grads().items()}
+    for shape in ((2, 2, 2), (2, 2, 1)):
+        ctxs.clear()
+        sync = tgs.build_cross_pod_sync(
+            make_mesh(shape), None, pod_axis="pod", mean=True,
+            bucket_bytes=bucket, attrs=tlpf.SyncAttributes(stale=stale))
+        got = sync(grads, step=step)
+        assert records(ctxs[0].ledger) == jrecs
+        for k in grads:
+            np.testing.assert_array_equal(got[k][:, 0].numpy(), want[k])
 
 
 # -- lpf_bucketed_allreduce, lpf_allreduce ----------------------------------------
@@ -423,15 +443,20 @@ def test_make_mesh_names_axes_as_jax(shape):
     assert tmesh.model_axis_of(t) == jmesh.model_axis_of(j)
 
 
-def test_production_mesh_is_a_shape_that_needs_the_multi_gpu_port():
+def test_production_mesh_is_a_shape_of_virtual_shards():
+    """The production layout is a shape: its 2 pods are virtual
+    processes and its data and model axes virtual shards."""
     from repro_torch.launch import mesh as tmesh
-    for multi, want in ((False, {"data": 16, "model": 16}),
-                        (True, {"pod": 2, "data": 16, "model": 16})):
+    for multi, want, pods in ((False, {"data": 16, "model": 16}, 1),
+                              (True, {"pod": 2, "data": 16, "model": 16},
+                               2)):
         m = tmesh.make_production_mesh(multi_pod=multi)
         assert m.shape == want
-        with pytest.raises(tlpf.LPFFatalError, match="A10"):
-            tmesh.virtual_pods(m)
+        assert tmesh.virtual_pods(m) == pods
+        assert tmesh.mesh_shards(m, tmesh.dp_axes_of(m)) == 16 * pods
+        assert tmesh.mesh_shards(m, m.axis_names) == 256 * pods
     assert tmesh.virtual_pods(make_mesh((4, 1, 1))) == 4
+    assert tmesh.virtual_pods(make_mesh((4, 2, 2))) == 4
     assert tmesh.virtual_pods(make_mesh((8,), ("x",))) == 1
     assert tmesh.virtual_pods(None) == 1
     with pytest.raises(tlpf.LPFFatalError, match="repeat"):

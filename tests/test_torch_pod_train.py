@@ -17,11 +17,14 @@ numpy) and the same batches go through both:
 * the compressed int16 ring's step: loss and ledger as JAX's, parameters
   within the first AdamW step's reach of a quantum flip;
 * ``grad_sync="gspmd"`` on a pod mesh is the plain step over the whole
-  batch, as JAX's;
+  batch, as JAX's; for an MoE model (granite-moe-3b-a800m's smoke
+  config) under the mesh's runtime, so its capacity is per ``(pod,
+  data)`` shard as in JAX's GSPMD step, and not the whole batch's;
 * the local-SGD loop's losses against JAX's, its ledger grown only on
   the synced step's first trace;
-* the launcher's new flags, and a data or model axis above 1 raising
-  "A10".
+* the launcher's flags: its steps donate their state, as JAX's do, and
+  a data or model axis above 1 runs as virtual shards (a dense model's
+  step is the one of the mesh's pods alone).
 """
 
 import dataclasses
@@ -43,7 +46,7 @@ from repro.runtime.train_loop import TrainLoopConfig as JaxLoopConfig
 from repro.runtime.train_loop import train_loop as jax_train_loop
 from repro.runtime.train_step import build_train_step as jax_build_train_step
 from repro_torch.configs import get_config
-from repro_torch.core import (CompressSpec, LPFFatalError, SyncAttributes)
+from repro_torch.core import CompressSpec, SyncAttributes
 from repro_torch.data import DataConfig, SyntheticStream
 from repro_torch.interop import opt_state_from_jax, params_from_jax
 from repro_torch.launch.mesh import make_mesh
@@ -299,12 +302,89 @@ def test_local_sgd_loop_matches_jax():
     assert not ts_local.ledger.records
 
 
-def test_a_data_or_model_axis_raises_a10():
-    _, cfg = configs()
-    for shape in ((1, 2, 1), (2, 1, 2), (2, 1), (1, 2)):
-        with pytest.raises(LPFFatalError, match="A10"):
-            build_train_step(cfg, make_mesh(shape), grad_sync="lpf",
-                             device="cpu")
+#: the pods-only steps the data and model axes are held to, by pod count
+_PODS_ONLY = {}
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 1), (2, 1, 2), (2, 1), (1, 2)])
+def test_a_data_or_model_axis_keeps_a_dense_step(jax_runs, shape):
+    """A data or model axis is a virtual shard, a layout for a dense
+    model: the ``lpf`` step on the mesh is the one of its pods alone (the
+    ``(2, 1, 1)`` pod step, or the plain step), bit for bit."""
+    init = jax_runs["rs+ag"][0]
+    pods = shape[0] if len(shape) == 3 else 1
+    ms, params, recs = port_steps(1, init, mesh=shape)
+    if pods not in _PODS_ONLY:
+        _PODS_ONLY[pods] = port_steps(1, init, mesh=(pods, 1, 1))
+    want_ms, want_params, want_recs = _PODS_ONLY[pods]
+    assert ms == want_ms and recs == want_recs
+    for name, x in params.items():
+        np.testing.assert_array_equal(x, want_params[name])
+
+
+def granite_configs():
+    kw = dict(vocab=256, compute_dtype="float32")
+    arch = "granite-moe-3b-a800m"
+    return (dataclasses.replace(jax_get_config(arch, smoke=True), **kw),
+            dataclasses.replace(get_config(arch, smoke=True), **kw))
+
+
+def test_gspmd_moe_step_on_a_pod_mesh_matches_jax():
+    """JAX's GSPMD step on a pod mesh runs the MoE block under the mesh
+    (``moe_apply``, capacity per ``(pod, data)`` shard); the port's plain
+    step does too, and differs from the one-device step's capacity over
+    the whole batch by more than the bar."""
+    jcfg, cfg = granite_configs()
+    jts = jax_build_train_step(jcfg, jmesh((2, 1, 1)),
+                               opt_cfg=JaxAdamWConfig(lr=LR),
+                               grad_sync="gspmd", donate=False)
+    p0, o0 = jts.init_fn(jax.random.PRNGKey(0))
+    init = (jax.tree.map(np.asarray, p0), jax.tree.map(np.asarray, o0))
+    b = batches(1)[0]
+    _p, _o, jm = jts.step_fn(p0, o0, {k: jnp.asarray(v)
+                                      for k, v in b.items()})
+    losses = {}
+    for shape in ((2, 1, 1), None):
+        ts = build_train_step(cfg, None if shape is None else
+                              make_mesh(shape), opt_cfg=AdamWConfig(lr=LR),
+                              grad_sync="gspmd", device="cpu")
+        _p, _o, m = ts.step_fn(
+            params_from_jax(init[0], device="cpu", trainable=True),
+            opt_state_from_jax(init[1], device="cpu"), b)
+        losses[shape] = m
+    want = float(jm["loss"])
+    assert abs(float(losses[(2, 1, 1)]["loss"]) - want) < 1e-5 * want
+    assert abs(float(losses[(2, 1, 1)]["grad_norm"]) - float(
+        jm["grad_norm"])) < 1e-4 * float(jm["grad_norm"])
+    # the control: one device's capacity over the whole batch
+    assert abs(float(losses[None]["loss"]) - want) > 1e-5 * want
+
+
+def test_train_launcher_donates_both_steps(monkeypatch, capsys):
+    """Both of the launcher's steps donate their state, as JAX's
+    launcher's do, and a donated step updates the parameters in place."""
+    from repro_torch.launch import train
+    built = []
+
+    def spy(*args, **kw):
+        ts = build_train_step(*args, **kw)
+        built.append((kw, ts))
+        return ts
+
+    monkeypatch.setattr(train, "build_train_step", spy)
+    train.main(["--device", "cpu", "--mesh", "2x1x1", "--grad-sync", "lpf",
+                "--sync-every", "2", "--steps", "1", "--batch", "4",
+                "--seq", "16"])
+    assert [kw["donate"] for kw, _ in built] == [True, True]
+    assert [kw["grad_sync"] for kw, _ in built] == ["lpf", "gspmd"]
+    for _kw, ts in built:
+        params, opt = ts.init_fn(0)
+        before = [p.detach().clone() for p in params.parameters()]
+        ptrs = [p.data_ptr() for p in params.parameters()]
+        new, _o, _m = ts.step_fn(params, opt, batches(1)[0])
+        assert [p.data_ptr() for p in new.parameters()] == ptrs
+        assert any(not torch.equal(a, b) for a, b in zip(
+            before, new.parameters()))
 
 
 @pytest.mark.parametrize("flags", [[], ["--compress"],
@@ -322,7 +402,8 @@ def test_train_launcher_runs_pods(flags, capsys):
 
 
 @pytest.mark.parametrize("mesh", ["1x2x1", "1x1x2", "2x1"])
-def test_train_launcher_refuses_device_axes(mesh):
+def test_train_launcher_runs_device_axes(mesh, capsys):
     from repro_torch.launch import train
-    with pytest.raises(LPFFatalError, match="A10"):
-        train.main(["--device", "cpu", "--mesh", mesh, "--steps", "1"])
+    out = train.main(["--device", "cpu", "--mesh", mesh, "--steps", "1",
+                      "--batch", "4", "--seq", "16"])
+    assert len(out["losses"]) == 1 and np.isfinite(out["final_loss"])

@@ -413,17 +413,36 @@ def test_one_pod_lpf_step_is_the_plain_step():
         assert not ts.ledger.records
 
 
-def test_what_needs_device_axes_raises():
-    """A data or model axis above 1 is a GSPMD layout over real devices:
-    the step builder and the launcher raise naming A10."""
+#: the plain step the meshes of the next test are held to
+_PLAIN = []
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2), (2, 2, 1), (1, 1, 2)])
+def test_device_axes_build_the_plain_step(shape):
+    """A data or model axis above 1 is a virtual shard: ``build_train_step``
+    takes it, and for a dense model the step is the plain one, bit for
+    bit (the MoE and decode blocks that shards change are held to JAX in
+    ``tests/test_torch_mesh.py``)."""
     cfg = tiny_cfg()
-    for shape in ((2, 1), (1, 2), (2, 2, 1), (1, 1, 2)):
-        with pytest.raises(LPFFatalError, match="A10"):
-            build_train_step(cfg, make_mesh(shape), device="cpu")
+    b = stream_for(cfg, B=4, S=8).batch(0)
+    if not _PLAIN:
+        plain = build_train_step(cfg, device="cpu")
+        _PLAIN.append(plain.step_fn(*plain.init_fn(0), b))
+    want = _PLAIN[0]
+    ts = build_train_step(cfg, make_mesh(shape), device="cpu")
+    assert ts.rt.distributed and ts.rt.mesh.shape == make_mesh(shape).shape
+    got = ts.step_fn(*ts.init_fn(0), b)
+    assert torch.equal(got[2]["loss"], want[2]["loss"])
+    for x, y in zip(got[0].parameters(), want[0].parameters()):
+        assert torch.equal(x, y)
+
+
+def test_train_launcher_takes_device_axes(capsys):
     from repro_torch.launch import train
     for mesh in ("2x1", "1x2x1"):
-        with pytest.raises(LPFFatalError, match="A10"):
-            train.main(["--device", "cpu", "--steps", "1", "--mesh", mesh])
+        out = train.main(["--device", "cpu", "--steps", "1", "--batch", "2",
+                          "--seq", "16", "--mesh", mesh])
+        assert len(out["losses"]) == 1 and np.isfinite(out["final_loss"])
 
 
 # --------------------------------------------------------------------------
