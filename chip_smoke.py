@@ -93,7 +93,11 @@ The llama3.2-1b training path (f32 masters, bf16 compute, ``remat="full"``,
     kernels (``flash_attention_bwd_dkv``, ``flash_attention_bwd_dq``)
     against the plain ``flash_attention_bwd_ref`` on the card at the same
     eight shapes (the training path's [4, 32, 2048, 64] bf16 causal, Hkv 8
-    among them) and at head dim 256, [1, 16, 8, 4096, 256] bf16 causal: in
+    among them) and at (ae)'s training shapes (``STACK_BWD_SHAPES``:
+    gemma2-9b's local layer, window 4096 and soft-cap 50, and its global
+    layer at [1, 16, 8, 8192, 256]; llava's [4, 32, 8, 2048, 128];
+    qwen3-14b's [4, 40, 8, 2048, 128]; whisper-base's [16, 8, 8, 1500, 64]
+    non-causal and causal), all bf16: in
     f32 each gradient within 5e-4 of the largest plain one (the
     JAX backward test's bar); in bf16 each row of dq, dk, dv within 2^-6 of
     the row's largest |plain| (``grad_row_err``), also against the plain
@@ -270,8 +274,9 @@ adds, after (s); (b) and (j) gain its kernel shapes (granite's attention
 [4, 24, 8, 2048, 64], jamba's [1, 32, 8, 8192, 128]; jamba's scan [1,
 8192, 128, 64], G 1, N 16, chunk 128, in f32 and bf16):
 
-(t) mamba2-130m training at its published width, uncut: (h)'s loop and
-    checks with the ``ssd_scan`` kernel in place of flash attention and
+(t) mamba2-130m training at its published width, uncut:
+    ``MAMBA_TRAIN_STEPS`` steps of (h)'s loop and checks (its witness
+    at B 1 ``MAMBA_WITNESS_STEPS``) with the ``ssd_scan`` kernel in place of flash attention and
     the chunked path (``impl="chunked"``) as the reference: every loss
     finite, the step-0 loss within 1e-2 of the chunked path's, exactly 48
     ``ssd_scan`` calls (192 CUDA launches) a step (24 forward, 24 in the
@@ -416,7 +421,35 @@ tile masked by length alone) and its decoder's, causal:
     step; then ``scripts/program_replay.py``'s overlap measurement
     (fenced against overlapped buckets at p = 4 and 8, one stream
     dispatched and compiled, the pool compiled, values bit-equal, ledgers
-    as planned).
+    as planned);
+(ae) (run first of the model phases, after (b), where the allocator
+    holds least) training on the card for the four other attention
+    families (``STACK_TRAIN``; f32 masters, bf16 compute, ``remat="full"``, flash
+    attention, AdamW donated): whisper-base whole (6 + 6 layers, B 16 x
+    1500 tokens and 1500 frames from the stream built with the model's
+    config: encoder self-attention, cross-attention at 1500 keys and the
+    causal decoder, head dim 64), llava-next-mistral-7b cut to 4 of 32
+    layers (B 4 x its 576-position prefix and 1472 tokens; head dim 128,
+    group 4), gemma2-9b cut to 4 of 42 (2 local + 2 global; B 1 x S 8192,
+    so that the window of 4096 masks inside the backward; head dim 256,
+    soft-caps, tied embeddings) and qwen3-14b cut to 4 of 40 (B
+    ``QWEN3_TRAIN_B`` x S 2048; group 5, q/k norms), each with (z)'s
+    checks: ``STACK_TRAIN_STEPS`` steps with the counts set to 0 just
+    before (two forward launches an attention or cross-attention layer a
+    step, one of each backward kernel), every loss finite, the step-0
+    loss within 1e-2 of reference attention, the B 1 gradients under
+    ``GRAD_BARS`` (gemma2-9b's at S ``GEMMA_GRAD_S``, where the window
+    still masks: at 8192 the reference ran out of memory); step ms,
+    tokens/s and the peak;
+(af) this slice's main path, the examples (``repro_torch.examples``) on
+    the card: ``quickstart`` at ``QUICKSTART_CASES`` (error codes, rows,
+    ledgers, priced on phase 6's fitted link), ``fft_spectral`` (the RMS
+    error halved at least, ``h_bytes == fft_h_bytes``),
+    ``pagerank_interop`` (13 iterations, error under 1e-3) and
+    ``train_lm`` (``LM_STEPS`` steps, then again from the checkpoint of
+    step ``LM_FIRST``, the last one a run stopped there leaves: its losses
+    within ``LM_RESUME_BAR`` of the uninterrupted run's; the loss
+    falling).
 """
 
 from __future__ import annotations
@@ -484,17 +517,32 @@ DENSE_FWD_SHAPES = [
     (4, 40, 8, 2048, 128, True, None, None, "bfloat16"),
     (1, 64, 8, 2048, 128, True, None, None, "bfloat16"),
 ]
-# (g) adds a head-dim-256 backward shape, without window and soft-cap so
-# that SDPA's backward computes the same gradients beside it
-GEMMA_BWD_SHAPES = [(1, 16, 8, 4096, 256, True, None, None, "bfloat16")]
+# (g) adds the backward shapes of (ae)'s training paths: gemma2-9b's local
+# layer (window 4096, soft-cap 50) and global layer at B 1 x S 8192 (head
+# dim 256), llava-next-mistral-7b's (group 4) and qwen3-14b's (group 5) at
+# B 4 x S 2048 (head dim 128), whisper-base's encoder and cross-attention
+# (non-causal, 1500 = 11 x 128 + 92 keys) and decoder (causal) at B 16;
+# SDPA's backward beside each that has neither window nor soft-cap
+STACK_BWD_SHAPES = [
+    (1, 16, 8, 8192, 256, True, 4096, 50.0, "bfloat16"),
+    (1, 16, 8, 8192, 256, True, None, None, "bfloat16"),
+    (4, 32, 8, 2048, 128, True, None, None, "bfloat16"),
+    (4, 40, 8, 2048, 128, True, None, None, "bfloat16"),
+    (16, 8, 8, 1500, 64, False, None, None, "bfloat16"),
+    (16, 8, 8, 1500, 64, True, None, None, "bfloat16"),
+]
 # the main path's shapes: the prefill (b) and the training step (g)
 MAIN_FWD_SHAPE = [PREFILL_B, 32, 8, PREFILL_S, 64]
 # bf16 o row by row: |o - o_plain| within 2^-6 of the row's largest
 # |o_plain|, two bf16 ulps of it (rounding o gives one, rounding P less)
 BF16_ROW_BAR = 2.0 ** -6
 # the training path (h): B 4 x S 2048, TRAIN_STEPS steps, the first
-# TRAIN_WARMUP left out of the step time
+# TRAIN_WARMUP left out of the step time; mamba2-130m's (t) runs
+# MAMBA_TRAIN_STEPS (its loop, the initial weights' losses and the 3e-4
+# witness run) and MAMBA_WITNESS_STEPS at B 1, cut from 8 and 4 to keep
+# the script in time (the chunked reference takes ~3.5 s a B 1 step)
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP = 4, 2048, 8, 2
+MAMBA_TRAIN_STEPS, MAMBA_WITNESS_STEPS = 4, 2
 MAIN_BWD_SHAPE = [TRAIN_B, 32, 8, TRAIN_S, 64]
 # (h) at B 1 x S 2048: the flash model's gradients against the
 # reference-attention model's, bf16 compute.  On the CPU at the smoke
@@ -600,6 +648,36 @@ STACK_FWD_SHAPES = [
     (WHISPER_B, 8, 8, WHISPER_S, 64, False, None, None, "bfloat16"),
     (WHISPER_B, 8, 8, WHISPER_S, 64, True, None, None, "bfloat16"),
 ]
+# (ae) training on the card for the four other attention families, each
+# arch's (layers kept or None for whole, B, text tokens): whisper-base
+# whole at B 16 x 1500 tokens and 1500 frames, as (x);
+# llava-next-mistral-7b cut to 4 of 32 layers at B 4 x (its 576-position
+# prefix + 1472 tokens), as (w); gemma2-9b cut to 4 of 42 (2 local + 2
+# global) at B 1 x S 8192, as (p), so that the window of 4096 masks inside
+# the backward; qwen3-14b cut to 4 of 40 at B QWEN3_TRAIN_B x S 2048, as
+# (q).  STACK_TRAIN_STEPS steps each, the first left out of the step time
+QWEN3_TRAIN_B = 4
+STACK_TRAIN = {
+    WHISPER_ARCH: (None, WHISPER_B, WHISPER_S),
+    LLAVA_ARCH: (4, LLAVA_B, LLAVA_TEXT),
+    GEMMA_ARCH: (GEMMA_LAYERS, GEMMA_B, GEMMA_S),
+    QWEN3_ARCH: (QWEN3_LAYERS, QWEN3_TRAIN_B, QWEN3_S),
+}
+STACK_TRAIN_STEPS, STACK_TRAIN_WARMUP = 3, 1
+# gemma2-9b's B 1 gradients against reference attention at S
+# GEMMA_GRAD_S, where the window of 4096 still masks: at S 8192 the
+# reference's f32 [16, S, S] scores and the [S, 256000] f32 logits beside
+# the f32 parameters and two gradient trees ran out of memory (52 GB
+# allocated, 25 GB reserved in fragments; NVIDIA H100 80GB HBM3, 700 W)
+GEMMA_GRAD_S = 6144
+# (af) the examples on the card: quickstart's (m, n, error code, rows per
+# process); train_lm's run length, the step it resumes from (its
+# checkpoints after it removed) and its checkpoint period, and the
+# resumed losses' bar against the uninterrupted run's (relative)
+QUICKSTART_CASES = [(1024, 512, 0, [128] * 8),
+                    (5, 512, 1, [1, 1, 1, 1, 1, 0, 0, 0]),
+                    (0, 512, 1, [0] * 8)]
+LM_FIRST, LM_STEPS, LM_CKPT_EVERY, LM_RESUME_BAR = 40, 60, 20, 1e-5
 # (ad) llama3.2-1b over 2 virtual pods: 2^28-byte buckets (a layer's f32
 # gradients are ~243 MB: about one bucket a layer), POD_STEPS timed steps
 # a method; the stream check syncs the last POD_SYNC_LAYERS layers'
@@ -892,7 +970,7 @@ def device_kernels(run) -> list:
 
 
 def flash_bwd_phase(rng, dev, build_log: str,
-                    shapes=FLASH_SHAPES + GEMMA_BWD_SHAPES) -> list:
+                    shapes=FLASH_SHAPES + STACK_BWD_SHAPES) -> list:
     """(g): the two backward kernels against their plain version."""
     import torch
     from repro_torch.kernels import build
@@ -1101,7 +1179,12 @@ def granite_mesh_steps(label: str, cfg, params, opt, stream, dev) -> dict:
 
 def train_phases(dev, arch: str = ARCH) -> dict:
     """(h)-(i): llama3.2-1b training at full width, flash attention
-    against reference attention; (t) mamba2-130m's, the ``ssd_scan``
+    against reference attention; (ae) whisper-base's,
+    llava-next-mistral-7b's, gemma2-9b's and qwen3-14b's as
+    ``STACK_TRAIN`` gives them (depth cut by ``cut_depth``, the stream
+    built with the model's config so that it gives ``embeds`` or
+    ``frames``), their steps donating their state, without the step
+    profile and the loss witness; (t) mamba2-130m's, the ``ssd_scan``
     kernel against the chunked path (``chunked_mamba``), whose own
     spread (the chunked path at chunk 64 against 128, the same algebra
     summed in another order) widens the B 1 gradient bars as in (k);
@@ -1124,26 +1207,45 @@ def train_phases(dev, arch: str = ARCH) -> dict:
     from repro_torch.runtime.train_step import build_train_step
 
     mamba, moe = arch == MAMBA_ARCH, arch == GRANITE_ARCH
-    B, steps = (GRANITE_TRAIN_B, GRANITE_TRAIN_STEPS) if moe else \
-        (TRAIN_B, TRAIN_STEPS)
+    stack = arch in STACK_TRAIN
+    layers, B, S = STACK_TRAIN[arch] if stack else (None, TRAIN_B, TRAIN_S)
+    steps, warmup = TRAIN_STEPS, TRAIN_WARMUP
+    if moe:
+        B, steps = GRANITE_TRAIN_B, GRANITE_TRAIN_STEPS
+    elif mamba:
+        steps = MAMBA_TRAIN_STEPS
+    elif stack:
+        steps, warmup = STACK_TRAIN_STEPS, STACK_TRAIN_WARMUP
     if mamba:
         label, cfg = "mamba2 train", get_config(arch)
         ref_cfg, reference = cfg, chunked_mamba
         ranges = (ssd_ops.VJP_RANGE,)
     else:
-        label = "granite train" if moe else "train"
+        label = "granite train" if moe else f"{arch} train" if stack \
+            else "train"
         base = one_card_config(arch, smoke=False) if moe else \
             get_config(arch)
+        if layers:
+            base = cut_depth(base, layers)
         cfg = dataclasses.replace(base, attn_impl="flash")
         ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
         reference, ranges = contextlib.nullcontext, ()
     check(cfg.remat == "full" and cfg.param_dtype == "float32"
           and cfg.compute_dtype == "bfloat16", "training config")
+    donate = moe or stack
     ts = build_train_step(cfg, opt_cfg=AdamWConfig(
-        lr=warmup_cosine(3e-3, 10, steps)), donate=moe, device=dev)
-    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
-                                        global_batch=B, seed=0))
+        lr=warmup_cosine(3e-3, 10, steps)), donate=donate, device=dev)
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                        global_batch=B, seed=0),
+                             cfg if stack else None)
     out = {}
+    # host seconds of each part of the phase, printed at its end
+    seconds, t_lap = {}, [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        seconds[part] = now - t_lap[0]
+        t_lap[0] = now
 
     # the reference's loss of step 0's batch at the initial weights
     # (train_loop starts from the same seed-0 parameters), and the kernel
@@ -1155,7 +1257,7 @@ def train_phases(dev, arch: str = ARCH) -> dict:
     with torch.no_grad():
         with reference():
             ref_loss0 = loss_fn(params, b0, ref_cfg, ts.rt).item()
-        init_losses = [] if moe else [loss_fn(params, {
+        init_losses = [] if moe or stack else [loss_fn(params, {
             k: torch.from_numpy(v).to(dev)
             for k, v in stream.batch(i).items()}, cfg, ts.rt).item()
             for i in range(steps)]
@@ -1167,6 +1269,7 @@ def train_phases(dev, arch: str = ARCH) -> dict:
                   flush=True)
     del params
     torch.cuda.empty_cache()
+    lap("reference_and_initial_losses")
 
     # the training loop, counts set to 0 just before it ------------------
     zero_counts()
@@ -1182,12 +1285,14 @@ def train_phases(dev, arch: str = ARCH) -> dict:
     peak = torch.cuda.max_memory_allocated()
     losses = res["losses"]
     step_ms = statistics.median(
-        v.duration * 1e3 for v in list(res["monitor"])[TRAIN_WARMUP:])
-    tokens = B * TRAIN_S
+        v.duration * 1e3 for v in list(res["monitor"])[warmup:])
+    tokens = B * S
     # remat="full": each step runs the forward twice (the recompute)
     per_step = expected_counts(cfg, forward_calls=2, backward=True)
     out["train"] = dict(
-        arch=arch, batch=B, seq=TRAIN_S, steps=steps,
+        arch=arch, layers=sum(g.repeats * len(g.blocks) for g in
+                              cfg.groups + cfg.encoder_groups),
+        batch=B, seq=S, batch_keys=sorted(b0), steps=steps,
         n_params=count_params(cfg), losses=losses,
         ref_loss0=ref_loss0,
         loss0_rel_vs_reference=abs(losses[0] - ref_loss0) / abs(ref_loss0),
@@ -1195,7 +1300,8 @@ def train_phases(dev, arch: str = ARCH) -> dict:
         step_ms_all=[v.duration * 1e3 for v in res["monitor"]],
         tokens_per_s=tokens / (step_ms * 1e-3),
         model_tflops=model_flops(cfg, tokens) / (step_ms * 1e-3) / 1e12,
-        peak_mem_gb=peak / 1e9, loop_wall_s=wall_s, donated=moe)
+        peak_mem_gb=peak / 1e9, loop_wall_s=wall_s, donated=donate,
+        card=card_line())
     print(f"{label} " + json.dumps(out["train"]), flush=True)
     check(len(losses) == steps and all(map(math.isfinite, losses)),
           f"{label} losses {losses}")
@@ -1205,43 +1311,55 @@ def train_phases(dev, arch: str = ARCH) -> dict:
         check(launches[name] == n * steps,
               f"{label} {name}: {launches[name]} launches in {steps} "
               f"steps, not {n} per step")
+    check(not stack or launches["flash_attention_bwd_dkv"] > 0,
+          f"{label}: the backward kernels never launched")
+    lap("loop")
 
-    if moe:
-        # one step on the virtual mesh from the donated state, last
-        # before the gradients
-        out["mesh"] = granite_mesh_steps(label, cfg, res["params"],
-                                         res["opt"], stream, dev)
+    if moe or stack:
+        if moe:
+            # one step on the virtual mesh from the donated state, last
+            # before the gradients
+            out["mesh"] = granite_mesh_steps(label, cfg, res["params"],
+                                             res["opt"], stream, dev)
+            lap("mesh")
         del res
         torch.cuda.empty_cache()
         # every expert routed at B 1: no top-k flip between the two
         # attentions, so every leaf compares
-        dense = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, top_k=cfg.moe.n_experts))
-        out["grads_b1"] = grads_b1(label, ts, b0, dense, dataclasses.replace(
-            dense, attn_impl="reference"), reference, GRAD_BARS)
+        gcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, top_k=cfg.moe.n_experts)) if moe else cfg
+        out["grads_b1"] = grads_b1(label, ts, b0, gcfg, dataclasses.replace(
+            gcfg, attn_impl="reference"), reference, GRAD_BARS,
+            seq=GEMMA_GRAD_S if arch == GEMMA_ARCH else None)
+        lap("grads_b1")
+        out["seconds"] = seconds
+        print(f"{label} seconds " + json.dumps(seconds), flush=True)
         return out
 
     # the profile of one more step, last ----------------------------------
     params, opt = res["params"], res["opt"]
     del res
     batch = {k: torch.from_numpy(v).to(dev)
-             for k, v in stream.batch(TRAIN_STEPS).items()}
+             for k, v in stream.batch(steps).items()}
     out["train_memory"] = step_memory(ts, params, opt, batch)
+    lap("step_memory")
 
     def one_step():
         _p, _o, m = ts.step_fn(params, opt, batch)
         float(m["loss"])
 
     out["train_profile"] = profile_families(
-        f"{label} step (B {TRAIN_B}, S {TRAIN_S})", one_step, step_ms,
+        f"{label} step (B {B}, S {S})", one_step, step_ms,
         ranges=ranges)
     del params, opt
     torch.cuda.empty_cache()
+    lap("profile")
 
     # the kernel model's gradients against the reference's at B 1 ----------
     out["grads_b1"] = grads_b1(
         label, ts, b0, cfg, ref_cfg, reference, GRAD_BARS,
         spread=(lambda: chunked_mamba(64)) if mamba else None)
+    lap("grads_b1")
 
     # what makes the loss rise under the 3e-3 peak: the kernel and the
     # reference model from the same weights under the same schedule at
@@ -1250,19 +1368,22 @@ def train_phases(dev, arch: str = ARCH) -> dict:
     b1_stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
                                            global_batch=1, seed=0))
     witness = {"init_weights_b4": init_losses}
+    train_steps = steps
     for name, c, ctx, lr, s, B in (
             ("kernel_b1_3e-3", cfg, contextlib.nullcontext, 3e-3,
              b1_stream, 1),
             ("reference_b1_3e-3", ref_cfg, reference, 3e-3, b1_stream, 1),
             ("kernel_b4_3e-4", cfg, contextlib.nullcontext, 3e-4, stream,
              TRAIN_B)):
-        steps = WITNESS_STEPS if B == 1 else TRAIN_STEPS
+        steps = train_steps if B > 1 else \
+            MAMBA_WITNESS_STEPS if mamba else WITNESS_STEPS
         ts_w = build_train_step(c, opt_cfg=AdamWConfig(
-            lr=warmup_cosine(lr, 10, TRAIN_STEPS)), device=dev)
+            lr=warmup_cosine(lr, 10, train_steps)), device=dev)
         with ctx():
             witness[name] = train_loop(
                 ts_w, s, TrainLoopConfig(steps=steps))["losses"]
         torch.cuda.empty_cache()
+        lap(f"witness_{name}")
     f1, r1 = witness["kernel_b1_3e-3"], witness["reference_b1_3e-3"]
     witness["kernel_vs_reference_rel"] = [abs(a - b) / abs(b)
                                           for a, b in zip(f1, r1)]
@@ -1275,21 +1396,24 @@ def train_phases(dev, arch: str = ARCH) -> dict:
     check(all(map(math.isfinite, low)) and low[-1] < init_losses[-1],
           f"{label}: the kernel model's loss under a 3e-4 peak {low} did "
           f"not fall below the initial weights' {init_losses}")
+    out["seconds"] = seconds
+    print(f"{label} seconds " + json.dumps(seconds), flush=True)
     return out
 
 
 def grads_b1(label: str, ts, b0, cfg, ref_cfg, reference, bars,
-             spread=None) -> dict:
+             spread=None, seq: int = None) -> dict:
     """The kernel model's gradients against the reference's at B 1 from
     the seed-0 weights: the worst leaf's relative error, the global norms'
     and the difference's norm, each under its bar.  ``spread`` (a context
     for a second reference run) widens the bars to twice that run's
-    reading."""
+    reading; ``seq`` keeps the first ``seq`` tokens of the row."""
     import torch
     from repro_torch.models import loss_fn
     from repro_torch.optim import global_norm
     params = ts.init_fn(0)[0]
-    b1 = {k: v[:1] for k, v in b0.items()}
+    b1 = {k: v[:1, :seq] if k in ("tokens", "labels") else v[:1]
+          for k, v in b0.items()}
     names = [n for n, _ in params.named_parameters()]
 
     def grads_of(c, ctx):
@@ -1315,6 +1439,7 @@ def grads_b1(label: str, ts, b0, cfg, ref_cfg, reference, bars,
         cmp["chunked_64_vs_128"] = wide
         bars = {k: max(v, 2 * wide[k]) for k, v in bars.items()}
     cmp["bars"] = bars
+    cmp["seq"] = int(b1["tokens"].shape[1])
     print(f"{label} grads B1 kernel vs reference " + json.dumps(cmp),
           flush=True)
     check(all(cmp[k] < bars[k] for k in bars),
@@ -4004,6 +4129,106 @@ def program_replay_overlap(dev) -> list:
     return replay_script().overlap_phase(dev)
 
 
+def stack_train_launches(stack_train: dict, name: str) -> dict:
+    """``name``'s launches on each of (ae)'s training paths, by path."""
+    return {f"{arch} training, {r['train']['layers']} layers, "
+            f"{r['train']['steps']} steps (ae)": r["train"]["launches"][name]
+            for arch, r in stack_train.items()}
+
+
+def examples_phase(dev, fit: dict) -> dict:
+    """(af): the four examples' ``run(..., device="cuda")``:
+    ``quickstart`` at ``QUICKSTART_CASES`` (error code, rows, ledger;
+    priced on phase 6's fitted link), ``fft_spectral`` (the RMS error
+    halved at least, ``h_bytes == fft_h_bytes``), ``pagerank_interop``
+    (13 iterations, error against the dense oracle under 1e-3) and
+    ``train_lm``: ``LM_STEPS`` steps into a fresh directory, its
+    checkpoints after ``LM_FIRST`` removed, then again to ``LM_STEPS``
+    from the newest one left (the resumed run starts at ``LM_FIRST``,
+    its losses within ``LM_RESUME_BAR`` of the uninterrupted run's; the
+    mean of the last 10 losses below the first 10's)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import core as lpf
+    from repro_torch.examples import (fft_spectral, pagerank_interop,
+                                      quickstart, train_lm)
+    hw = fitted_hardware(lpf, fit)
+    out = dict(card=card_line())
+    t0 = time.perf_counter()
+    out["quickstart"] = []
+    for m, n, error, rows in QUICKSTART_CASES:
+        res = quickstart.run(m, n, device=dev, hardware=hw)
+        recs = [(r.label, r.method, r.h_bytes, r.rounds, r.n_msgs)
+                for r in res["ledger"].records]
+        row = dict(m=m, n=n, error=res["error"], rows=res["rows"],
+                   ledger=recs, predicted_us=res["ledger"].predicted_seconds(
+                       res["machine"]) * 1e6,
+                   priced_on=f"{res['hardware']}, phase 6's fitted vp link")
+        out["quickstart"].append(row)
+        print("example quickstart " + json.dumps(row), flush=True)
+        check(res["errors"] == [error] * 8 and res["rows"] == rows,
+              f"quickstart {m} {n}: {res['errors']} {res['rows']}")
+        check(recs == [("fetch-dims", "direct", 56, 7, 8),
+                       ("error-broadcast", "direct", 28, 13, 64)],
+              f"quickstart {m} {n} ledger {recs}")
+    res = fft_spectral.run(device=dev)
+    check(res["spectrum"].is_cuda, "fft_spectral ran off the card")
+    out["fft_spectral"] = {k: res[k] for k in (
+        "n", "p", "rms_before", "rms_after", "h_bytes", "predicted_h_bytes")}
+    print("example fft_spectral " + json.dumps(out["fft_spectral"]),
+          flush=True)
+    check(res["rms_after"] < res["rms_before"] / 2
+          and res["h_bytes"] == res["predicted_h_bytes"],
+          f"fft_spectral {out['fft_spectral']}")
+    res = pagerank_interop.run(device=dev)
+    out["pagerank_interop"] = {k: res[k] for k in (
+        "iterations", "rel_err", "mass", "top5", "nnz_per_process")}
+    print("example pagerank_interop " + json.dumps(out["pagerank_interop"]),
+          flush=True)
+    check(res["iterations"] == 13 and res["rel_err"] < 1e-3,
+          f"pagerank_interop {out['pagerank_interop']}")
+    log = lambda line: print(f"example train_lm {line}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        full = train_lm.run(LM_STEPS, tmp, device=dev,
+                            ckpt_every=LM_CKPT_EVERY, log=log)
+        full_s = time.perf_counter() - t1
+        # what a run stopped after step LM_FIRST leaves: its checkpoints up
+        # to that step (a run to LM_FIRST alone would train under another
+        # schedule: warmup_cosine spans --steps, as in the JAX example)
+        for name in os.listdir(tmp):
+            if name.startswith("step_") and int(name[5:]) > LM_FIRST:
+                shutil.rmtree(os.path.join(tmp, name))
+        again = train_lm.run(LM_STEPS, tmp, device=dev,
+                             ckpt_every=LM_CKPT_EVERY, log=log)
+    check(next(full["params"].parameters()).is_cuda,
+          "train_lm ran off the card")
+    want = full["losses"][LM_FIRST:]
+    rel = [abs(a - b) / abs(b) for a, b in zip(again["losses"], want)]
+    losses = full["losses"]
+    out["train_lm"] = dict(
+        steps=LM_STEPS, resumed_from=again["start"],
+        first_10=statistics.fmean(losses[:10]),
+        last_10=statistics.fmean(losses[-10:]),
+        resumed_rel_max=max(rel), bar=LM_RESUME_BAR,
+        resumed_bit_equal=again["losses"] == want,
+        uninterrupted_s=full_s,
+        step_ms_median=statistics.median(
+            v.duration * 1e3 for v in list(full["monitor"])[1:]))
+    print("example train_lm " + json.dumps(out["train_lm"]), flush=True)
+    check(all(map(math.isfinite, losses)) and again["start"] == LM_FIRST
+          and len(again["losses"]) == LM_STEPS - LM_FIRST
+          and max(rel) < LM_RESUME_BAR,
+          f"train_lm resume {out['train_lm']}")
+    check(out["train_lm"]["last_10"] < out["train_lm"]["first_10"],
+          f"train_lm loss did not fall {out['train_lm']}")
+    out["seconds"] = time.perf_counter() - t0
+    del full, again
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4093,6 +4318,14 @@ def main() -> int:
         + STACK_FWD_SHAPES)
 
     done("1-3, b")
+
+    # (ae) training on the card for whisper-base, llava-next-mistral-7b,
+    # gemma2-9b and qwen3-14b (this slice's kernel path), first of the
+    # model phases: gemma2-9b's steps peak at 73 GB, and after (ad) the
+    # allocator's fragments (60 GB reserved around 17 GB in use) left no
+    # room for a 4.65 GB block
+    stack_train = {arch: train_phases(dev, arch) for arch in STACK_TRAIN}
+    done("ae")
 
     # 4. README quickstart through exec_ on the card -------------------------
     def quickstart(ctx, s, p, args):
@@ -4254,6 +4487,7 @@ def main() -> int:
     # analysis CLI (this slice's main path) -----------------------------------
     granite_train = train_phases(dev, GRANITE_ARCH)
     done("z")
+
     store = store_phase(dev)
     persisted = dict(store=store, faults=fault_phase(dev, store),
                      analysis=analysis_phase())
@@ -4269,6 +4503,10 @@ def main() -> int:
     pods = pod_phase(dev)
     pods["program_replay_overlap"] = program_replay_overlap(dev)
     done("ad")
+
+    # (af) the examples (this slice's main path) ------------------------------
+    examples = examples_phase(dev, fit)
+    done("af")
 
     # 7. result lines ----------------------------------------------------------
     big = [r for r in rows if r["n"] == N_MAIN // P_MAIN and not r["inverse"]][0]
@@ -4308,10 +4546,11 @@ def main() -> int:
         f"{GRANITE_ARCH} training, {GRANITE_TRAIN_STEPS} steps (z)":
             granite_train["train"]["launches"]["flash_attention_fwd"],
         "llama3.2-1b over 2 pods, one step (ad)":
-            pods["launches"]["measured"]["flash_attention_fwd"]}
+            pods["launches"]["measured"]["flash_attention_fwd"],
+        **stack_train_launches(stack_train, "flash_attention_fwd")}
     ssd_launches = {
         "mamba2-130m prefill (k)": mamba["prefill"]["ssd_launches"],
-        f"mamba2-130m training, {TRAIN_STEPS} steps (t)":
+        f"mamba2-130m training, {MAMBA_TRAIN_STEPS} steps (t)":
             mamba_launches["ssd_scan"],
         f"{JAMBA_ARCH} prefill (v)":
             moes[JAMBA_ARCH]["prefill"]["ssd_launches"]}
@@ -4352,7 +4591,8 @@ def main() -> int:
                 f"{GRANITE_ARCH} training, {GRANITE_TRAIN_STEPS} steps (z)":
                     granite_train["train"]["launches"][name],
                 "llama3.2-1b over 2 pods, one step (ad)":
-                    pods["launches"]["measured"][name]},
+                    pods["launches"]["measured"][name],
+                **stack_train_launches(stack_train, name)},
             max_abs_err=max(main_bwd["max_abs_err"][g] for g in grads),
             ms=main_bwd["ms"][name], plain_ms=main_bwd["plain_ms"],
             bound_ms=main_bwd["bound"][name][0],

@@ -1,4 +1,4 @@
-"""Shared model machinery: norms, RoPE, initialisers, dtype names.
+"""Shared model machinery: norms, RoPE, initialisers, dtype policy.
 
 Every function keeps the JAX package's layout and precision policy
 (``repro.models.common``): norms and RoPE compute in f32 and cast back
@@ -7,12 +7,13 @@ to the input's dtype.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Sequence
 
 import torch
 
-__all__ = ["DTYPES", "dtype_of", "rms_norm", "layer_norm", "rope_freqs",
+__all__ = ["DTYPES", "DtypePolicy", "dtype_of", "rms_norm", "layer_norm", "rope_freqs",
            "apply_rope", "sinusoidal_positions", "dense_init"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -21,6 +22,19 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class DtypePolicy:
+    """Parameter, compute and accumulation dtypes (the JAX package's
+    defaults: f32 parameters, bf16 compute, f32 accumulation)."""
+
+    param: torch.dtype = torch.float32
+    compute: torch.dtype = torch.bfloat16
+    accum: torch.dtype = torch.float32
+
+    def cast_in(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.compute)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,

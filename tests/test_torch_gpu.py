@@ -38,11 +38,16 @@ search) and replays bit-equal; the ``compile`` fault seam quarantines a
 program from CUDA-graph capture to the dispatched schedule with the same
 values and ledger; one granite-moe-3b-a800m train step launches each
 flash kernel as many times as it has attention layers (twice the forward
-under full remat).
+under full remat), and so does one train step of whisper-base,
+llava-next-mistral-7b, gemma2-9b and qwen3-14b (smoke depth at their
+published head dims), whose backward shapes at full width hold the flash
+backward kernels to their plain version; the four examples run on the
+card.
 """
 
 import ctypes
 import dataclasses
+import shutil
 import subprocess
 
 import numpy as np
@@ -1367,6 +1372,110 @@ def test_flash_kernel_matches_plain_version_at_stack_shapes(
         cuda, B, H, Hkv, S, D, causal, window, softcap, dtype):
     test_flash_kernel_matches_plain_version(cuda, B, H, Hkv, S, D, causal,
                                             window, softcap, dtype)
+
+
+# the backward shapes of chip_smoke.py's (ae) training paths: gemma2-9b's
+# local (window 4096, soft-cap 50) and global layers at head dim 256,
+# llava-next-mistral-7b's and qwen3-14b's at 128, whisper-base's encoder
+# (non-causal, 1500 keys) and decoder (causal)
+STACK_BWD = [(1, 16, 8, 8192, 256, True, 4096, 50.0, torch.bfloat16),
+             (1, 16, 8, 8192, 256, True, None, None, torch.bfloat16),
+             (4, 32, 8, 2048, 128, True, None, None, torch.bfloat16),
+             (4, 40, 8, 2048, 128, True, None, None, torch.bfloat16),
+             (16, 8, 8, 1500, 64, False, None, None, torch.bfloat16),
+             (16, 8, 8, 1500, 64, True, None, None, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window,softcap,dtype",
+                         STACK_BWD, ids=["gemma2-local", "gemma2-global",
+                                         "llava", "qwen3", "whisper-encoder",
+                                         "whisper-decoder"])
+def test_flash_bwd_kernels_match_plain_version_at_training_shapes(
+        cuda, B, H, Hkv, S, D, causal, window, softcap, dtype):
+    test_flash_bwd_kernels_match_plain_version(cuda, B, H, Hkv, S, D,
+                                               causal, window, softcap,
+                                               dtype)
+
+
+# smoke widths with each family's published head dim and GQA group
+STACK_TRAIN_WIDTHS = {
+    "whisper-base": dict(n_heads=2, n_kv=2, head_dim=64),
+    "llava-next-mistral-7b": dict(n_heads=8, n_kv=2, head_dim=128),
+    "gemma2-9b": dict(n_heads=4, n_kv=2, head_dim=256),
+    "qwen3-14b": dict(n_heads=5, n_kv=1, head_dim=128),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(STACK_TRAIN_WIDTHS))
+def test_stack_train_step_launch_counts(cuda, arch):
+    """One train step of each family chip_smoke.py's (ae) trains (smoke
+    depth, the published head dim and group, flash attention, the steps
+    donating their state): a forward launch an attention layer (and a
+    cross-attention layer) a forward, two forwards under
+    ``remat="full"``, one launch of each backward kernel an attention
+    layer, a finite loss within 1e-2 of the reference attention's."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train_step import build_train_step
+    base = dataclasses.replace(get_config(arch, smoke=True),
+                               **STACK_TRAIN_WIDTHS[arch])
+    cfg = dataclasses.replace(base, attn_impl="flash")
+    ts = build_train_step(cfg, opt_cfg=AdamWConfig(lr=1e-3), donate=True)
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                        global_batch=2), cfg)
+    params, opt = ts.init_fn(0)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in stream.batch(0).items()}
+    with torch.no_grad():
+        want = loss_fn(params, batch, dataclasses.replace(
+            base, attn_impl="reference"), ts.rt).item()
+    for fn in (fa_kernel.flash_attention_fwd,
+               fa_kernel.flash_attention_bwd_dkv,
+               fa_kernel.flash_attention_bwd_dq):
+        fn.launches = 0
+    params, opt, m = ts.step_fn(params, opt, batch)
+    loss = m["loss"].item()
+    attn = sum(g.repeats * sum((b.mixer == "attn") + bool(b.cross_attn)
+                               for b in g.blocks)
+               for g in cfg.groups + cfg.encoder_groups)
+    assert (fa_kernel.flash_attention_fwd.launches,
+            fa_kernel.flash_attention_bwd_dkv.launches,
+            fa_kernel.flash_attention_bwd_dq.launches) == (2 * attn, attn,
+                                                           attn)
+    assert np.isfinite(loss) and abs(loss - want) < 1e-2 * want
+
+
+def test_examples_run_on_card(cuda, tmp_path):
+    """Each example's ``run(device="cuda")``: quickstart's error codes,
+    rows and ledger, fft_spectral's RMS drop and h-relation,
+    pagerank_interop's iterations and error, and train_lm resumed from
+    the checkpoint of step 3 within 1e-5 of the uninterrupted run."""
+    from repro_torch.algorithms import fft_h_bytes
+    from repro_torch.examples import (fft_spectral, pagerank_interop,
+                                      quickstart, train_lm)
+    for m, n, err, rows in ((1024, 512, 0, [128] * 8),
+                            (5, 512, 1, [1] * 5 + [0] * 3),
+                            (0, 512, 1, [0] * 8)):
+        res = quickstart.run(m, n)
+        assert res["errors"] == [err] * 8 and res["rows"] == rows
+        assert [(r.label, r.h_bytes, r.rounds, r.n_msgs)
+                for r in res["ledger"].records] == [
+            ("fetch-dims", 56, 7, 8), ("error-broadcast", 28, 13, 64)]
+    res = fft_spectral.run()
+    assert res["spectrum"].is_cuda
+    assert res["rms_after"] < res["rms_before"] / 2
+    assert res["h_bytes"] == fft_h_bytes(fft_spectral.N, fft_spectral.P)
+    res = pagerank_interop.run()
+    assert res["iterations"] == 13 and res["rel_err"] < 1e-3
+    full = train_lm.run(6, str(tmp_path), ckpt_every=3, log=None)
+    shutil.rmtree(tmp_path / "step_6")         # a run stopped after step 3
+    again = train_lm.run(6, str(tmp_path), ckpt_every=3, log=None)
+    assert next(full["params"].parameters()).is_cuda
+    assert again["start"] == 3 and len(again["losses"]) == 3
+    for a, b in zip(again["losses"], full["losses"][3:]):
+        assert abs(a - b) < 1e-5 * abs(b)
 
 
 def test_captured_decode_with_enc_out_matches_eager(cuda):

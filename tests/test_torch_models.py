@@ -134,6 +134,28 @@ def test_init_params_layout_and_norm_weights():
 # shared machinery
 # --------------------------------------------------------------------------
 
+def test_dtype_policy_matches_jax():
+    """``DtypePolicy``'s defaults are the JAX package's field for field
+    (by dtype name), and ``cast_in`` casts to the compute dtype as
+    JAX's does."""
+    assert "DtypePolicy" in common.__all__ and \
+        "DtypePolicy" in jax_common.__all__
+    jpol, pol = jax_common.DtypePolicy(), common.DtypePolicy()
+    jfields = {f.name: jnp.dtype(getattr(jpol, f.name)).name
+               for f in dataclasses.fields(jpol)}
+    fields = {f.name: str(getattr(pol, f.name)).removeprefix("torch.")
+              for f in dataclasses.fields(pol)}
+    assert fields == jfields == {"param": "float32", "compute": "bfloat16",
+                                 "accum": "float32"}
+    x = np.random.default_rng(0).standard_normal((3, 4)).astype(np.float32)
+    got = pol.cast_in(torch.from_numpy(x))
+    want = np.asarray(jpol.cast_in(jnp.asarray(x)))
+    assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
+    assert np.array_equal(got.float().numpy(), want.astype(np.float32))
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        pol.compute = torch.float16
+
+
 @pytest.mark.parametrize("plus_one", [False, True])
 def test_rms_norm_matches_jax(plus_one):
     rng = np.random.default_rng(1)
