@@ -1,0 +1,7 @@
+"""``device_idle.fft`` (%): the traced window's share with no kernel
+running on the device, in the FFT cells."""
+from lpfbench.metrics._common import idle_percent
+
+
+def read(view):
+    return idle_percent(view)
