@@ -411,8 +411,8 @@ tile masked by length alone) and its decoder's, causal:
     127 must miss it); then ``POD_STEPS`` timed steps of each method, with
     the counts set to 0 just before the first: 64 forward, 32 dK/dV and
     32 dQ launches a step; each method's step ms and peak; one profiled
-    step of ``rs+ag`` and of ``bucketed_overlap``: the ``pod_sync``
-    range's share of the step's device time; the ``bucket_sync`` program
+    step of ``rs+ag`` and of ``bucketed_overlap``: the ``train.pod_sync``
+    span's share of the step's device time; the ``bucket_sync`` program
     (``build_cross_pod_sync``) over the last ``POD_SYNC_LAYERS`` layers'
     gradients on one stream, dispatched and compiled, and on the
     side-stream pool, compiled (dispatched, overlap groups stay on one
@@ -957,6 +957,21 @@ def kernel_build_report(log: str, marker: str, smem_dynamic: int) -> dict:
     return out
 
 
+def device_work(prof, events) -> list:
+    """The kernels and copies among ``events`` (``prof.events()`` or
+    ``prof.key_averages()``): the device's events that are not profiler
+    ranges.  A range (``record_function``, the port's spans) shows on the
+    device's timeline too, spanning the kernels it launched; it is no
+    kernel."""
+    import torch
+    ranges = {e.name for e in prof.events()
+              if getattr(e, "is_user_annotation", False)}
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in ranges]
+
+
 def device_kernels(run) -> list:
     """Names of the CUDA kernels one call of ``run`` launches (every
     device event the profiler recorded, whether or not it carries time)."""
@@ -965,8 +980,7 @@ def device_kernels(run) -> list:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    return sorted({e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+    return sorted({e.name for e in device_work(prof, prof.events())})
 
 
 def flash_bwd_phase(rng, dev, build_log: str,
@@ -1649,9 +1663,8 @@ def profile_families(label: str, run, wall_ms: float, ranges=()) -> dict:
         run()
         torch.cuda.synchronize()
     fam: dict = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and e.self_device_time_total > 0 and e.key not in ranges:
+    for e in device_work(prof, prof.key_averages()):
+        if e.self_device_time_total > 0:
             f = fam.setdefault(kernel_family(e.key),
                                dict(kernels=0, launches=0, device_us=0.0))
             f["kernels"] += 1
@@ -3567,9 +3580,8 @@ def window_busy(fn, mark: str, first: int) -> tuple:
     marks = sorted(e.time_range.start for e in events if e.name == mark)
     lo, hi = marks[first], marks[-1]
     spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
-                   for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.time_range.end > lo and e.time_range.start < hi)
+                   for e in device_work(prof, events)
+                   if e.time_range.end > lo and e.time_range.start < hi)
     busy, end = 0.0, lo
     for a, b in spans:
         a = max(a, end)
@@ -3828,9 +3840,8 @@ def profile_bsp_fft(bsp_fft, x, wall_ms: float) -> dict:
         bsp_fft(x, p=P_MAIN, ordered=True, use_kernel=True, device="cuda")
         torch.cuda.synchronize()
     kernels = sorted(((e.key[:90], e.count, e.self_device_time_total)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.self_device_time_total > 0),
+                      for e in device_work(prof, prof.key_averages())
+                      if e.self_device_time_total > 0),
                      key=lambda t: -t[2])
     busy_us = sum(t for _, _, t in kernels)
     out = dict(wall_us=wall_ms * 1e3, device_busy_us=busy_us,
@@ -4053,7 +4064,7 @@ def pod_phase(dev) -> dict:
 
         out["profiles"][name] = profile_families(
             f"pod {name} step", one_step, timed[name]["median_ms"],
-            ranges=(ts_mod.POD_SYNC_RANGE,))
+            ranges=("train.pod_sync",))
         p, o = box
     del steps, p, o, box
     torch.cuda.empty_cache()

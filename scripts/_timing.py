@@ -1,8 +1,9 @@
 """Timing helpers of the scripts that measure the port's kernels on one
 NVIDIA GPU: a function's milliseconds by CUDA events, the device time of
-each CUDA kernel a call launches, and the card's name and power limit.
-``torch`` is imported inside each function, so a script that imports this
-module still starts (and fails cleanly) without it."""
+each CUDA kernel a call launches (profiler ranges left out), and the
+card's name and power limit.  ``torch`` is imported inside each
+function, so a script that imports this module still starts (and fails
+cleanly) without it."""
 
 from __future__ import annotations
 
@@ -30,6 +31,21 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_work(prof, events) -> list:
+    """The kernels and copies among ``events`` (``prof.events()`` or
+    ``prof.key_averages()``): the device's events that are not profiler
+    ranges.  A range (``record_function``, the port's spans) shows on the
+    device's timeline too, spanning the kernels it launched; it is no
+    kernel."""
+    import torch
+    ranges = {e.name for e in prof.events()
+              if getattr(e, "is_user_annotation", False)}
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in ranges]
+
+
 def kernel_us(fn, calls: int = 5) -> dict:
     """Device microseconds a call of each CUDA kernel ``fn`` launches
     (``torch.profiler``, the mean of ``calls`` calls after one warm-up)."""
@@ -42,9 +58,8 @@ def kernel_us(fn, calls: int = 5) -> dict:
             fn()
         torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and e.self_device_time_total > 0:
+    for e in device_work(prof, prof.key_averages()):
+        if e.self_device_time_total > 0:
             m = re.search(r"([A-Za-z_]\w*)(?=[<(])", e.key)
             name = m.group(1) if m else e.key
             out[name] = out.get(name, 0.0) + e.self_device_time_total / calls

@@ -34,7 +34,7 @@ import subprocess
 import sys
 import time
 
-from _timing import card_line, cuda_ms, kernel_us
+from _timing import card_line, cuda_ms, device_work, kernel_us
 
 SEED = 0
 # B, S, H, P, G, N, chunk, dtype
@@ -119,11 +119,10 @@ def prefill_rows(root: str) -> list:
             run()
             torch.cuda.synchronize()
         busy = ssd = 0.0
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                busy += e.self_device_time_total
-                if "ssd_" in e.key.lower():
-                    ssd += e.self_device_time_total
+        for e in device_work(prof, prof.key_averages()):
+            busy += e.self_device_time_total
+            if "ssd_" in e.key.lower():
+                ssd += e.self_device_time_total
         rows.append(dict(root=root, prefill=[B, S], e2e_ms=ms,
                          device_busy_ms=busy / 1e3, ssd_ms=ssd / 1e3,
                          ssd_share_of_busy=ssd / busy if busy else None))

@@ -21,6 +21,10 @@ On the port the ``p`` processes are virtual processes stacked on one
 device, so step (0) is ONE batched FFT over the ``[p, n/p]`` rows: the
 CUDA kernel ``fft_stage`` when ``use_kernel=True``, else ``torch.fft``.
 
+Under a profiler a call is the span ``fft.call``, and steps (0), (1) and
+(3) the spans ``fft.local``, ``fft.twiddle`` and ``fft.dft``
+(:mod:`repro_torch.core.trace`).
+
 BSP cost:  2 (n/p) log(n/p + p) flops  +  (n/p)(p-1)/p * itemsize * g
            + l   (unordered; ordered doubles the comm term), itemsize 8
            for complex64 and 16 for complex128.
@@ -35,6 +39,7 @@ import torch
 
 from ..core import (H100_SXM, LPF_SYNC_DEFAULT, HardwareModel, LPFContext,
                     SyncAttributes, exec_)
+from ..core.trace import span
 
 __all__ = ["bsp_fft_spmd", "bsp_fft", "fft_flops", "fft_h_bytes"]
 
@@ -55,6 +60,7 @@ def fft_h_bytes(n: int, p: int, ordered: bool = True,
     return (2 * one) if ordered else one
 
 
+@span("fft.local")
 def _local_fft(x: torch.Tensor, use_kernel: bool) -> torch.Tensor:
     if use_kernel:
         from ..kernels.fft_stage import ops as fft_ops
@@ -94,11 +100,12 @@ def bsp_fft_spmd(ctx: LPFContext, x_local: torch.Tensor, n: int, *,
 
     # (1) time-shifted twiddle  w_n^{+- s k2}, built in the real dtype
     # matching the input's precision (float64 for complex128 inputs)
-    real_dt = ctype.to_real()
-    k2 = torch.arange(npp, dtype=real_dt, device=ctx.device)
-    phase = (s.to(real_dt) * k2 / n) * torch.tensor(
-        sign * 2.0 * np.pi, dtype=real_dt, device=ctx.device)
-    Z = X * torch.complex(torch.cos(phase), torch.sin(phase)).to(ctype)
+    with span("fft.twiddle"):
+        real_dt = ctype.to_real()
+        k2 = torch.arange(npp, dtype=real_dt, device=ctx.device)
+        phase = (s.to(real_dt) * k2 / n) * torch.tensor(
+            sign * 2.0 * np.pi, dtype=real_dt, device=ctx.device)
+        Z = X * torch.complex(torch.cos(phase), torch.sin(phase)).to(ctype)
 
     # (2)-(4) run recorded: the twiddle matmul is a compute dependency
     # between redistribute and reorder, so reading Zk flushes exactly the
@@ -118,11 +125,12 @@ def bsp_fft_spmd(ctx: LPFContext, x_local: torch.Tensor, n: int, *,
         ctx.deregister(src)
 
         # (3) p-point DFTs across s as a dense twiddle matmul
-        k1 = np.arange(p)
-        Wp = torch.from_numpy(
-            np.exp(sign * 2j * np.pi * np.outer(k1, k1) / p)).to(
-                device=ctx.device, dtype=ctype)
-        Y = torch.matmul(Wp, Zk)                 # [pid, k1, k2_local]
+        with span("fft.dft"):
+            k1 = np.arange(p)
+            Wp = torch.from_numpy(
+                np.exp(sign * 2j * np.pi * np.outer(k1, k1) / p)).to(
+                    device=ctx.device, dtype=ctype)
+            Y = torch.matmul(Wp, Zk)             # [pid, k1, k2_local]
 
         if not ordered:
             ctx.deregister(dst)
@@ -146,6 +154,7 @@ def bsp_fft_spmd(ctx: LPFContext, x_local: torch.Tensor, n: int, *,
     return yl / n if inverse else yl
 
 
+@span("fft.call")
 def bsp_fft(x, *, p: int = 8, ordered: bool = True,
             use_kernel: bool = False, inverse: bool = False,
             attrs: SyncAttributes = LPF_SYNC_DEFAULT,

@@ -20,6 +20,12 @@ verifier's certificate, then the searched schedule — compiled
 (:class:`~repro_torch.core.program.CompiledProgram`: a CUDA graph on the
 card) or dispatched superstep by superstep.
 
+Under a profiler the context's stages are spans
+(:mod:`repro_torch.core.trace`): ``lpf.exec``, ``lpf.sync``,
+``lpf.plan``, and ``lpf.flush`` with its stages ``lpf.program.lookup``,
+``.certify``, ``.compile`` (a miss), then ``.compiled`` or
+``.dispatch``.
+
 Entry points run on the card: ``device`` defaults to ``"cuda"`` and a
 context never falls back to the CPU when no GPU is present — pass
 ``device="cpu"`` to run there.
@@ -47,6 +53,7 @@ from .program import (ProgramCache, ProgramStep, compile_program,
                       dependency_cone, global_program_cache, trace_slot_map)
 from .sync import (Msg, PlanCache, _capturing, execute_plan,
                    execute_schedule, global_plan_cache, keep_indices)
+from .trace import span
 
 __all__ = ["LPFContext", "exec_", "hook", "rehook", "resolve_device"]
 
@@ -372,18 +379,20 @@ class LPFContext:
             n = self.ledger.supersteps + len(self._rec_pending)
             label = f"{prefix}.superstep[{n}]" if prefix \
                 else f"superstep[{n}]"
-        if self._rec_depth:
-            self._rec_pending.append(
-                ProgramStep(tuple(self._queue), attrs, label))
+        with span("lpf.sync"):
+            if self._rec_depth:
+                self._rec_pending.append(
+                    ProgramStep(tuple(self._queue), attrs, label))
+                self._queue = []
+                return None
+            if self.sanitize and self._queue:
+                self._sanitize_lint(
+                    [ProgramStep(tuple(self._queue), attrs, label)])
+            cost = self._execute(self._queue, attrs, label)
             self._queue = []
-            return None
-        if self.sanitize and self._queue:
-            self._sanitize_lint(
-                [ProgramStep(tuple(self._queue), attrs, label)])
-        cost = self._execute(self._queue, attrs, label)
-        self._queue = []
-        return cost
+            return cost
 
+    @span("lpf.plan")
     def _execute(self, msgs: Sequence[Msg], attrs: SyncAttributes,
                  label: str) -> SuperstepCost:
         plan = self.plan_cache.get_or_plan(msgs, self.p, attrs,
@@ -468,6 +477,7 @@ class LPFContext:
             self._gate_machine = self.probe()
         return self._gate_machine
 
+    @span("lpf.flush")
     def _execute_steps(self, steps: List[ProgramStep]) -> None:
         """Optimize (or fetch the cached optimization of) one trace and
         execute it, as the JAX package's flush does: canonical order,
@@ -490,15 +500,17 @@ class LPFContext:
         same ledger.  An ``LPFError`` propagates.  Inside a CUDA-graph
         capture (a ``compile_loop`` body) the dispatched schedule runs, so
         no graph is launched inside another's capture."""
-        order, sig = self.program_cache.canonicalize(steps, self.p,
-                                                     self._scratch)
-        prog, key = self.program_cache.get_or_build_keyed(
-            steps, self.p, self._machine(), plan_cache=self.plan_cache,
-            scratch=self._scratch, order=order, signature=sig)
+        with span("lpf.program.lookup"):
+            order, sig = self.program_cache.canonicalize(steps, self.p,
+                                                         self._scratch)
+            prog, key = self.program_cache.get_or_build_keyed(
+                steps, self.p, self._machine(), plan_cache=self.plan_cache,
+                scratch=self._scratch, order=order, signature=sig)
         self.last_program = prog
-        cert = self.program_cache.certify(key, steps, prog,
-                                          scratch=self._scratch,
-                                          order=order)
+        with span("lpf.program.certify"):
+            cert = self.program_cache.certify(key, steps, prog,
+                                              scratch=self._scratch,
+                                              order=order)
         if not cert.ok:
             raise LPFAnalysisError(
                 "schedule verification failed; refusing to execute:\n  "
@@ -518,8 +530,10 @@ class LPFContext:
             cp = self.program_cache.compiled(key, dev)
             if cp is None:
                 try:
-                    cp = compile_program(prog, steps, order, self.p,
-                                         self.device, scratch=self._scratch)
+                    with span("lpf.program.compile"):
+                        cp = compile_program(prog, steps, order, self.p,
+                                             self.device,
+                                             scratch=self._scratch)
                 except LPFError:
                     raise
                 except Exception as e:
@@ -536,7 +550,8 @@ class LPFContext:
             scratch_val = self.registry.value(self._scratch) \
                 if cp.scratch is not None else None
             try:
-                out = cp(vals, scratch_val)
+                with span("lpf.program.compiled"):
+                    out = cp(vals, scratch_val)
             except LPFError:
                 raise
             except Exception as e:
@@ -550,9 +565,11 @@ class LPFContext:
                         self._scratch if sid < 0 else slots[sid], v)
                 costs = prog.ledger_costs(labels, order)
         if cp is None:
-            entries = prog.materialize(steps, labels, order=order)
-            costs = execute_schedule(entries, prog.groups(), self.registry,
-                                     scratch=self._scratch)
+            with span("lpf.program.dispatch"):
+                entries = prog.materialize(steps, labels, order=order)
+                costs = execute_schedule(entries, prog.groups(),
+                                         self.registry,
+                                         scratch=self._scratch)
         for cost in costs:
             self.ledger.add(cost)
 
@@ -857,6 +874,7 @@ def rehook(ctx: LPFContext, spmd: Callable, args: Any = None) -> Any:
         ctx._on_hold = False
 
 
+@span("lpf.exec")
 def exec_(p: int, spmd: Callable, args: Any = None, *,
           device="cuda", hardware: HardwareModel = H100_SXM,
           return_ledger: bool = False,

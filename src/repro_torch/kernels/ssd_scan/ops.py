@@ -19,12 +19,17 @@ from __future__ import annotations
 import torch
 
 from ...core.errors import LPFFatalError
+from ...core.trace import span
 from . import kernel as _k
 from . import ref as _ref
 
 __all__ = ["ssd", "VJP_RANGE"]
 
-#: the ``torch.profiler`` range around the backward
+#: the span (:mod:`repro_torch.core.trace`) around the backward: what
+#: share of a training step's device time the plain VJP takes.  With no
+#: profiler it costs one flag check; under one, a ``record_function``
+#: range (12-16 us of host time a call, where an unguarded one cost
+#: 9-15 us with no profiler)
 VJP_RANGE = "ssd_scan.vjp"
 
 
@@ -45,9 +50,7 @@ class _SSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        # a profiler range (free without a profiler): what share of a
-        # training step's device time the plain VJP takes
-        with torch.profiler.record_function(VJP_RANGE):
+        with span(VJP_RANGE):
             ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             with torch.enable_grad():
                 y, _ = _ref.ssd_scan_plain(*ins, chunk=ctx.chunk)

@@ -45,15 +45,19 @@ import torch.nn.functional as F
 
 from ..core.errors import LPFFatalError
 from ..core.mesh import mesh_shards, split
+from ..core.trace import count, span, tracing
 from .common import dense_init
 
 __all__ = ["MoEConfig", "moe_params", "moe_capacity", "moe_single",
            "moe_apply", "expert_load", "MOE_RANGE"]
 
-#: the ``torch.profiler`` range around :func:`moe_single` and
-#: :func:`moe_apply` (free without a profiler): the block's share of a
-#: prefill's, a decode step's or a training step's device time, on one
-#: device or a mesh
+#: the span (:mod:`repro_torch.core.trace`) around :func:`moe_single` and
+#: :func:`moe_apply`: the block's share of a prefill's, a decode step's or
+#: a training step's device time, on one device or a mesh.  Inside it,
+#: ``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``.
+#: With no profiler a span costs one flag check; under one, a
+#: ``record_function`` range (12-16 us of host time a call, where an
+#: unguarded one cost 9-15 us with no profiler)
 MOE_RANGE = "moe_single"
 
 
@@ -123,35 +127,48 @@ def _moe_shards(p, xs: torch.Tensor, cfg: MoEConfig, n_model: int
     n, T, D = xs.shape
     xt = xs.reshape(n * T, D)
     E = p["w_gate"].shape[0]
-    gate_idx, gates = _route(p, xt, cfg)
-    # each expert's weight of each token, 0 where the token is not routed
-    # to it (a token's k experts are distinct: one write each)
-    w_tok = torch.zeros(n, T, E, dtype=torch.float32, device=xs.device) \
-        .scatter(2, gate_idx.reshape(n, T, -1), gates.reshape(n, T, -1))
-    cap = moe_capacity(T, E, cfg)
-    sel_w, sel_idx = torch.topk(w_tok.transpose(1, 2), cap, dim=2)
-    # [n, E, cap] -> each expert's tokens of every shard, in shard order,
-    # as rows of xt: [E, n * cap]
-    if n > 1:
-        sel_idx = sel_idx + (torch.arange(n, device=xs.device) * T)[
-            :, None, None]
-    rows = sel_idx.transpose(0, 1).reshape(E, n * cap)
-    sel_w = sel_w.transpose(0, 1).reshape(E, n * cap)
-    x_e = xt.index_select(0, rows.reshape(-1)).reshape(E, n * cap, D)
-    y = _local_expert_ffn(x_e, p["w_gate"], p["w_up"], p["w_down"])
-    y = y.float() * sel_w[..., None]
+    with span("moe.route"):
+        gate_idx, gates = _route(p, xt, cfg)
+        # each expert's weight of each token, 0 where the token is not
+        # routed to it (a token's k experts are distinct: one write each)
+        w_tok = torch.zeros(n, T, E, dtype=torch.float32,
+                            device=xs.device) \
+            .scatter(2, gate_idx.reshape(n, T, -1), gates.reshape(n, T, -1))
+        cap = moe_capacity(T, E, cfg)
+        if tracing() and torch._C._current_graph_task_id() == -1:
+            # a forward's routes and drops, reckoned as expert_load
+            # reckons them (a remat recompute, which runs inside the
+            # backward, is not counted again)
+            count("moe.routed", gate_idx.numel())
+            load = _load(gate_idx, n, E)
+            count("moe.dropped", (load - cap).clamp_min(0).sum())
+        sel_w, sel_idx = torch.topk(w_tok.transpose(1, 2), cap, dim=2)
+        # [n, E, cap] -> each expert's tokens of every shard, in shard
+        # order, as rows of xt: [E, n * cap]
+        if n > 1:
+            sel_idx = sel_idx + (torch.arange(n, device=xs.device) * T)[
+                :, None, None]
+        rows = sel_idx.transpose(0, 1).reshape(E, n * cap)
+        sel_w = sel_w.transpose(0, 1).reshape(E, n * cap)
+    with span("moe.dispatch"):
+        x_e = xt.index_select(0, rows.reshape(-1)).reshape(E, n * cap, D)
+    with span("moe.experts"):
+        y = _local_expert_ffn(x_e, p["w_gate"], p["w_up"], p["w_down"])
+        y = y.float() * sel_w[..., None]
     per = E // n_model
     out = None
-    for m in range(n_model):
-        # model shard m's partial: its experts in expert order
-        part = torch.zeros(n * T, D, dtype=torch.float32, device=xs.device)
-        for e in range(m * per, (m + 1) * per):
-            part.index_add_(0, rows[e], y[e])
-        out = part if out is None else out + part      # the psum
+    with span("moe.combine"):
+        for m in range(n_model):
+            # model shard m's partial: its experts in expert order
+            part = torch.zeros(n * T, D, dtype=torch.float32,
+                               device=xs.device)
+            for e in range(m * per, (m + 1) * per):
+                part.index_add_(0, rows[e], y[e])
+            out = part if out is None else out + part      # the psum
     return out
 
 
-@torch.profiler.record_function(MOE_RANGE)
+@span(MOE_RANGE)
 def moe_single(p, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """x [B, S, D] -> [B, S, D] on one device (``_moe_single``)."""
     B, S, D = x.shape
@@ -179,13 +196,19 @@ def expert_load(p, x: torch.Tensor, cfg: MoEConfig, *, mesh=None,
         else _dp_shards(x, mesh, dp_axes)
     n, T, D = xs.shape
     gate_idx, _ = _route(p, xs.reshape(n * T, D), cfg)
-    load = torch.zeros(n, E, dtype=torch.long, device=x.device)
-    load.scatter_add_(1, gate_idx.reshape(n, -1),
-                      torch.ones_like(gate_idx).reshape(n, -1))
+    load = _load(gate_idx, n, E)
     return load[0] if mesh is None else load, moe_capacity(T, E, cfg)
 
 
-@torch.profiler.record_function(MOE_RANGE)
+def _load(gate_idx: torch.Tensor, n: int, E: int) -> torch.Tensor:
+    """The tokens each of ``n`` batch shards routes to each expert
+    ``[n, E]``, from the shards' stacked expert indices ``[n * T, k]``."""
+    load = torch.zeros(n, E, dtype=torch.long, device=gate_idx.device)
+    return load.scatter_add_(1, gate_idx.reshape(n, -1),
+                             torch.ones_like(gate_idx).reshape(n, -1))
+
+
+@span(MOE_RANGE)
 def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, *, mesh,
               model_axis: str = "model",
               dp_axes=("pod", "data")) -> torch.Tensor:

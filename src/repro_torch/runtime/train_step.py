@@ -14,7 +14,10 @@ forward and backward on the card) followed by
 arguments are left as they were and new trees are returned.
 ``grad_accum`` loops over microbatches and averages their gradients in
 f32; ``steps_per_call`` rolls K steps into one call over a batch with a
-leading ``[K]`` axis and returns ``[K]`` metrics.
+leading ``[K]`` axis and returns ``[K]`` metrics.  Under a profiler a
+step is the span ``train.step`` around ``train.forward`` and
+``train.backward`` (one of each a microbatch), a pod step's
+``train.pod_sync``, and ``train.optimizer`` (:mod:`repro_torch.core.trace`).
 
 *Meshes.*  A mesh (:mod:`repro_torch.core.mesh`) runs its devices as
 virtual shards on the one device.  Its data and model axes act through
@@ -74,6 +77,7 @@ from ..core import CostLedger, LPF_SYNC_DEFAULT, SyncAttributes
 from ..core.errors import LPFError, LPFFatalError, LPFTransientError
 from ..core.mesh import (VirtualMesh, dp_axes_of, mesh_shards,
                            model_axis_of, virtual_pods)
+from ..core.trace import span
 from ..models.blocks import Runtime
 from ..models.config import ModelConfig
 from ..models.lm import (ParamTree, decode_step, init_caches, init_params,
@@ -81,13 +85,9 @@ from ..models.lm import (ParamTree, decode_step, init_caches, init_params,
 from ..optim import AdamWConfig, adamw_init, adamw_update
 
 __all__ = ["TrainStep", "build_train_step", "ServeStep", "CapturedDecode",
-           "build_serve_step", "build_serve_buckets", "serve_axes",
-           "POD_SYNC_RANGE"]
+           "build_serve_step", "build_serve_buckets", "serve_axes"]
 
 Tree = Dict[str, Any]
-
-#: the ``torch.profiler`` range around a pod step's cross-pod sync
-POD_SYNC_RANGE = "pod_sync"
 
 
 # --------------------------------------------------------------------------
@@ -213,8 +213,11 @@ def build_train_step(cfg: ModelConfig, mesh: Optional[VirtualMesh] = None,
         leaves = list(params.parameters())
 
         def one(mb):
-            loss = loss_fn(params, mb, cfg, rt_)
-            return loss.detach(), torch.autograd.grad(loss, leaves)
+            with span("train.forward"):
+                loss = loss_fn(params, mb, cfg, rt_)
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves)
+            return loss.detach(), grads
 
         if grad_accum == 1:
             loss, grads = one(batch)
@@ -232,16 +235,19 @@ def build_train_step(cfg: ModelConfig, mesh: Optional[VirtualMesh] = None,
         return loss_sum / grad_accum, _fill(tree, (g / grad_accum
                                                    for g in g_sum))
 
+    @span("train.step")
     def plain_step(params: ParamTree, opt: Tree, batch: dict):
         loss, grads = loss_and_grads(params, batch)
-        new, opt, metrics = adamw_update(grads, opt, params.tree(), opt_cfg,
-                                         donate=donate)
+        with span("train.optimizer"):
+            new, opt, metrics = adamw_update(grads, opt, params.tree(),
+                                             opt_cfg, donate=donate)
         metrics["loss"] = loss
         return ParamTree(new, trainable=True), opt, metrics
 
     #: the batch signatures whose first step ledgered (JAX: one trace each)
     traced = set()
 
+    @span("train.step")
     def pod_step(params: ParamTree, opt: Tree, batch: dict):
         rows = next(iter(batch.values())).shape[0]
         if rows % npods:
@@ -274,7 +280,7 @@ def build_train_step(cfg: ModelConfig, mesh: Optional[VirtualMesh] = None,
             # bucket boundaries on layer boundaries: the stacked [q, L, ...]
             # group leaves split into per-layer [q, ...] views
             stacked, keys = _split_scan_layers(stacked, cfg)
-        with torch.profiler.record_function(POD_SYNC_RANGE):
+        with span("train.pod_sync"):
             synced = pod_allreduce(stacked, npods, "pod", attrs=sync_attrs,
                                    mean=True, ledger=led,
                                    method=grad_sync_method,
@@ -285,8 +291,9 @@ def build_train_step(cfg: ModelConfig, mesh: Optional[VirtualMesh] = None,
         grads = _restack_scan_layers(_map(lambda g: g[0], synced), keys)
         del synced
         loss = torch.stack(losses).sum() / npods
-        new, opt, metrics = adamw_update(grads, opt, params.tree(), opt_cfg,
-                                         donate=donate)
+        with span("train.optimizer"):
+            new, opt, metrics = adamw_update(grads, opt, params.tree(),
+                                             opt_cfg, donate=donate)
         metrics["loss"] = loss
         return ParamTree(new, trainable=True), opt, metrics
 
