@@ -18,9 +18,14 @@ same tokens and products.  The weighted outputs are then summed into the
 f32 output one expert at a time, in expert order, with one ``index_add_``
 each: indices are unique within an expert, so the sum is deterministic
 and in the reference's order (one scatter over all experts would add
-duplicate indices with atomics, in no fixed order).  Every shape is fixed
-by the call's shapes and nothing is read on the host, so a decode step
-through this block can be captured as a CUDA graph.
+duplicate indices with atomics, in no fixed order).  The combine is one
+autograd op (:class:`_Combine`) whose backward is one gather of the
+output's gradient at every expert's rows: recorded op by op, each
+``y[e]`` would make autograd fill a zero gradient of all of ``y`` and
+add the ``E`` of them, where the nonzero parts are that gather alone.
+Every shape is fixed by the call's shapes and nothing is read on the
+host, so a decode step through this block can be captured as a CUDA
+graph.
 
 Expert parallelism (:func:`moe_apply`, the JAX package's ``shard_map``
 body over a mesh's model axis) runs the mesh's devices as virtual shards
@@ -119,6 +124,37 @@ def _route(p, xt: torch.Tensor, cfg: MoEConfig
     return gate_idx, torch.softmax(gate_vals, dim=-1)
 
 
+class _Combine(torch.autograd.Function):
+    """The experts' weighted outputs ``y`` [E, R, D] added into the
+    output [n_rows, D] at their tokens' ``rows`` [E, R], in ``y``'s dtype
+    (f32 in the block): model shard ``m`` adds its experts into a partial
+    of its own in expert order, and the partials are summed in shard
+    order (the ``psum``).  Every partial takes the whole output's
+    gradient, so the gradient of ``y`` is that gradient gathered at
+    ``rows``: the values autograd gives the loop."""
+
+    @staticmethod
+    def forward(ctx, y, rows, n_model: int, n_rows: int):
+        E, _, D = y.shape
+        per = E // n_model
+        out = None
+        for m in range(n_model):
+            # model shard m's partial: its experts in expert order
+            part = y.new_zeros(n_rows, D)
+            for e in range(m * per, (m + 1) * per):
+                part.index_add_(0, rows[e], y[e])
+            out = part if out is None else out + part
+        ctx.save_for_backward(rows)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        rows, = ctx.saved_tensors
+        grad_y = grad_out.index_select(0, rows.reshape(-1)) \
+            .view(*rows.shape, grad_out.shape[-1])
+        return grad_y, None, None, None
+
+
 def _moe_shards(p, xs: torch.Tensor, cfg: MoEConfig, n_model: int
                 ) -> torch.Tensor:
     """xs [n, T, D], ``n`` batch shards of ``T`` tokens each, through the
@@ -155,17 +191,8 @@ def _moe_shards(p, xs: torch.Tensor, cfg: MoEConfig, n_model: int
     with span("moe.experts"):
         y = _local_expert_ffn(x_e, p["w_gate"], p["w_up"], p["w_down"])
         y = y.float() * sel_w[..., None]
-    per = E // n_model
-    out = None
     with span("moe.combine"):
-        for m in range(n_model):
-            # model shard m's partial: its experts in expert order
-            part = torch.zeros(n * T, D, dtype=torch.float32,
-                               device=xs.device)
-            for e in range(m * per, (m + 1) * per):
-                part.index_add_(0, rows[e], y[e])
-            out = part if out is None else out + part      # the psum
-    return out
+        return _Combine.apply(y, rows, n_model, n * T)
 
 
 @span(MOE_RANGE)

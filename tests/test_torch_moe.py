@@ -28,12 +28,14 @@ f32 runs hold the published routing.
 """
 
 import dataclasses
+import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils import checkpoint
 
 from repro.configs import get_config as jax_get_config
 from repro.core import compat
@@ -61,6 +63,7 @@ from repro_torch.interop import (opt_state_from_jax, params_from_jax,
                                  params_to_numpy)
 from repro_torch.launch import one_card_config
 from repro_torch.launch import serve as serve_mod
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import (BlockCfg, Group, Runtime, cast_params,
                                 count_params, decode_step, forward,
                                 init_caches, init_params, load_params,
@@ -371,6 +374,173 @@ def test_moe_block_apply_matches_jax(shared):
     got = blocks.block_apply(tp, torch.from_numpy(x), bcfg, cfg, CPU,
                              torch.from_numpy(pos.copy()))
     assert rel(got, want) < MOE_F32_BAR * 10
+
+
+# --------------------------------------------------------------------------
+# the combine: one autograd op whose backward is one gather
+# --------------------------------------------------------------------------
+
+def loop_combine(y, rows, n_model, n_rows):
+    """The combine recorded op by op: each model shard's experts added
+    into its f32 partial with one ``index_add_`` each, in expert order,
+    the partials summed in shard order.  Its backward selects each
+    ``y[e]``'s gradient out of a zero-filled gradient of all of ``y``."""
+    E, _, D = y.shape
+    per = E // n_model
+    out = None
+    for m in range(n_model):
+        part = torch.zeros(n_rows, D, dtype=torch.float32, device=y.device)
+        for e in range(m * per, (m + 1) * per):
+            part.index_add_(0, rows[e], y[e])
+        out = part if out is None else out + part
+    return out
+
+
+#: (MoE case, mesh or None for ``moe_single``, top_k or None for the
+#: case's): one device, and the virtual meshes whose model shards each
+#: sum a partial (2 and 4) or whose batch shards each route their own
+#: tokens.  At top-4 a token's output sums 4 experts' outputs, so the
+#: order of the adds shows in the rounding (at top-2 it cannot)
+COMBINE_CASES = {
+    **{f"single-{c}": (c, None, None) for c in MOE_CASES},
+    "single-top4": ("granite-smoke", None, 4),
+    "model2": ("granite-smoke", (1, 1, 2), None),
+    "model4": ("granite-smoke", (1, 1, 4), None),
+    "model4-top4": ("granite-smoke", (1, 1, 4), 4),
+    "dp2": ("granite-smoke", (1, 2, 1), None),
+    "dp2-model2": ("drops", (1, 2, 2), None),
+}
+
+
+def _combine_case(name):
+    """(the block's function of (leaves, x), port leaves, x [2, 32, 128])
+    in f32 for a case of ``COMBINE_CASES``."""
+    case, shape, top_k = COMBINE_CASES[name]
+    mcfg = moe_cfg(case)
+    if top_k is not None:
+        mcfg = dataclasses.replace(mcfg, top_k=top_k)
+    if shape is not None:
+        mcfg = dataclasses.replace(mcfg, ep_degree=max(mcfg.ep_degree,
+                                                       shape[-1]))
+    tp = moe.moe_params(torch.Generator().manual_seed(7), mcfg,
+                        torch.float32, "cpu")
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 32, mcfg.d_model)).astype(np.float32))
+    if shape is None:
+        return (lambda p, x: moe.moe_single(p, x, mcfg)), tp, x
+    mesh = make_mesh(shape)
+    return (lambda p, x: moe.moe_apply(p, x, mcfg, mesh=mesh)), tp, x
+
+
+@pytest.mark.parametrize("name", COMBINE_CASES)
+def test_combine_is_bit_identical_to_the_per_expert_loop(name, monkeypatch):
+    """The block's output and the gradients of every leaf and of ``x``
+    equal, bit for bit, those of the combine recorded op by op."""
+    fn, tp, x0 = _combine_case(name)
+    dy = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        tuple(x0.shape)).astype(np.float32))
+
+    def run():
+        leaves = {k: v.clone().requires_grad_() for k, v in tp.items()}
+        x = x0.clone().requires_grad_()
+        out = fn(leaves, x)
+        out.backward(dy)
+        return out.detach(), x.grad, {k: v.grad for k, v in leaves.items()}
+
+    out, gx, gp = run()
+    with monkeypatch.context() as mp:
+        mp.setattr(moe._Combine, "apply", loop_combine)
+        want, want_gx, want_gp = run()
+    assert torch.equal(out, want)
+    assert torch.equal(gx, want_gx)
+    assert gp.keys() == want_gp.keys()
+    for k in gp:
+        assert torch.equal(gp[k], want_gp[k]), k
+
+
+def _nodes(out):
+    """Every autograd node behind ``out``, each once."""
+    seen, todo = {}, [out.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or id(node) in seen:
+            continue
+        seen[id(node)] = node
+        todo.extend(nxt for nxt, _ in node.next_functions)
+    return list(seen.values())
+
+
+def test_combine_is_one_autograd_node():
+    """The combine's backward is one node, fed by the gate product: no
+    ``SelectBackward0`` of ``y`` (each one fills a gradient of all of
+    ``y``) and no chain of per-expert ``IndexAddBackward0``."""
+    fn, tp, x = _combine_case("single-padded")
+    leaves = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    nodes = _nodes(fn(leaves, x))
+    names = [n.name() for n in nodes]
+    assert names.count("_CombineBackward") == 1
+    assert "SelectBackward0" not in names
+    assert "IndexAddBackward0" not in names
+    node = nodes[names.index("_CombineBackward")]
+    assert [nxt.name() for nxt, _ in node.next_functions
+            if nxt is not None] == ["MulBackward0"]
+
+
+@pytest.mark.parametrize("n_model", [1, 2])
+def test_combine_gradcheck_with_padded_experts_and_drops(n_model,
+                                                         monkeypatch):
+    """``torch.autograd.gradcheck`` of the op in f64, at the rows of a
+    real call with 2 padded experts and a capacity that drops tokens
+    (the widths cut to 4, so the Jacobians stay small)."""
+    mcfg = dataclasses.replace(moe_cfg("drops"), ep_degree=4)
+    tp = moe.moe_params(torch.Generator().manual_seed(3), mcfg,
+                        torch.float32, "cpu")
+    x = torch.randn(2, 32, mcfg.d_model,
+                    generator=torch.Generator().manual_seed(3))
+    seen = []
+    real = moe._Combine.apply
+    monkeypatch.setattr(moe._Combine, "apply",
+                        lambda *a: seen.append(a) or real(*a))
+    moe.moe_single(tp, x, mcfg)
+    _, rows, _, n_rows = seen[0]
+    E, cap = rows.shape
+    assert E == 8 > mcfg.n_experts
+    assert len(rows.unique()) < n_rows        # some tokens go nowhere
+    y = torch.randn(E, cap, 4, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(4),
+                    requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda y: real(y, rows, n_model, n_rows), (y,))
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_combine_backward_is_in_the_combine_range(remat):
+    """Under the profiler, the op's backward node belongs to the
+    ``moe.combine`` range and the block's (``moe_combine_share``,
+    ``moe_share``), with the block run plainly and under a remat
+    checkpoint as the train step runs it."""
+    from lpfbench import harness
+    fn, tp, x = _combine_case("single-drops")
+    leaves = {k: v.clone().requires_grad_() for k, v in tp.items()}
+
+    def step():
+        if remat == "full":
+            out = checkpoint.checkpoint(fn, leaves, x, use_reentrant=False)
+        else:
+            out = fn(leaves, x)
+        out.square().sum().backward()
+
+    with harness.Window(time.perf_counter(), 60.0, torch.device("cpu"),
+                        trace=True) as w:
+        step()
+    node = "autograd::engine::evaluate_function: _CombineBackward"
+    for name in ("moe.combine", moe.MOE_RANGE):
+        names = [e.name for e in w.profile.range_ops(name)]
+        assert names.count(node) == 1, name
+    # the forward's (and the recompute's) per-expert adds are the range's
+    combine = [e.name for e in w.profile.range_ops("moe.combine")]
+    assert combine.count("aten::index_add_") == tp["w_gate"].shape[0] * (
+        2 if remat == "full" else 1)
 
 
 # --------------------------------------------------------------------------
