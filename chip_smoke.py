@@ -97,7 +97,7 @@ The llama3.2-1b training path (f32 masters, bf16 compute, ``remat="full"``,
     gemma2-9b's local layer, window 4096 and soft-cap 50, and its global
     layer at [1, 16, 8, 8192, 256]; llava's [4, 32, 8, 2048, 128];
     qwen3-14b's [4, 40, 8, 2048, 128]; whisper-base's [16, 8, 8, 1500, 64]
-    non-causal and causal), all bf16: in
+    non-causal and causal; ``VLM_SHAPES``), all bf16: in
     f32 each gradient within 5e-4 of the largest plain one (the
     JAX backward test's bar); in bf16 each row of dq, dk, dv within 2^-6 of
     the row's largest |plain| (``grad_row_err``), also against the plain
@@ -322,7 +322,10 @@ compute, each model freed before the next, the card's name and power
 limit printed with each phase's numbers) adds, after (v); (b) gains
 llava's attention [4, 32, 8, 2048, 128] causal and whisper's encoder
 [16, 8, 8, 1500, 64] non-causal (1500 = 11 x 128 + 92 keys: the last key
-tile masked by length alone) and its decoder's, causal:
+tile masked by length alone) and its decoder's, causal; (b) and (g) also
+hold the benchmark's llava cell with its vision tower (``VLM_SHAPES``):
+the tower's [10, 16, 16, 577, 64] non-causal (577 = 4 x 128 + 65) and the
+decoder's [2, 32, 8, 4096, 128] causal:
 
 (w) llava-next-mistral-7b whole, this slice's main path (32 layers, d
     4096, GQA 32/8, head dim 128, 7.24 B): load seconds and peak; prefill
@@ -517,6 +520,14 @@ DENSE_FWD_SHAPES = [
     (4, 40, 8, 2048, 128, True, None, None, "bfloat16"),
     (1, 64, 8, 2048, 128, True, None, None, "bfloat16"),
 ]
+# the benchmark's llava-next-mistral-7b cell with its vision tower
+# (lpfbench llava-train-b2s4096-672px, in (b) and (g)): the tower's
+# non-causal attention over 10 tiles (2 images of 5) of 577 = 4 x 128 + 65
+# positions, 16 heads of 64, and the decoder's causal at B 2 x S 4096
+VLM_SHAPES = [
+    (10, 16, 16, 577, 64, False, None, None, "bfloat16"),
+    (2, 32, 8, 4096, 128, True, None, None, "bfloat16"),
+]
 # (g) adds the backward shapes of (ae)'s training paths: gemma2-9b's local
 # layer (window 4096, soft-cap 50) and global layer at B 1 x S 8192 (head
 # dim 256), llava-next-mistral-7b's (group 4) and qwen3-14b's (group 5) at
@@ -530,7 +541,7 @@ STACK_BWD_SHAPES = [
     (4, 40, 8, 2048, 128, True, None, None, "bfloat16"),
     (16, 8, 8, 1500, 64, False, None, None, "bfloat16"),
     (16, 8, 8, 1500, 64, True, None, None, "bfloat16"),
-]
+] + VLM_SHAPES
 # the main path's shapes: the prefill (b) and the training step (g)
 MAIN_FWD_SHAPE = [PREFILL_B, 32, 8, PREFILL_S, 64]
 # bf16 o row by row: |o - o_plain| within 2^-6 of the row's largest
@@ -647,7 +658,7 @@ STACK_FWD_SHAPES = [
     (LLAVA_B, 32, 8, 2048, 128, True, None, None, "bfloat16"),
     (WHISPER_B, 8, 8, WHISPER_S, 64, False, None, None, "bfloat16"),
     (WHISPER_B, 8, 8, WHISPER_S, 64, True, None, None, "bfloat16"),
-]
+] + VLM_SHAPES
 # (ae) training on the card for the four other attention families, each
 # arch's (layers kept or None for whole, B, text tokens): whisper-base
 # whole at B 16 x 1500 tokens and 1500 frames, as (x);

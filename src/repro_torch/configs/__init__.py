@@ -9,6 +9,10 @@ granite-moe-3b-a800m and deepseek-v3-671b (MLA blocks and multi-token
 prediction), the hybrid jamba-v0.1-52b, the vision-prefix model
 llava-next-mistral-7b and the encoder-decoder whisper-base.  The JAX
 package's assigned shape set (:mod:`.shapes`) is exported beside them.
+
+``VARIANTS`` holds the port's own configurations, which ``get_config``
+resolves too but which are no architecture of the JAX package (so not in
+``ARCHS``): llava-next-mistral-7b with its real vision tower.
 """
 
 from __future__ import annotations
@@ -30,13 +34,20 @@ REGISTRY: Dict[str, Tuple[Callable, Callable]] = {
 
 ARCHS = tuple(REGISTRY)
 
+VARIANTS: Dict[str, Tuple[Callable, Callable]] = {
+    llava_next_mistral_7b.TOWER_ARCH: (
+        llava_next_mistral_7b.tower_config,
+        llava_next_mistral_7b.tower_smoke_config),
+}
+
 
 def get_config(arch: str, *, smoke: bool = False, ep_degree: int = 16):
-    if arch not in REGISTRY:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(REGISTRY)}")
-    full, small = REGISTRY[arch]
+    known = {**REGISTRY, **VARIANTS}
+    if arch not in known:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(known)}")
+    full, small = known[arch]
     return small() if smoke else full(ep_degree=ep_degree)
 
 
-__all__ = ["REGISTRY", "ARCHS", "get_config", "SHAPES", "ShapeCell",
-           "applicable", "input_specs"]
+__all__ = ["REGISTRY", "ARCHS", "VARIANTS", "get_config", "SHAPES",
+           "ShapeCell", "applicable", "input_specs"]

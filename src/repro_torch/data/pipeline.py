@@ -8,7 +8,10 @@ token stream has learnable structure (a noisy affine next-token rule over
 a zipf-ish marginal) so training loss demonstrably decreases.  Given the
 model config, the modality stubs synthesise patch embeddings (``embeds``
 [B, stub_prefix, d_model], vision) or encoder frames (``frames`` [B, S,
-d_model], audio with an encoder) with the same determinism.
+d_model], audio with an encoder) with the same determinism; a model with
+a vision tower (the port's ``VLMConfig``) gets image tiles instead
+(``pixels`` [B, n_tiles, 3, s, s], N(0, 1), the scale of an image
+processor's normalised output).
 """
 
 from __future__ import annotations
@@ -62,7 +65,12 @@ class SyntheticStream:
         out = {"tokens": toks.astype(np.int32),
                "labels": labels.astype(np.int32)}
         mc = self.model_cfg
-        if mc is not None and mc.modality == "vision":
+        if mc is not None and mc.vision is not None:
+            v = mc.vision
+            out["pixels"] = rng.standard_normal(
+                (B, v.n_tiles, 3, v.image_size, v.image_size)
+            ).astype(np.float32)
+        elif mc is not None and mc.modality == "vision":
             out["embeds"] = rng.standard_normal(
                 (B, mc.stub_prefix, mc.d_model)).astype(np.float32)
         if mc is not None and mc.modality == "audio" and mc.encoder_groups:

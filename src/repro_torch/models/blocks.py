@@ -12,7 +12,11 @@ compressed cache ``ckv``/``krope`` at decode); the Mamba-2 mixer
 cross-attention (``cross_attn=True``: K/V from the encoder's output, no
 RoPE, not causal; a decode step recomputes them from ``enc_out`` every
 step, as the JAX package does).  The feed-forward blocks: dense and MoE
-(``ffn="dense"``, ``ffn="moe"`` with an optional shared expert).
+(``ffn="dense"``, ``ffn="moe"`` with an optional shared expert), and a
+vision tower's MLP (``ffn="gelu"`` or ``"quick_gelu"``: two matrices
+with biases around that activation, :func:`fc_mlp`).  An attention
+block's output projection adds the bias ``attn.bo`` where the tree holds
+one (a CLIP tower's, :mod:`.vision`).
 
 A :class:`Runtime` with a mesh and a model axis (``distributed``, as in
 the JAX package) runs the two blocks whose ``shard_map`` bodies change
@@ -58,7 +62,7 @@ from .mamba import (mamba_apply, mamba_decode_step, mamba_init_cache,
 from .moe import moe_apply, moe_params, moe_single
 
 __all__ = ["block_params", "block_apply", "block_decode",
-           "block_init_cache", "Runtime"]
+           "block_init_cache", "Runtime", "fc_params", "fc_mlp", "FC_ACTS"]
 
 Tree = Dict[str, Any]
 
@@ -144,6 +148,23 @@ def _mlp_params(gen, cfg: ModelConfig, dtype, device) -> Tree:
             "w_down": init((cfg.d_ff, cfg.d_model))}
 
 
+#: the activations of :func:`fc_mlp`, by ``BlockCfg.ffn`` name: exact
+#: GELU, and CLIP's ``quick_gelu`` x * sigmoid(1.702 x)
+FC_ACTS = {"gelu": torch.nn.functional.gelu,
+           "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x)}
+
+
+def fc_params(gen, d_in: int, d_hidden: int, d_out: int, dtype,
+              device) -> Tree:
+    """A two-matrix MLP with biases (:func:`fc_mlp`); the biases start
+    at 0."""
+    init = lambda shape: dense_init(gen, shape, dtype=dtype, device=device)
+    return {"w_in": init((d_in, d_hidden)),
+            "b_in": torch.zeros(d_hidden, dtype=dtype, device=device),
+            "w_out": init((d_hidden, d_out)),
+            "b_out": torch.zeros(d_out, dtype=dtype, device=device)}
+
+
 def block_params(gen: torch.Generator, bcfg: BlockCfg, cfg: ModelConfig,
                  dtype, device) -> Tree:
     """One block's parameters, drawn from ``gen`` (on ``device``)."""
@@ -164,6 +185,10 @@ def block_params(gen: torch.Generator, bcfg: BlockCfg, cfg: ModelConfig,
         p["ln_x"] = _norm_params(cfg.d_model, cfg.norm, device)
     if bcfg.ffn == "dense":
         p["mlp"] = _mlp_params(gen, cfg, dtype, device)
+        p["ln2"] = _norm_params(cfg.d_model, cfg.norm, device)
+    elif bcfg.ffn in FC_ACTS:
+        p["mlp"] = fc_params(gen, cfg.d_model, cfg.d_ff, cfg.d_model, dtype,
+                             device)
         p["ln2"] = _norm_params(cfg.d_model, cfg.norm, device)
     elif bcfg.ffn == "moe":
         p["moe"] = moe_params(gen, cfg.moe, dtype, device)
@@ -187,13 +212,23 @@ def _mlp(p, x):
         @ p["w_down"]
 
 
+def fc_mlp(p, x, act: str):
+    """``act(x @ w_in + b_in) @ w_out + b_out``, the biases in x's
+    dtype."""
+    h = FC_ACTS[act](x @ p["w_in"] + p["b_in"].to(x.dtype))
+    return h @ p["w_out"] + p["b_out"].to(x.dtype)
+
+
 def _ffn_fwd(p, h, cfg: ModelConfig, bcfg: BlockCfg,
              rt: Runtime) -> torch.Tensor:
-    """The feed-forward half of a block on h [B, S, D]: the dense MLP, or
-    the MoE block (plus the shared expert where the config has one),
-    over the runtime's mesh where it is ``distributed``."""
+    """The feed-forward half of a block on h [B, S, D]: the dense MLP, a
+    tower's biased MLP, or the MoE block (plus the shared expert where
+    the config has one), over the runtime's mesh where it is
+    ``distributed``."""
     if bcfg.ffn == "dense":
         return _mlp(p["mlp"], h)
+    if bcfg.ffn in FC_ACTS:
+        return fc_mlp(p["mlp"], h, bcfg.ffn)
     if rt.distributed:
         out = moe_apply(p["moe"], h, cfg.moe, mesh=rt.mesh,
                         model_axis=rt.model_axis, dp_axes=rt.dp_axes)
@@ -239,7 +274,10 @@ def _attn_fwd(p, h, cfg: ModelConfig, bcfg: BlockCfg, positions,
                   causal=bcfg.causal and kv_override is None,
                   window=bcfg.window, softcap=cfg.attn_softcap,
                   q_chunk=cfg.q_chunk)
-    return o.reshape(B, S, cfg.n_heads * hd) @ p["wo"], (k, v)
+    out = o.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
+    if "bo" in p:
+        out = out + p["bo"].to(out.dtype)
+    return out, (k, v)
 
 
 def _mla_fwd(p, h, cfg: ModelConfig, bcfg: BlockCfg, positions):

@@ -1,8 +1,9 @@
 """The language model on one device: embed -> block groups -> head, with
 the training loss, prefill and single-token greedy decode, for
-decoder-only, encoder-decoder (audio) and stub-multimodal (vision)
-architectures: attention, MLA and Mamba-2 mixers, cross-attention, dense
-and MoE feed-forward blocks, and multi-token prediction (MTP).
+decoder-only, encoder-decoder (audio), stub-multimodal (vision) and
+vision-tower (:class:`~.config.VLMConfig`, :mod:`.vision`) architectures:
+attention, MLA and Mamba-2 mixers, cross-attention, dense and MoE
+feed-forward blocks, and multi-token prediction (MTP).
 
 Parameters live in a :class:`ParamTree`, an ``nn.Module`` whose
 parameters are named as in the JAX tree (``embed``, ``final_norm.w``,
@@ -16,6 +17,8 @@ Batch conventions (as in ``repro.models.lm``)::
     train:    {"tokens" [B, S] int, "labels" [B, S] int (-1 = masked),
                optional "embeds" [B, P, D] (vision stub, prepended; the
                logits cover the S text positions only),
+               or "pixels" [B, T, 3, s, s] (a VLMConfig's tiles: the
+               tower's packed image positions, prepended likewise),
                optional "frames" [B, Se, D] (audio stub -> encoder)}
     prefill:  the same without "labels"
     decode:   decode_step(params, token [B] int, caches, pos, cfg, rt,
@@ -48,6 +51,8 @@ from torch.utils import checkpoint as _ckpt
 
 from ..core.context import resolve_device
 from ..core.errors import LPFFatalError
+from ..core.trace import count, span, tracing
+from . import vision
 from .blocks import (Runtime, block_apply, block_decode, block_init_cache,
                      block_params)
 from .common import (dense_init, dtype_of, layer_norm, rms_norm,
@@ -172,6 +177,14 @@ def _init_tree(key: Union[int, torch.Generator], cfg: ModelConfig, dev,
                                        dtype=dtype, device=dev))
         blk = block_params(gen, cfg.groups[-1].blocks[-1], cfg, dtype, dev)
         p["mtp_block"] = blk if cdt is None else _cast_params(blk, cdt)
+    if cfg.vision is not None:
+        vp = vision.frontend_params(gen, cfg, dtype, dev)
+        if cdt is not None:
+            vp = _cast_params(vp, cdt)
+        tcfg = vision.tower_config(cfg)
+        vp["layers"] = vision.output_bias(
+            _group_params(gen, tcfg.groups[0], tcfg, dtype, dev, cdt), dtype)
+        p["vision"] = vp
     return p
 
 
@@ -217,13 +230,23 @@ def _cast_params(tree: Tree, cdt: torch.dtype, stacked: bool = False
     return _map(one, tree)
 
 
+def _cast_vision(vp: Tree, cdt) -> Tree:
+    """The vision frontend's leaves cast as :func:`_cast_params` casts,
+    its tower's ``layers`` as stacked leaves."""
+    out = _cast_params({k: v for k, v in vp.items() if k != "layers"}, cdt)
+    out["layers"] = _cast_params(vp["layers"], cdt, stacked=True)
+    return out
+
+
 def cast_params(params: ParamTree, cfg: ModelConfig) -> ParamTree:
     """The parameters with every weight matrix cast once to
     ``cfg.compute_dtype`` — the same values every call casts to."""
     cdt = dtype_of(cfg.compute_dtype)
-    return ParamTree({k: _cast_params(v, cdt, stacked=k.startswith(
-        ("dec_", "enc_"))) if isinstance(v, dict) else _cast_params(
-        {k: v}, cdt)[k] for k, v in params.tree().items()})
+    return ParamTree({k: _cast_vision(v, cdt) if k == "vision"
+                      else _cast_params(v, cdt, stacked=k.startswith(
+                          ("dec_", "enc_"))) if isinstance(v, dict)
+                      else _cast_params({k: v}, cdt)[k]
+                      for k, v in params.tree().items()})
 
 
 # --------------------------------------------------------------------------
@@ -251,7 +274,8 @@ def _layers(gp: Tree, repeats: int) -> List[Tree]:
 
 def _top(params: ParamTree, cdt) -> Tree:
     return _cast_params({k: v for k, v in params.tree().items()
-                         if not k.startswith(("dec_", "enc_"))}, cdt)
+                         if not k.startswith(("dec_", "enc_", "vision"))},
+                        cdt)
 
 
 def _final_norm(x, p, cfg: ModelConfig):
@@ -305,24 +329,29 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _layer(layer_p: Tree, x, enc_out, g: Group, cfg: ModelConfig,
-           rt: Runtime, positions, cdt) -> torch.Tensor:
-    """One layer, checkpointed per ``cfg.remat`` when autograd records:
-    ``"full"`` saves only the layer's input and recomputes the layer in
-    the backward, ``"dots"`` also saves its matrix products, ``"none"``
-    saves everything."""
-    fn = functools.partial(_apply_layer, g=g, cfg=cfg, rt=rt,
-                           positions=positions, cdt=cdt)
-    if not torch.is_grad_enabled() or cfg.remat == "none":
+def _remat(fn, remat: str, layer_p: Tree, x, enc_out) -> torch.Tensor:
+    """``fn(layer_p, x, enc_out)``, checkpointed per ``remat`` when
+    autograd records: ``"full"`` saves only the layer's input and
+    recomputes the layer in the backward, ``"dots"`` also saves its
+    matrix products, ``"none"`` saves everything."""
+    if not torch.is_grad_enabled() or remat == "none":
         return fn(layer_p, x, enc_out)
-    if cfg.remat == "full":
+    if remat == "full":
         return _ckpt.checkpoint(fn, layer_p, x, enc_out, use_reentrant=False)
-    if cfg.remat == "dots":
+    if remat == "dots":
         return _ckpt.checkpoint(
             fn, layer_p, x, enc_out, use_reentrant=False,
             context_fn=functools.partial(
                 _ckpt.create_selective_checkpoint_contexts, _dots_policy))
-    raise LPFFatalError(f"remat={cfg.remat!r}: expected full, dots or none")
+    raise LPFFatalError(f"remat={remat!r}: expected full, dots or none")
+
+
+def _layer(layer_p: Tree, x, enc_out, g: Group, cfg: ModelConfig,
+           rt: Runtime, positions, cdt) -> torch.Tensor:
+    """One layer, checkpointed per ``cfg.remat`` (:func:`_remat`)."""
+    fn = functools.partial(_apply_layer, g=g, cfg=cfg, rt=rt,
+                           positions=positions, cdt=cdt)
+    return _remat(fn, cfg.remat, layer_p, x, enc_out)
 
 
 def _run_groups(tree: Tree, prefix: str, groups, x, enc_out,
@@ -350,19 +379,59 @@ def _run_encoder(params: ParamTree, frames, cfg: ModelConfig,
     return _final_norm(x, tree["enc_final_norm"], cfg)
 
 
+@span(vision.VISION_RANGE)
+def _image_prefix(vp: Tree, pixels, cfg: ModelConfig, rt: Runtime, cdt
+                  ) -> torch.Tensor:
+    """A VLMConfig's image positions [B, n_positions, D] in ``cdt`` from
+    ``pixels`` [B, n_tiles, 3, s, s] (:mod:`.vision`): the tower's run
+    layers, each checkpointed as the decoder's are and run inside its
+    ``vision.layer`` span (entered again by the layer's remat
+    recompute), the projector and anyres packing."""
+    v = cfg.vision
+    tcfg = vision.tower_config(cfg)
+    (g,) = tcfg.groups
+    apply = functools.partial(_apply_layer, g=g, cfg=tcfg, rt=rt,
+                              positions=None, cdt=cdt)
+
+    def layer(layer_p, x, enc_out):
+        with span(vision.LAYER_RANGE):
+            return apply(layer_p, x, enc_out)
+    px = torch.as_tensor(pixels, device=rt.device)
+    B, T = px.shape[:2]
+    if tracing() and torch._C._current_graph_task_id() == -1:
+        # once a forward (never in a backward's recompute)
+        count("vision.tiles", B * T)
+        count("vision.positions", B * v.n_positions)
+    top = _cast_params({k: a for k, a in vp.items() if k != "layers"}, cdt)
+    with span("vision.tower"):
+        x = vision.embed_tiles(top, px.reshape(B * T, *px.shape[2:]), v, cdt)
+        for layer_p in _layers(vp["layers"], g.repeats):
+            x = _remat(layer, tcfg.remat, layer_p, x, None)
+    with span("vision.project"):
+        f = vision.project(top["proj"], x[:, 1:], v)
+    with span("vision.pack"):
+        return vision.pack(f.reshape(B, T, v.n_patches, -1), top["newline"],
+                           v)
+
+
 def _hidden(params: ParamTree, batch: dict, cfg: ModelConfig, rt: Runtime,
             top: Tree):
-    """Embed (the vision stub's ``embeds`` before the tokens), run the
-    encoder on ``frames`` where the model has one, and every decoder
-    group; returns the final hidden states [B, S, D] before the final
-    norm, the positions [B, S] and the prefix length (0 without
-    ``embeds``)."""
+    """Embed (the image positions of a VLMConfig's ``pixels``, or the
+    vision stub's ``embeds``, before the tokens), run the encoder on
+    ``frames`` where the model has one, and every decoder group; returns
+    the final hidden states [B, S, D] before the final norm, the
+    positions [B, S] and the prefix length (0 without either)."""
     cdt = dtype_of(cfg.compute_dtype)
     tokens = torch.as_tensor(batch["tokens"], device=rt.device).long()
     x = _embed_tokens(top, tokens, cfg).to(cdt)
-    n_prefix = 0
-    if cfg.modality == "vision" and "embeds" in batch:
+    emb = None
+    if cfg.vision is not None and "pixels" in batch:
+        emb = _image_prefix(params.tree()["vision"], batch["pixels"], cfg,
+                            rt, cdt)
+    elif cfg.modality == "vision" and "embeds" in batch:
         emb = torch.as_tensor(batch["embeds"], device=rt.device).to(cdt)
+    n_prefix = 0
+    if emb is not None:
         n_prefix = emb.shape[1]
         x = torch.cat([emb, x], dim=1)
     B, S, _ = x.shape
